@@ -7,9 +7,10 @@ module layout follows the reference's, so each module here has one
 counterpart there.  This package imports PyTorch and numpy, never JAX.
 
 Ported so far: the whole-swarm protocol tick (``swarm_tick``,
-``swarm_rollout``, ``VectorSwarm``) with dense, kernel ("pallas") or no
-separation and greedy allocation.  The kernel is hand-written CUDA C++
-(``csrc/separation.cu``), built with ``nvcc`` on first use.
+``swarm_rollout``, ``VectorSwarm``) with dense, all-pairs kernel
+("pallas"), Morton-window kernel ("window") or no separation, and greedy
+allocation.  The kernels are hand-written CUDA C++ (``csrc/separation.cu``,
+``csrc/window_separation.cu``), built with ``nvcc`` on first use.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.

@@ -57,10 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_swarm.add_argument("--spread", type=float, default=10.0)
     p_swarm.add_argument("--target", nargs="+", default=None)
     p_swarm.add_argument(
-        "--separation", default="dense", choices=["dense", "pallas", "off"],
+        "--separation", default="dense",
+        choices=["dense", "pallas", "window", "off"],
         help="neighbor separation: dense all-pairs broadcast, pallas "
              "(exact all pairs by the CUDA kernel; the name is the "
-             "config value of the JAX package), or off",
+             "config value of the JAX package), window (the +-16 "
+             "Morton-order neighbours by the CUDA kernel; approximate, "
+             "for very large N), or off",
     )
     p_swarm.add_argument(
         "--device", default=None, choices=["cuda", "cpu"],

@@ -5,8 +5,10 @@ the JAX package.
 agent at once: coordination (election, heartbeat, failure detection), task
 allocation, then physics.  ``swarm_rollout`` runs ticks in a Python loop
 (PyTorch runs eagerly, so there is nothing to compile), and ``VectorSwarm``
-is the user-facing handle.  A tick never waits for the device: on CUDA the
-host only enqueues work until someone reads a value.
+is the user-facing handle.  A rollout never waits for the device: on CUDA
+the host only enqueues work until someone reads a value.  The one
+exception is a lone ``swarm_tick`` in window mode with ``sort_every > 1``,
+which reads the tick counter to keep its re-sort cadence.
 """
 
 from __future__ import annotations
@@ -18,11 +20,46 @@ import torch
 
 from ..ops.allocation import allocation_step, task_status_view
 from ..ops.coordination import coordination_step, current_leader, kill, revive
+from ..ops.neighbors import morton_keys
 from ..ops.physics import physics_step
-from ..state import SwarmState, make_swarm, with_tasks
+from ..state import SwarmState, make_swarm, sort_agents_by_key, with_tasks
 from ..utils.config import DEFAULT_CONFIG, SwarmConfig
 from ..utils.platform import DeviceLike
 from ._checkpoint import CheckpointMixin
+
+
+def _permuting(cfg: SwarmConfig) -> bool:
+    """Whether ticks reorder the agent axis: window separation with a
+    Morton re-sort cadence.  Array slots are then internal; identity
+    lives in ``agent_id``."""
+    return cfg.separation_mode == "window" and cfg.sort_every > 1
+
+
+def _morton_sorted(state: SwarmState, cfg: SwarmConfig) -> SwarmState:
+    return sort_agents_by_key(state, morton_keys(state.pos, cfg.grid_cell))
+
+
+def _protocol_steps(
+    state: SwarmState,
+    cfg: SwarmConfig,
+    sort_in_tick: bool,
+    jitter: Optional[torch.Tensor] = None,
+) -> SwarmState:
+    """The tick before physics: tick stamp, the cadenced Morton re-sort
+    (window mode), coordination, allocation."""
+    state = state.replace(tick=state.tick + 1)
+    if sort_in_tick and _permuting(cfg):
+        # Keep the agent axis approximately Morton-sorted so the window
+        # pass runs on the state's own order.  tick % sort_every == 1
+        # fires on the first tick of a fresh swarm, then every sort_every
+        # ticks.  The JAX package decides on the device; here the host
+        # reads the tick, the tick's one wait for the device, and only in
+        # this mode.  swarm_rollout keeps the cadence on the host and
+        # never comes here.
+        if int(state.tick) % cfg.sort_every == 1:
+            state = _morton_sorted(state, cfg)
+    state = coordination_step(state, cfg, jitter)
+    return allocation_step(state, cfg)
 
 
 def swarm_tick(
@@ -30,17 +67,18 @@ def swarm_tick(
     obstacles: Optional[torch.Tensor],
     cfg: SwarmConfig,
     jitter: Optional[torch.Tensor] = None,
+    sort_in_tick: bool = True,
 ) -> SwarmState:
-    """One synchronous tick.  ``jitter`` ([N] i32) replaces the election
-    jitter drawn from ``state.gen`` (see ``coordination_step``)."""
+    """One synchronous tick.  ``jitter`` ([N] i32, by slot after any
+    re-sort) replaces the election jitter drawn from ``state.gen`` (see
+    ``coordination_step``).  ``sort_in_tick=False`` drops the cadenced
+    Morton re-sort, for callers that keep the cadence themselves."""
     if cfg.telemetry.enabled:
         raise NotImplementedError(
             "the in-tick flight recorder is not ported yet (ROADMAP Queue "
             "A item 11: utils/telemetry.py)"
         )
-    state = state.replace(tick=state.tick + 1)
-    state = coordination_step(state, cfg, jitter)
-    state = allocation_step(state, cfg)
+    state = _protocol_steps(state, cfg, sort_in_tick, jitter)
     return physics_step(state, obstacles, cfg)
 
 
@@ -55,16 +93,26 @@ def swarm_rollout(
     """``n_steps`` ticks.  Returns the final state or, with ``record``,
     ``(state, traj)``: the ``[n_steps, N, D]`` positions after each tick in
     agent-id order.  ``jitter`` is an optional ``[n_steps, N]`` i32 of
-    per-tick election jitter."""
+    per-tick election jitter.
+
+    In window mode with ``sort_every > 1`` the ticks run in chunks of
+    ``sort_every`` (the last chunk may be shorter), each opening with one
+    unconditional Morton re-sort of the whole state, and the ticks inside
+    run without the in-tick re-sort: the cadence is known here, so no
+    tick waits for the device."""
     if jitter is not None and jitter.shape != (n_steps, state.n_agents):
         raise ValueError(
             f"jitter must be [{n_steps}, {state.n_agents}], got "
             f"{tuple(jitter.shape)}"
         )
+    permuting = _permuting(cfg)
     frames = []
     for t in range(n_steps):
+        if permuting and t % cfg.sort_every == 0:
+            state = _morton_sorted(state, cfg)
         state = swarm_tick(
-            state, obstacles, cfg, None if jitter is None else jitter[t]
+            state, obstacles, cfg, None if jitter is None else jitter[t],
+            sort_in_tick=not permuting,
         )
         if record:
             frame = torch.empty_like(state.pos)
@@ -113,7 +161,8 @@ class VectorSwarm(CheckpointMixin):
     # --- world injection ------------------------------------------------
     def set_target(self, target, agents=None) -> None:
         """Set a nav target for all agents, or for the agent ids in
-        ``agents`` (matched by value)."""
+        ``agents`` (matched by value: under the window mode's re-sort,
+        array slots are internal)."""
         s = self.state
         t = torch.broadcast_to(self._tensor(target, s.pos.dtype),
                                s.pos.shape).clone()
@@ -147,13 +196,21 @@ class VectorSwarm(CheckpointMixin):
     def step(self, n: int = 1, record: bool = False):
         """Advance ``n`` ticks.  Returns the new state or, with
         ``record=True``, the ``[n, N, D]`` trajectory in agent-id order
-        (the state is on ``.state``)."""
+        (the state is on ``.state``).  One tick without ``record`` is
+        ``swarm_tick``, whose in-tick re-sort keeps the cadence of the
+        swarm's tick counter; more ticks are ``swarm_rollout``, which
+        re-sorts at the start of each chunk."""
         if record:
             self.state, traj = swarm_rollout(
                 self.state, self.obstacles, self.config, n, record=True
             )
             return traj
-        self.state = swarm_rollout(self.state, self.obstacles, self.config, n)
+        if n == 1:
+            self.state = swarm_tick(self.state, self.obstacles, self.config)
+        else:
+            self.state = swarm_rollout(
+                self.state, self.obstacles, self.config, n
+            )
         return self.state
 
     def run_realtime(self, n_steps: int) -> SwarmState:

@@ -19,12 +19,11 @@ from ..utils.config import SwarmConfig
 from . import neighbors as _neighbors
 from ._numerics import norm, rdiv
 from .cuda import separation as _cuda_separation
+from .cuda import window_separation as _cuda_window
 
 # Modes of the JAX package that later slices port (ROADMAP Queue A).
 _NOT_PORTED = {
     "grid": "item 6 (ops/neighbors.py:separation_grid)",
-    "window": "item 6 (ops/neighbors.py:separation_window) and Queue B "
-              "item 4 (window_separation.py)",
     "hashgrid": "items 7-8 (ops/hashgrid_plan.py, the plan path) and "
                 "Queue B items 2-3",
 }
@@ -99,8 +98,14 @@ def _apf_point_forces(
 
 def separation_force(state: SwarmState, cfg: SwarmConfig) -> torch.Tensor:
     """The separation-mode dispatch, [N, D]: "dense" all pairs by
-    broadcast, "pallas" all pairs by the CUDA kernel (its plain version on
-    the CPU), "off" none."""
+    broadcast, "pallas" all pairs by the CUDA kernel, "window" the
+    +-``window_size`` Morton neighbours by the CUDA kernel (each kernel's
+    plain version on the CPU), "off" none.
+
+    In window mode with ``sort_every > 1`` the swarm itself is kept
+    approximately Morton-sorted (``models/swarm.py`` re-sorts it on that
+    cadence), so the pass runs on the state's own order, with no sort,
+    gather or scatter of its own."""
     mode = cfg.separation_mode
     pos = state.pos
     if mode == "dense":
@@ -110,6 +115,12 @@ def separation_force(state: SwarmState, cfg: SwarmConfig) -> torch.Tensor:
     if mode == "pallas":
         return _cuda_separation.separation(
             pos, state.alive, cfg.k_sep, cfg.personal_space, cfg.dist_eps
+        )
+    if mode == "window":
+        return _cuda_window.separation_window(
+            pos, state.alive, cfg.k_sep, cfg.personal_space, cfg.dist_eps,
+            cell=cfg.grid_cell, window=cfg.window_size,
+            presorted=cfg.sort_every > 1,
         )
     if mode == "off":
         return torch.zeros_like(pos)

@@ -1,4 +1,4 @@
-"""The CUDA separation kernel against its plain PyTorch version.
+"""The CUDA separation kernels against their plain PyTorch versions.
 
 Tests marked ``cuda`` need an NVIDIA GPU, nvcc and the toolkit; they skip
 without one.  Run them on the card with
@@ -14,6 +14,10 @@ differ by a few ulps (the kernel fuses the accumulate) and are summed in
 another order.  Both differences are bounded by a small multiple of
 ``sum_j |term_ij|``, so the band is ``|kernel - plain| <= 1e-5 * that sum
 + 1e-6``.
+
+The window kernel repeats its plain version (``ops/neighbors.py:
+separation_window``) op for op with IEEE intrinsics and in the same order,
+so its band is tighter: ``|kernel - plain| <= 1e-6 * sum|terms| + 1e-7``.
 """
 
 import os
@@ -26,8 +30,13 @@ import pytest
 import torch
 
 import distributed_swarm_algorithm_tpu_torch as tdsa
+from distributed_swarm_algorithm_tpu_torch.state import AGENT_AXIS_FIELDS
+from distributed_swarm_algorithm_tpu_torch.ops import neighbors as port_nb
 from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
     separation as port_sep,
+)
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+    window_separation as port_win,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -140,5 +149,89 @@ def test_tick_on_the_card_matches_the_cpu(cuda):
     a, b = tdsa.state_to_numpy(cpu), tdsa.state_to_numpy(gpu)
     for f in a:
         if a[f].dtype.kind in "biu":
+            np.testing.assert_array_equal(b[f], a[f], err_msg=f)
+    assert np.isfinite(b["pos"]).all()
+
+
+def _sorted_swarm(n, seed, box, dead=0.2, co_locate=False):
+    pos, alive = _swarm(n, 2, seed, box, dead, co_locate)
+    order = torch.sort(port_nb.morton_keys(pos, 2.0), stable=True).indices
+    return pos[order].contiguous(), alive[order].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,window,box,presorted",
+    [(300, 8, 5.0, True), (5000, 16, 40.0, False), (1000, 1, 10.0, True),
+     (4096, 600, 20.0, True), (4096, 3000, 20.0, True)],
+    ids=["300-w8", "5000-w16-unsorted", "1000-w1", "4096-w600-staged",
+         "4096-w3000-global"],
+)
+def test_window_kernel_matches_plain(cuda, n, window, box, presorted):
+    pos, alive = _sorted_swarm(n, n, box, co_locate=True)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    before = port_win.LAUNCHES
+    got = port_win.separation_window(pos, alive, K_SEP, R, EPS, 2.0, window,
+                                     presorted=presorted)
+    torch.cuda.synchronize()
+    assert port_win.LAUNCHES == before + 1
+    want = port_nb.separation_window(pos, alive, K_SEP, R, EPS, 2.0, window,
+                                     presorted=presorted)
+    scale = port_nb.separation_window(pos, alive, K_SEP, R, EPS, 2.0, window,
+                                      presorted=presorted, absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-6 * scale + 1e-7).all()
+    assert (got[~alive] == 0).all()
+
+
+@pytest.mark.cuda
+def test_window_kernel_input_checks(cuda):
+    pos, alive = _sorted_swarm(64, 2, 3.0)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    with pytest.raises(TypeError):
+        port_win.separation_window_cuda(pos.double(), alive, K_SEP, R, EPS, 4)
+    with pytest.raises(ValueError):
+        port_win.separation_window_cuda(torch.zeros(64, 3, device=cuda),
+                                        alive, K_SEP, R, EPS, 4)
+    with pytest.raises(ValueError):
+        port_win.separation_window_cuda(pos, alive[:10], K_SEP, R, EPS, 4)
+    with pytest.raises(ValueError):
+        port_win.separation_window_cuda(pos, alive, K_SEP, R, EPS, 0)
+    with pytest.raises(ValueError):
+        port_win.separation_window_cuda(pos.t().contiguous().t(), alive,
+                                        K_SEP, R, EPS, 4)
+    u8 = port_win.separation_window_cuda(pos, alive.to(torch.uint8), K_SEP,
+                                         R, EPS, 4)
+    b = port_win.separation_window_cuda(pos, alive, K_SEP, R, EPS, 4)
+    assert torch.equal(u8, b)
+    before = port_win.LAUNCHES
+    empty = port_win.separation_window_cuda(pos[:0], alive[:0], K_SEP, R,
+                                            EPS, 4)
+    assert empty.shape == (0, 2) and port_win.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_window_tick_on_the_card_matches_the_cpu(cuda):
+    # Per-tick jitter equal for every agent: slot-order drift between the
+    # two devices cannot change the election.
+    cfg = tdsa.DEFAULT_CONFIG.replace(separation_mode="window", sort_every=8)
+    cpu = tdsa.make_swarm(256, device="cpu", spread=12.0, seed=4)
+    cpu = tdsa.with_tasks(cpu, [[1.0, 1.0], [-2.0, 3.0]])
+    cpu = cpu.replace(target=torch.full_like(cpu.pos, 30.0),
+                      has_target=torch.ones_like(cpu.has_target))
+    gpu = tdsa.state_from_numpy(tdsa.state_to_numpy(cpu), device=cuda)
+    jitter = torch.from_numpy(np.repeat(
+        np.random.default_rng(0).integers(0, 3, (50, 1)), 256, 1
+    ).astype(np.int32))
+    before = port_win.LAUNCHES
+    cpu = tdsa.swarm_rollout(cpu, None, cfg, 50, jitter=jitter)
+    gpu = tdsa.swarm_rollout(gpu, None, cfg, 50, jitter=jitter.to(cuda))
+    assert port_win.LAUNCHES == before + 50
+    a, b = tdsa.state_to_numpy(cpu), tdsa.state_to_numpy(gpu)
+    ia, ib = np.argsort(a["agent_id"]), np.argsort(b["agent_id"])
+    for f in a:
+        if a[f].dtype.kind in "biu" and f in AGENT_AXIS_FIELDS:
+            np.testing.assert_array_equal(b[f][ib], a[f][ia], err_msg=f)
+        elif a[f].dtype.kind in "biu":
             np.testing.assert_array_equal(b[f], a[f], err_msg=f)
     assert np.isfinite(b["pos"]).all()

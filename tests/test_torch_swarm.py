@@ -216,6 +216,14 @@ def test_entry_points_without_cuda_raise(monkeypatch, capsys):
 @pytest.mark.parametrize("mode", ["grid", "window", "hashgrid"])
 def test_unported_modes_raise_with_their_roadmap_item(mode):
     s = tdsa.make_swarm(4, device="cpu")
+    if mode == "window":   # the tick is ported; its sizing helpers are not
+        from distributed_swarm_algorithm_tpu_torch.ops import neighbors
+
+        for helper in (neighbors.suggest_window,
+                       neighbors.neighbor_counts_sampled):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+                helper(s.pos, 2.0)
+        return
     cfg = tdsa.DEFAULT_CONFIG.replace(separation_mode=mode)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         tdsa.swarm_tick(s, None, cfg)

@@ -11,11 +11,15 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    together, into build/kernels/;
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at three shapes, the window-separation kernel
-   against its own at five (W = 600 and W = 3000 included);
+   against its own at five (W = 600 and W = 3000 included), the hashgrid
+   slot kernel at four (R = 1, R = 2, past the cap, a stale skinned plan)
+   and the candidate kernel at four (skin 0, stale, after partial
+   refreshes, truncated tables);
 4. CPU vs GPU: the port's tick on the CPU and on the card, 100 ticks with
    the same injected jitter and a leader kill, ends in equal discrete
-   state, in "pallas" mode and in "window" mode with a re-sort every 8
-   ticks (compared in agent-id order);
+   state, in "pallas" mode, in "window" mode with a re-sort every 8 ticks
+   (compared in agent-id order), and in "hashgrid" mode with the slot
+   kernel and with the candidate kernel on a partially refreshed plan;
 5. full width, "pallas": the protocol bench scenario (65,536 agents in
    +-1000 m, 4 tasks, shared target [50, 0], V formation) through
    ``VectorSwarm`` for 120 ticks, the leader killed at tick 60; the kernel
@@ -28,7 +32,25 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    leader go 1048575 -> 1048574; a ``torch.profiler`` trace of 16 more
    ticks gives the device's busy time per tick and its heaviest kernels;
    then the window kernel is timed beside its plain version at the final
-   state.
+   state;
+7. full width, "hashgrid": the JAX package's bounded-arena rows
+   (benchmarks/bench_swarm_tpu.py:43 and :49, 65,536 agents spawned in
+   +-250 m on the torus [-256, 256)^2, cap 16, rescue budget 1024, no
+   formation), each for 1,000 ticks with the leader killed after tick 500:
+   (a) station keeping (every agent holds its spawn position) through
+   ``VectorSwarm``, with a ``torch.profiler`` trace of 16 more ticks and
+   the plan build's share of the tick (its own events and trace);
+   (b) converging on [50, 0], which crowds cells past the cap, so the
+   final state must show ``cap_overflow > 0`` and the rescue engaged;
+   (c) the fast-mover regime of benchmarks/decompose_rebuild.py:222-233
+   (``max_speed=5``, the candidates kernel on a Verlet plan, skin 1.5, cap
+   24, neighbor cap 48, the partial refresh) through ``swarm_rollout(...,
+   return_plan=True)`` from the station scenario settled for 48 ticks,
+   reporting the plan's rebuilds, rows rebuilt and cap overflow.  Each run
+   must launch its kernel once per tick and no other kernel, and the
+   leader must go 65535 -> 65534.  Then the slot kernel (at the station
+   and converge final states) and the candidate kernel (at its final
+   state) are held against their plain versions and timed beside them.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -53,6 +75,17 @@ BENCH_TASKS = [[1.0, 1.0], [-2.0, 3.0], [5.0, -8.0], [0.0, 9.0]]
 # The window tick: bench_swarm_tpu.py:55, (1_048_576, "window", 800, 8).
 WIN_N, WIN_TICKS, WIN_KILL_AFTER, WIN_SORT_EVERY = 1_048_576, 800, 400, 8
 CELL, WINDOW = 2.0, 16
+# The hashgrid rows: bench_swarm_tpu.py:43 (converge) and :49 (station),
+# scenario built at :64-90; the fast movers of decompose_rebuild.py:222-233.
+HG_N, HG_SPREAD, HG_HW, HG_TICKS, HG_KILL_AFTER = (65_536, 250.0, 256.0,
+                                                    1000, 500)
+HG_SETTLE = 48
+HG_BASE = dict(separation_mode="hashgrid", formation_shape="none",
+               world_hw=HG_HW, grid_max_per_cell=16,
+               hashgrid_overflow_budget=1024)
+HG_FAST = dict(max_speed=5.0, hashgrid_kernel="candidates",
+               hashgrid_skin=1.5, grid_max_per_cell=24,
+               hashgrid_neighbor_cap=48, hashgrid_partial_refresh=True)
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -253,7 +286,8 @@ def cpu_vs_gpu(dsa, cfg, jitter, dev, agent_axis_fields):
     unequal = [f for f in a if a[f].dtype.kind in "biu"
                and not np.array_equal(a[f], b[f])]
     record(phase="cpu_vs_gpu", separation_mode=cfg.separation_mode,
-           sort_every=cfg.sort_every, agents=n_cmp, ticks=ticks_cmp,
+           sort_every=cfg.sort_every, hashgrid_kernel=cfg.hashgrid_kernel,
+           hashgrid_skin=cfg.hashgrid_skin, agents=n_cmp, ticks=ticks_cmp,
            leaders_before_and_after_kill=leaders, unequal_fields=unequal,
            slot_order_equal=same_slots,
            max_pos_dev_m=float(np.abs(a["pos"] - b["pos"]).max()),
@@ -265,12 +299,266 @@ def cpu_vs_gpu(dsa, cfg, jitter, dev, agent_axis_fields):
 
 def run_main_path(dsa, kernels, n, cfg, ticks, kill_after):
     """The bench scenario through ``VectorSwarm``: ``kill_after`` ticks,
-    the leader killed, the rest of ``ticks``.  Every kernel's launch count
-    is set to 0 just before and read just after.  Returns the swarm, the
-    counts, the leaders and the CUDA-event milliseconds of each span."""
+    the leader killed, the rest of ``ticks``."""
     sw = dsa.VectorSwarm(n, spread=BENCH_SPREAD, config=cfg, seed=0)
     sw.add_tasks(BENCH_TASKS)
     sw.set_target([50.0, 0.0])
+    return drive(sw, kernels, n, ticks, kill_after)
+
+
+def device_breakdown(sw, n_ticks):
+    """Kernel time per tick on the card, from a ``torch.profiler`` trace of
+    ``n_ticks`` more ticks: the sum over every CUDA kernel, memset and copy,
+    the launches, and the kernels that take most of it.  The profiler slows
+    the host, not the kernels, so the sum is compared with the unprofiled
+    tick.  An empty trace reads as None (not measured)."""
+    return device_time(lambda: sw.step(n_ticks), n_ticks)
+
+
+def device_time(fn, n_calls):
+    """(busy ms, device operations, heaviest operations) per call of
+    ``fn``, which makes ``n_calls`` calls, from a ``torch.profiler`` trace
+    (see ``device_breakdown``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass   # the first trace of a process pays the profiler's set-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.key, e.device_time_total / 1e3 / n_calls, e.count / n_calls)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1])
+    if not rows:
+        return None, None, []
+    top = [dict(kernel=k[:90], ms_per_tick=ms, per_tick=c)
+           for k, ms, c in rows[:8]]
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), top)
+
+
+def plan_build_share(dsa, state, cfg, ms_per_tick, busy_ms, ops, smi):
+    """The hashgrid plan build alone at ``state``: its time on the device
+    timeline per call (CUDA events, so the host's launch gaps count, as
+    they do in the tick) and its device busy time and operations (a
+    trace), each beside the tick's."""
+    build_ms = cuda_ms(lambda: dsa.build_tick_plan(state, cfg), 50)
+    reps = 16
+
+    def builds():
+        for _ in range(reps):
+            dsa.build_tick_plan(state, cfg)
+
+    b_busy, b_ops, _ = device_time(builds, reps)
+    record(phase="plan_build_share", ms_per_call=build_ms,
+           share_of_tick=build_ms / ms_per_tick,
+           device_busy_ms_per_call=b_busy, device_ops_per_call=b_ops,
+           share_of_device_busy=(None if b_busy is None or busy_ms is None
+                                 else b_busy / busy_ms),
+           share_of_device_ops=(None if b_ops is None or ops is None
+                                else b_ops / ops), smi=smi)
+
+
+def hashgrid_swarm(n, seed, hw, crowd, dev, dead=0.1):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-hw, hw, (n, 2)).astype(np.float32)
+    pos[:crowd] = (1.0 + 0.5 * rng.normal(size=(crowd, 2))).astype(
+        np.float32)
+    alive = rng.random(n) >= dead
+    alive[:crowd] = True
+    return (torch.from_numpy(pos).to(dev), torch.from_numpy(alive).to(dev))
+
+
+def compare_grid_sweep(grid, pos, plan, label):
+    """Hold the slot kernel against its plain version on the planes of
+    ``plan`` at ``pos``.  Returns (record, sweep args)."""
+    g, k = plan.g, plan.max_per_cell
+    r = grid._stencil_radius(plan.cell_eff, R + plan.skin)
+    x, y, slot = grid.slot_planes(pos, plan)
+    args = (x, y, slot, g, k, r, K_SEP, R, EPS, plan.torus_hw)
+    before = grid.LAUNCHES
+    fx, fy = grid.grid_sweep_cuda(*args)
+    torch.cuda.synchronize()
+    check(grid.LAUNCHES == before + 1, f"{label}: launch not counted")
+    px, py = grid.grid_sweep_plain(*args)
+    sx, sy = grid.grid_sweep_plain(*args, absolute=True)
+    err = torch.maximum((fx - px).abs(), (fy - py).abs())
+    ratio = float(torch.maximum((fx - px).abs() / (REL_BAND * sx + ABS_BAND),
+                                (fy - py).abs() / (REL_BAND * sy + ABS_BAND)
+                                ).max())
+    out = dict(
+        phase="kernel_vs_plain", kernel="grid_separation", shape=label,
+        g=g, K=k, R=r, in_grid=int(plan.ok.sum()),
+        cap_overflow=int(plan.cap_overflow),
+        max_abs_err=float(err.max()),
+        bitwise_equal=bool(torch.equal(fx, px) and torch.equal(fy, py)),
+        max_abs_force=float(torch.maximum(px.abs(), py.abs()).max()),
+        band=f"|kernel-plain| <= {REL_BAND}*sum|terms| + {ABS_BAND}",
+        worst_share_of_band=ratio,
+    )
+    record(**out)
+    check(bool(torch.isfinite(fx).all() and torch.isfinite(fy).all()),
+          f"{label}: non-finite force")
+    check(ratio <= 1.0, f"{label}: kernel outside its band of plain")
+    check(bool((fx[x == grid.SENTINEL] == 0).all()),
+          f"{label}: an empty slot got force")
+    return out, args
+
+
+def compare_candidates(cand, pos, plan, label):
+    """Hold the candidate kernel against its plain version on ``plan``'s
+    tables at ``pos``."""
+    before = cand.LAUNCHES
+    got = cand.candidate_sweep_cuda(pos, plan.cand, plan.recv, K_SEP, R, EPS,
+                                    plan.torus_hw)
+    torch.cuda.synchronize()
+    check(cand.LAUNCHES == before + 1, f"{label}: launch not counted")
+    want = cand.candidate_sweep_plain(pos, plan.cand, plan.recv, K_SEP, R,
+                                      EPS, plan.torus_hw)
+    scale = cand.candidate_sweep_plain(pos, plan.cand, plan.recv, K_SEP, R,
+                                       EPS, plan.torus_hw, absolute=True)
+    err = (got - want).abs()
+    ratio = float((err / (WIN_REL_BAND * scale + WIN_ABS_BAND)).max())
+    out = dict(
+        phase="kernel_vs_plain", kernel="candidate_sweep", shape=label,
+        g=plan.g, W=plan.cand.shape[1], RK=plan.recv.shape[1],
+        cand_overflow=int(plan.cand_overflow),
+        recv_overflow=int(plan.recv_overflow),
+        max_abs_err=float(err.max()),
+        bitwise_equal=bool(torch.equal(got, want)),
+        max_abs_force=float(want.abs().max()),
+        agents_with_force=int((want != 0).any(1).sum()),
+        band=f"|kernel-plain| <= {WIN_REL_BAND}*sum|terms| + {WIN_ABS_BAND}",
+        worst_share_of_band=ratio,
+    )
+    record(**out)
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite force")
+    check(ratio <= 1.0, f"{label}: kernel outside its band of plain")
+    return out
+
+
+def hashgrid_small_shapes(hp, grid, cand, dev):
+    """Phase 3's hashgrid part: each kernel against its plain version."""
+    hw = 16.0
+    for label, cell, k, crowd, skin in (
+        ("n=600 R=1", 2.0, 8, 0, 0.0), ("n=600 R=2 half cells", 1.0, 8, 0,
+                                        0.0),
+        ("n=600 R=1, 40 past the cap", 2.0, 8, 40, 0.0),
+        ("n=600 stale plan, skin 0.5", 1.5, 16, 0, 0.5),
+    ):
+        pos, alive = hashgrid_swarm(600, 3, hw, crowd, dev)
+        g = (int(2 * hw / (cell + skin)) // 16) * 16
+        plan = hp.build_hashgrid_plan(pos, alive, hw, cell, k, g=g, skin=skin)
+        if skin:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            pos = pos + 0.34 * (torch.rand(pos.shape, generator=gen,
+                                           device=dev) - 0.5)
+        compare_grid_sweep(grid, pos, plan, label)
+    for label, crowd, k, skin, w, rk, refreshes in (
+        ("n=800 skin 0", 0, 24, 0.0, 128, 48, 0),
+        ("n=800 stale plan, skin 0.5", 0, 24, 0.5, 128, 48, 0),
+        ("n=800 after 3 partial refreshes", 0, 24, 0.5, 128, 48, 3),
+        ("n=800, truncated rows and receivers", 60, 8, 0.0, 32, 8, 0),
+    ):
+        pos, alive = hashgrid_swarm(800, 5, hw, crowd, dev)
+        g = int(2 * hw / (2.0 + skin))
+        plan = hp.build_hashgrid_plan(pos, alive, hw, 2.0, k, g=g, skin=skin,
+                                      need_csr=True, neighbor_cap=w,
+                                      recv_cap=rk)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if skin and not refreshes:
+            pos = pos + 0.4 * (torch.rand(pos.shape, generator=gen,
+                                          device=dev) - 0.5)
+        for _ in range(refreshes):
+            pos = pos + 0.45 * torch.randn(pos.shape, generator=gen,
+                                           device=dev)
+            plan = hp.refresh_plan_partial(pos, alive, plan)
+        compare_candidates(cand, pos, plan, label)
+
+
+def stencil_tests(plan, counts, r):
+    """Tested (receiver, partner) pairs an exact slot sweep needs: for each
+    in-grid agent, the in-grid agents of its (2R+1)^2 stencil cells other
+    than itself."""
+    g, k = plan.g, plan.max_per_cell
+    occ = counts.clamp(max=k).reshape(g, g)
+    around = torch.zeros_like(occ)
+    for dr in range(-r, r + 1):
+        for dc in range(-r, r + 1):
+            around += torch.roll(occ, (dr, dc), (0, 1))
+    return int((occ * (around - 1)).sum())
+
+
+def grid_bound_ms(grid, nb, plan, args):
+    """Least time for one slot-kernel call: the planes read and the force
+    planes written once, the slot index read once (bytes), against each
+    needed pair test (two differences, two wraps, a product, a
+    multiply-add, the cut: 8 operations) and each near pair's force (the
+    clamp, rsqrt, three products, two products and two sums: 9)."""
+    x, _, slot = args[:3]
+    counts = nb.cell_counts(plan.key, plan.g * plan.g)
+    tests = stencil_tests(plan, counts, args[5])
+    _, tx, ty = grid._sweep_terms(*args)
+    near = int(((tx != 0) | (ty != 0)).sum())
+    ops = tests * 8 + near * 9
+    nbytes = 4 * x.numel() * 4 + 4 * slot.numel()
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), tests, near
+
+
+def candidate_bound_ms(cand, pos, plan):
+    """Least time for one candidate-kernel call: the tables and positions
+    read and the force written once (bytes), against each (receiver,
+    candidate) test (two differences, two wraps, a product, a multiply-add,
+    the square root, the cut: 9 operations) and each near pair's force
+    (the clamp, two products, a division, two products, two sums: 8)."""
+    n = pos.shape[0]
+    valid_c = (plan.cand < n).sum(1)
+    valid_r = (plan.recv < n).sum(1)
+    tests = int((valid_r * (valid_c - 1).clamp(min=0)).sum())
+    agents = plan.recv.reshape(-1)
+    cells = torch.arange(plan.recv.shape[0], device=pos.device
+                         ).repeat_interleave(plan.recv.shape[1])
+    keep = agents < n
+    rows = plan.cand[cells[keep]]
+    npos = pos[rows.clamp(max=n - 1).long()]
+    d = pos[agents[keep].long()][:, None, :] - npos
+    d = torch.where(d >= plan.torus_hw, d - 2 * plan.torus_hw,
+                    torch.where(d < -plan.torus_hw, d + 2 * plan.torus_hw, d))
+    near = int(((rows < n) & (d.norm(dim=-1) < R)
+                & (rows != agents[keep][:, None])).sum())
+    ops = tests * 9 + near * 8
+    nbytes = (4 * (plan.cand.numel() + plan.recv.numel()) + 8 * n + 8 * n)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), tests, near
+
+
+def hashgrid_launch_check(launches, kernel, ticks):
+    want = {name: 0 for name in launches}
+    want[kernel] = ticks
+    check(launches == want, f"unexpected launches {launches}")
+
+
+def run_hashgrid(dsa, kernels, cfg, station):
+    """The bench's bounded arena through ``VectorSwarm``: ``HG_KILL_AFTER``
+    ticks, the leader killed, the rest of ``HG_TICKS``; counts set to 0
+    just before and read just after."""
+    sw = dsa.VectorSwarm(HG_N, spread=HG_SPREAD, config=cfg, seed=0)
+    sw.add_tasks(BENCH_TASKS)
+    sw.set_target(sw.state.pos.clone() if station else [50.0, 0.0])
+    return drive(sw, kernels, HG_N, HG_TICKS, HG_KILL_AFTER)
+
+
+def drive(sw, kernels, n, ticks, kill_after):
+    """``kill_after`` ticks of ``sw``, the leader killed, the rest of
+    ``ticks``.  Every kernel's launch count is set to 0 just before and
+    read just after.  Returns the swarm, the counts, the leaders and the
+    CUDA-event milliseconds of each span."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in kernels.values():
@@ -296,31 +584,47 @@ def run_main_path(dsa, kernels, n, cfg, ticks, kill_after):
     return sw, launches, leaders, spans
 
 
-def device_breakdown(sw, n_ticks):
-    """Kernel time per tick on the card, from a ``torch.profiler`` trace of
-    ``n_ticks`` more ticks: the sum over every CUDA kernel, memset and copy,
-    the launches, and the kernels that take most of it.  The profiler slows
-    the host, not the kernels, so the sum is compared with the unprofiled
-    tick.  An empty trace reads as None (not measured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def run_fast_movers(dsa, kernels, settle_cfg, cfg):
+    """The fast-mover regime through ``swarm_rollout(..., return_plan=
+    True)``: the station scenario settled for ``HG_SETTLE`` ticks, then
+    ``HG_KILL_AFTER`` ticks, the leader killed, the rest of ``HG_TICKS``.
+    Returns the final state and plan, the counts, leaders, spans and the
+    plan counters of each half."""
+    sw = dsa.VectorSwarm(HG_N, spread=HG_SPREAD, config=settle_cfg, seed=0)
+    sw.add_tasks(BENCH_TASKS)
+    sw.set_target(sw.state.pos.clone())
+    sw.step(HG_SETTLE)
+    state = sw.state
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        pass   # the first trace of a process pays the profiler's set-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sw.step(n_ticks)
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    spans, leaders, counters = [], [], []
+    plan = None
+    for n_ticks in (HG_KILL_AFTER, HG_TICKS - HG_KILL_AFTER):
+        if spans:
+            state = dsa.kill(state, [HG_N - 1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, plan = dsa.swarm_rollout(state, None, cfg, n_ticks,
+                                        return_plan=True)
+        end.record()
         torch.cuda.synchronize()
-    rows = sorted(
-        ((e.key, e.device_time_total / 1e3 / n_ticks, e.count / n_ticks)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda r: -r[1])
-    if not rows:
-        return None, None, []
-    top = [dict(kernel=k[:90], ms_per_tick=ms, per_tick=c)
-           for k, ms, c in rows[:8]]
-    return (sum(r[1] for r in rows), sum(r[2] for r in rows), top)
+        spans.append(start.elapsed_time(end))
+        lid, exists = dsa.current_leader(state)
+        leaders.append((int(lid), bool(exists)))
+        counters.append(dict(
+            ticks=n_ticks, rebuilds=int(plan.rebuilds),
+            cells_rebuilt=int(plan.cells_rebuilt), age=int(plan.age),
+            cap_overflow=int(plan.cap_overflow),
+            cand_overflow=int(plan.cand_overflow),
+            recv_overflow=int(plan.recv_overflow),
+            rows_per_full_build=plan.g * plan.g))
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    check(leaders == [(HG_N - 1, True), (HG_N - 2, True)],
+          f"unexpected leaders {leaders}")
+    check(bool(torch.isfinite(state.pos).all()), "non-finite positions")
+    return state, plan, launches, leaders, spans, counters
 
 
 def main():
@@ -336,9 +640,17 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
         window_separation as win,
     )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        grid_separation as grid,
+    )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        candidate_sweep as cand,
+    )
+    from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
     from distributed_swarm_algorithm_tpu_torch.state import AGENT_AXIS_FIELDS
 
-    kernels = {"separation": sep, "window_separation": win}
+    kernels = {"separation": sep, "window_separation": win,
+               "grid_separation": grid, "candidate_sweep": cand}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -394,6 +706,8 @@ def main():
                   and bool(torch.isfinite(got[trio]).all()),
                   "co-located trio lost or given a non-finite force")
 
+    hashgrid_small_shapes(hp, grid, cand, dev)
+
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
     cfg = dsa.DEFAULT_CONFIG.replace(separation_mode="pallas")
@@ -408,6 +722,15 @@ def main():
     cpu_vs_gpu(dsa, wcfg, torch.from_numpy(np.repeat(rng.integers(
         0, cfg.election_jitter_ticks + 1, (100, 1)), 1024, 1)
         .astype(np.int32)), dev, AGENT_AXIS_FIELDS)
+    # Hashgrid mode on the torus [-64, 64)^2 (the target [50, 0] inside):
+    # the slot kernel with the rescue, and the candidate kernel on a plan
+    # carried with the partial refresh.
+    hg_cmp = dsa.DEFAULT_CONFIG.replace(**dict(HG_BASE, world_hw=64.0,
+                                               hashgrid_overflow_budget=256))
+    for hcfg in (hg_cmp, hg_cmp.replace(**HG_FAST)):
+        cpu_vs_gpu(dsa, hcfg, torch.from_numpy(rng.integers(
+            0, cfg.election_jitter_ticks + 1, (100, 1024)).astype(np.int32)),
+            dev, AGENT_AXIS_FIELDS)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -423,8 +746,7 @@ def main():
         tasks_awarded=int((state.task_winner >= 0).sum()),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    check(launches == {"separation": BENCH_TICKS, "window_separation": 0},
-          f"unexpected launches {launches}")
+    hashgrid_launch_check(launches, "separation", BENCH_TICKS)
     sep_launches = launches["separation"]
 
     # The kernel at the main path's shape: against its plain version, its
@@ -459,8 +781,7 @@ def main():
             WIN_N, dtype=state.agent_id.dtype, device=dev)).sum()),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    check(launches == {"separation": 0, "window_separation": WIN_TICKS},
-          f"unexpected launches {launches}")
+    hashgrid_launch_check(launches, "window_separation", WIN_TICKS)
     win_launches = launches["window_separation"]
     busy_ms, kernels_per_tick, top = device_breakdown(sw, 2 * WIN_SORT_EVERY)
     record(phase="window_tick_breakdown", agents=WIN_N,
@@ -486,6 +807,98 @@ def main():
            bound_by=win_bound_by, pair_tests=tests, near_pairs=near,
            kernel_share_of_tick=win_ms / ms_per_tick, smi=smi,
            seconds_so_far=time.perf_counter() - t_start)
+
+    del sw, state, pos, alive
+
+    # 7. the main path at full width, "hashgrid" ----------------------------
+    hg = {}
+    for name, station in (("station", True), ("converge", False)):
+        hcfg = dsa.DEFAULT_CONFIG.replace(**HG_BASE)
+        sw, launches, leaders, spans = run_hashgrid(dsa, kernels, hcfg,
+                                                    station)
+        total_ms = sum(spans)
+        ms_per_tick = total_ms / HG_TICKS
+        state = sw.state
+        plan = dsa.build_tick_plan(state, hcfg)
+        live_over = int(plan.cap_overflow)
+        record(
+            phase="full_width", agents=HG_N, ticks=HG_TICKS,
+            separation_mode="hashgrid", hashgrid_kernel="slots",
+            scenario=name, leaders=leaders, launches=launches,
+            ms_per_tick=ms_per_tick,
+            ms_per_tick_after_kill=spans[1] / (HG_TICKS - HG_KILL_AFTER),
+            agent_steps_per_sec=HG_N * HG_TICKS / (total_ms / 1e3),
+            tasks_awarded=int((state.task_winner >= 0).sum()),
+            final_cap_overflow=live_over,
+            final_rescued=min(live_over, hcfg.hashgrid_overflow_budget),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        hashgrid_launch_check(launches, "grid_separation", HG_TICKS)
+        if station:
+            busy_ms, per_tick, top = device_breakdown(sw, 16)
+            record(phase="hashgrid_tick_breakdown", agents=HG_N,
+                   scenario=name, profiled_ticks=16,
+                   ms_per_tick=ms_per_tick, device_busy_ms_per_tick=busy_ms,
+                   device_idle_share=(None if busy_ms is None
+                                      else 1.0 - busy_ms / ms_per_tick),
+                   device_ops_per_tick=per_tick, top_device_ops=top, smi=smi)
+            state = sw.state
+            plan_build_share(dsa, state, hcfg, ms_per_tick, busy_ms, per_tick,
+                             smi)
+            plan = dsa.build_tick_plan(state, hcfg)
+        else:
+            check(live_over > 0, "the converge run shows no cap overflow")
+        cmp, args = compare_grid_sweep(grid, state.pos, plan,
+                                       f"main path, {name} final state")
+        ms = cuda_ms(lambda: grid.grid_sweep_cuda(*args), 50)
+        plain_ms = cuda_ms(lambda: grid.grid_sweep_plain(*args), 5)
+        bound_ms, bound_by, tests, near = grid_bound_ms(grid, nb, plan, args)
+        hg[name] = dict(launches=launches["grid_separation"], cmp=cmp, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+        record(phase="grid_separation_timing", scenario=name,
+               planes=[plan.g, plan.g, plan.max_per_cell], kernel_ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               pair_tests=tests, near_pairs=near,
+               kernel_share_of_tick=ms / ms_per_tick, smi=smi,
+               seconds_so_far=time.perf_counter() - t_start)
+        del sw, state, plan, args
+
+    fcfg = dsa.DEFAULT_CONFIG.replace(**dict(HG_BASE, **HG_FAST))
+    settle = dsa.DEFAULT_CONFIG.replace(**HG_BASE, max_speed=5.0)
+    state, plan, launches, leaders, spans, counters = run_fast_movers(
+        dsa, kernels, settle, fcfg)
+    total_ms = sum(spans)
+    ms_per_tick = total_ms / HG_TICKS
+    record(
+        phase="full_width", agents=HG_N, ticks=HG_TICKS,
+        separation_mode="hashgrid", hashgrid_kernel="candidates",
+        scenario="fast movers, partial refresh", leaders=leaders,
+        launches=launches, ms_per_tick=ms_per_tick,
+        ms_per_tick_after_kill=spans[1] / (HG_TICKS - HG_KILL_AFTER),
+        agent_steps_per_sec=HG_N * HG_TICKS / (total_ms / 1e3),
+        plan_counters_per_half=counters,
+        table_shapes=dict(g=plan.g, W=plan.cand.shape[1],
+                          RK=plan.recv.shape[1]),
+    )
+    hashgrid_launch_check(launches, "candidate_sweep", HG_TICKS)
+    plan = hp.refresh_plan_partial(state.pos, state.alive, plan)
+    cand_cmp = compare_candidates(cand, state.pos, plan,
+                                  "main path, fast-mover final state")
+    args = (state.pos, plan.cand, plan.recv, K_SEP, R, EPS, plan.torus_hw)
+    cand_ms = cuda_ms(lambda: cand.candidate_sweep_cuda(*args), 50)
+    cand_plain_ms = cuda_ms(lambda: cand.candidate_sweep_plain(*args), 5)
+    cand_bound_ms, cand_bound_by, tests, near = candidate_bound_ms(
+        cand, state.pos, plan)
+    record(phase="candidate_sweep_timing", tables=[plan.g * plan.g,
+                                                   plan.cand.shape[1],
+                                                   plan.recv.shape[1]],
+           kernel_ms=cand_ms, plain_ms=cand_plain_ms, bound_ms=cand_bound_ms,
+           bound_by=cand_bound_by, pair_tests=tests, near_pairs=near,
+           kernel_share_of_tick=cand_ms / ms_per_tick, smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    cand_launches = launches["candidate_sweep"]
+    station = hg["station"]
 
     print(json.dumps({"kernels": [
         {
@@ -516,6 +929,36 @@ def main():
             "plain_ms": win_plain_ms,
             "bound_ms": win_bound_ms,
             "bound_by": win_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "grid_separation",
+            "route": "cuda",
+            "source": "distributed_swarm_algorithm_tpu_torch/csrc/"
+                      "grid_separation.cu",
+            "replaces": "distributed_swarm_algorithm_tpu/ops/pallas/"
+                        "grid_separation.py:602",
+            "launches": station["launches"],
+            "max_abs_err": station["cmp"]["max_abs_err"],
+            "ms": station["ms"],
+            "plain_ms": station["plain_ms"],
+            "bound_ms": station["bound_ms"],
+            "bound_by": station["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "candidate_sweep",
+            "route": "cuda",
+            "source": "distributed_swarm_algorithm_tpu_torch/csrc/"
+                      "candidate_sweep.cu",
+            "replaces": "distributed_swarm_algorithm_tpu/ops/pallas/"
+                        "candidate_sweep.py:157",
+            "launches": cand_launches,
+            "max_abs_err": cand_cmp["max_abs_err"],
+            "ms": cand_ms,
+            "plain_ms": cand_plain_ms,
+            "bound_ms": cand_bound_ms,
+            "bound_by": cand_bound_by,
             "library_ms": None,
         },
     ]}), flush=True)

@@ -8,9 +8,12 @@ counterpart there.  This package imports PyTorch and numpy, never JAX.
 
 Ported so far: the whole-swarm protocol tick (``swarm_tick``,
 ``swarm_rollout``, ``VectorSwarm``) with dense, all-pairs kernel
-("pallas"), Morton-window kernel ("window") or no separation, and greedy
-allocation.  The kernels are hand-written CUDA C++ (``csrc/separation.cu``,
-``csrc/window_separation.cu``), built with ``nvcc`` on first use.
+("pallas"), Morton-window kernel ("window"), spatial-hash ("grid"),
+torus hashgrid ("hashgrid", with its shared plan and Verlet carry) or no
+separation, and greedy allocation.  The kernels are hand-written CUDA C++
+(``csrc/separation.cu``, ``csrc/window_separation.cu``,
+``csrc/grid_separation.cu``, ``csrc/candidate_sweep.cu``), built with
+``nvcc`` on first use.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -55,7 +58,21 @@ from .ops.coordination import (
     kill,
     revive,
 )
-from .ops.physics import apf_forces, formation_targets, physics_step
+from .ops.hashgrid_plan import (
+    HashgridPlan,
+    build_hashgrid_plan,
+    plan_from_numpy,
+    plan_to_numpy,
+    refresh_plan,
+    refresh_plan_partial,
+)
+from .ops.physics import (
+    apf_forces,
+    build_tick_plan,
+    formation_targets,
+    physics_step,
+    physics_step_plan,
+)
 
 __version__ = "0.1.0"
 
@@ -67,7 +84,10 @@ __all__ = [
     "coordination_step", "instant_election", "current_leader", "kill",
     "revive",
     "allocation_step", "arbitrate", "utility_matrix", "task_status_view",
-    "physics_step", "apf_forces", "formation_targets",
+    "physics_step", "physics_step_plan", "apf_forces", "formation_targets",
+    "build_tick_plan", "HashgridPlan", "build_hashgrid_plan",
+    "refresh_plan", "refresh_plan_partial", "plan_to_numpy",
+    "plan_from_numpy",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",
     "NO_LEADER", "NO_CAP", "NO_WINNER",

@@ -22,6 +22,11 @@ def _cmd_swarm(args) -> int:
     from .utils.config import DEFAULT_CONFIG
 
     cfg = DEFAULT_CONFIG.replace(separation_mode=args.separation)
+    if args.separation == "hashgrid":
+        # Default arena: 4x the spawn spread, so targets well outside the
+        # spawn box stay inside the torus.
+        cfg = cfg.replace(world_hw=args.world_hw if args.world_hw > 0
+                          else 4.0 * max(args.spread, 1.0))
     sw = VectorSwarm(args.n, dim=args.dim, seed=args.seed,
                      spread=args.spread, config=cfg, device=args.device)
     if args.target:
@@ -58,12 +63,19 @@ def build_parser() -> argparse.ArgumentParser:
     p_swarm.add_argument("--target", nargs="+", default=None)
     p_swarm.add_argument(
         "--separation", default="dense",
-        choices=["dense", "pallas", "window", "off"],
+        choices=["dense", "pallas", "grid", "window", "hashgrid", "off"],
         help="neighbor separation: dense all-pairs broadcast, pallas "
              "(exact all pairs by the CUDA kernel; the name is the "
-             "config value of the JAX package), window (the +-16 "
-             "Morton-order neighbours by the CUDA kernel; approximate, "
-             "for very large N), or off",
+             "config value of the JAX package), grid (spatial hash), "
+             "window (the +-16 Morton-order neighbours by the CUDA kernel; "
+             "approximate, for very large N), hashgrid (torus-world hash, "
+             "exact up to the cell cap, by the CUDA slot kernel on the "
+             "card; see --world-hw), or off",
+    )
+    p_swarm.add_argument(
+        "--world-hw", type=float, default=0.0, metavar="HW",
+        help="torus half-width for --separation hashgrid: the world "
+             "becomes [-HW, HW)^2 (default: 4x --spread)",
     )
     p_swarm.add_argument(
         "--device", default=None, choices=["cuda", "cpu"],

@@ -6,9 +6,11 @@ agent at once: coordination (election, heartbeat, failure detection), task
 allocation, then physics.  ``swarm_rollout`` runs ticks in a Python loop
 (PyTorch runs eagerly, so there is nothing to compile), and ``VectorSwarm``
 is the user-facing handle.  A rollout never waits for the device: on CUDA
-the host only enqueues work until someone reads a value.  The one
-exception is a lone ``swarm_tick`` in window mode with ``sort_every > 1``,
-which reads the tick counter to keep its re-sort cadence.
+the host only enqueues work until someone reads a value.  Two exceptions:
+a lone ``swarm_tick`` in window mode with ``sort_every > 1`` reads the
+tick counter to keep its re-sort cadence, and a hashgrid rollout that
+carries a Verlet plan (``hashgrid_skin > 0``) reads the plan's refresh
+decision once per tick.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from ..ops.allocation import allocation_step, task_status_view
 from ..ops.coordination import coordination_step, current_leader, kill, revive
 from ..ops.neighbors import morton_keys
-from ..ops.physics import physics_step
+from ..ops.physics import build_tick_plan, physics_step, physics_step_plan
 from ..state import SwarmState, make_swarm, sort_agents_by_key, with_tasks
 from ..utils.config import DEFAULT_CONFIG, SwarmConfig
 from ..utils.platform import DeviceLike
@@ -47,6 +49,11 @@ def _protocol_steps(
 ) -> SwarmState:
     """The tick before physics: tick stamp, the cadenced Morton re-sort
     (window mode), coordination, allocation."""
+    if cfg.telemetry.enabled:
+        raise NotImplementedError(
+            "the in-tick flight recorder is not ported yet (ROADMAP Queue "
+            "A item 11: utils/telemetry.py)"
+        )
     state = state.replace(tick=state.tick + 1)
     if sort_in_tick and _permuting(cfg):
         # Keep the agent axis approximately Morton-sorted so the window
@@ -73,13 +80,21 @@ def swarm_tick(
     re-sort) replaces the election jitter drawn from ``state.gen`` (see
     ``coordination_step``).  ``sort_in_tick=False`` drops the cadenced
     Morton re-sort, for callers that keep the cadence themselves."""
-    if cfg.telemetry.enabled:
-        raise NotImplementedError(
-            "the in-tick flight recorder is not ported yet (ROADMAP Queue "
-            "A item 11: utils/telemetry.py)"
-        )
     state = _protocol_steps(state, cfg, sort_in_tick, jitter)
     return physics_step(state, obstacles, cfg)
+
+
+def _swarm_tick_plan(
+    state: SwarmState,
+    obstacles: Optional[torch.Tensor],
+    cfg: SwarmConfig,
+    plan,
+    jitter: Optional[torch.Tensor] = None,
+):
+    """The plan-carrying tick: the same protocol steps, then physics off
+    the refreshed Verlet plan.  Returns ``(state, plan)``."""
+    state = _protocol_steps(state, cfg, False, jitter)
+    return physics_step_plan(state, obstacles, cfg, plan)
 
 
 def swarm_rollout(
@@ -89,11 +104,19 @@ def swarm_rollout(
     n_steps: int,
     record: bool = False,
     jitter: Optional[torch.Tensor] = None,
+    return_plan: bool = False,
 ):
     """``n_steps`` ticks.  Returns the final state or, with ``record``,
     ``(state, traj)``: the ``[n_steps, N, D]`` positions after each tick in
     agent-id order.  ``jitter`` is an optional ``[n_steps, N]`` i32 of
-    per-tick election jitter.
+    per-tick election jitter.  ``return_plan`` appends the final carried
+    hashgrid plan, ``(out, plan)``: its ``rebuilds``, ``cells_rebuilt``,
+    ``age`` and ``cap_overflow`` are the run's counters (None outside the
+    plan-carry regime).
+
+    In hashgrid mode with ``hashgrid_skin > 0`` one skin-inflated plan,
+    seeded by ``build_tick_plan``, rides across the ticks and is rebuilt
+    or repaired inside a tick only when its exactness bound runs out.
 
     In window mode with ``sort_every > 1`` the ticks run in chunks of
     ``sort_every`` (the last chunk may be shorter), each opening with one
@@ -106,26 +129,33 @@ def swarm_rollout(
             f"{tuple(jitter.shape)}"
         )
     permuting = _permuting(cfg)
+    plan = None
+    if cfg.separation_mode == "hashgrid" and cfg.hashgrid_skin > 0:
+        plan = build_tick_plan(state, cfg)
     frames = []
     for t in range(n_steps):
-        if permuting and t % cfg.sort_every == 0:
-            state = _morton_sorted(state, cfg)
-        state = swarm_tick(
-            state, obstacles, cfg, None if jitter is None else jitter[t],
-            sort_in_tick=not permuting,
-        )
+        jit_t = None if jitter is None else jitter[t]
+        if plan is not None:
+            state, plan = _swarm_tick_plan(state, obstacles, cfg, plan,
+                                           jit_t)
+        else:
+            if permuting and t % cfg.sort_every == 0:
+                state = _morton_sorted(state, cfg)
+            state = swarm_tick(state, obstacles, cfg, jit_t,
+                               sort_in_tick=not permuting)
         if record:
             frame = torch.empty_like(state.pos)
             frame[state.agent_id.long()] = state.pos
             frames.append(frame)
-    if not record:
-        return state
-    traj = (
-        torch.stack(frames)
-        if frames
-        else state.pos.new_zeros((0,) + tuple(state.pos.shape))
-    )
-    return state, traj
+    out = state
+    if record:
+        traj = (
+            torch.stack(frames)
+            if frames
+            else state.pos.new_zeros((0,) + tuple(state.pos.shape))
+        )
+        out = (state, traj)
+    return (out, plan) if return_plan else out
 
 
 class VectorSwarm(CheckpointMixin):

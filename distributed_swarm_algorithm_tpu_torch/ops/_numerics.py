@@ -20,3 +20,41 @@ def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, ``sqrt(sum(x * x))``, as
     ``jnp.linalg.norm`` computes it."""
     return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, as a fused multiply-add, for f32 inputs.
+
+    The product of two f32 values is exact in f64, so the f64 sum rounded
+    to f32 is the fused result, except where the f64 rounding lands on an
+    f32 tie (about one case in 2^29).  XLA on the CPU contracts these
+    forms, and the hashgrid path takes discrete decisions (the Verlet
+    trigger, the cut at the personal space) on them."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def sq_norm2(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``dx^2 + dy^2`` as XLA on the CPU rounds ``sum(d * d, -1)`` and
+    ``jnp.linalg.norm`` over a last axis of two: ``fma(dy, dy, dx * dx)``."""
+    return fma(dy, dy, dx * dx)
+
+
+def mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``jnp.mod(x, y)`` for floats: ``fmod`` plus ``y`` where the signs of
+    the remainder and ``y`` differ.  Exact, like the JAX form."""
+    r = torch.fmod(x, y)
+    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def torus_wrap(d: torch.Tensor, hw: float) -> torch.Tensor:
+    """Minimum image on the torus ``[-hw, hw)``, mod form:
+    ``mod(d + hw, 2 hw) - hw``."""
+    return mod(d + hw, 2.0 * hw) - hw
+
+
+def wrap_select(d: torch.Tensor, hw: float) -> torch.Tensor:
+    """Minimum image, select form: exact for ``|d| < 2 hw`` and inert on
+    the 1e18 sentinel (``1e18 - 2 hw`` rounds back to 1e18 in f32)."""
+    two_hw = 2.0 * hw
+    return torch.where(d >= hw, d - two_hw,
+                       torch.where(d < -hw, d + two_hw, d))

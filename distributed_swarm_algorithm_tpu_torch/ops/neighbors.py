@@ -13,7 +13,19 @@ package.
   This is the plain version of the CUDA kernel in
   ``ops/cuda/window_separation.py``.
 
+- ``separation_grid``: the spatial hash (separation mode "grid"), each
+  agent gathering a ``max_per_cell`` window of each of its 9 surrounding
+  cells; with ``torus_hw`` the grid tiles the torus ``[-hw, hw)^2`` and
+  displacements wrap.
+- ``torus_cell_xy`` / ``torus_cell_tables``: the one binning formula of
+  the torus grid, shared by the hashgrid plan and every consumer.
+- ``separation_grid_plan``: the portable hashgrid sweep off a shared
+  ``HashgridPlan`` (``ops/hashgrid_plan.py``): the 3x3 stencil over the
+  plan's CSR tables, or the union sweep over its candidate table.
+
 Every norm is clamped at ``eps``, so co-located agents get a finite force.
+The grid sweeps round their distances as the JAX package does on the CPU
+(``_numerics.sq_norm2``), so both take the same cuts at the personal space.
 """
 
 from __future__ import annotations
@@ -22,9 +34,10 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from ._numerics import norm, rdiv
+from ._numerics import norm, rdiv, sq_norm2, torus_wrap, wrap_select
 
 _HALF = 1 << 15   # cell coordinates are offset by this into [0, 0xFFFF]
+_GRID_BASE = 1 << 16   # "grid" mode's packed key: cx * base + cy (int32)
 
 
 def separation_dense(
@@ -189,6 +202,266 @@ def separation_window(
         )
         force = force + force2
     return force
+
+
+def _floor_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``floor(x / d)`` cast to int32, by a true division (a CUDA division
+    by a Python scalar may multiply by the reciprocal).  The float is
+    bounded first, which changes no in-range value and keeps the cast
+    defined; XLA's cast saturates there."""
+    q = torch.floor(x / torch.full_like(x, d))
+    return q.clamp(-2.0**31, 2.0**31 - 128).to(torch.int32)
+
+
+def torus_cell_xy(pos: torch.Tensor, torus_hw: float, g: int):
+    """(cx, cy) int32: per-agent cell coordinates on the ``g x g`` grid
+    tiling the torus ``[-hw, hw)^2``, clipped to the grid."""
+    cell_eff = 2.0 * torus_hw / g
+    cx = _floor_div(pos[:, 0] + torus_hw, cell_eff).clamp(0, g - 1)
+    cy = _floor_div(pos[:, 1] + torus_hw, cell_eff).clamp(0, g - 1)
+    return cx, cy
+
+
+def cell_counts(key: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """[n_cells] int32 occupancy of ``key`` (int32, in [0, n_cells]);
+    keys equal to ``n_cells`` are dropped.  One scatter, no wait for the
+    device."""
+    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=key.device)
+    counts.scatter_add_(0, key.long(), torch.ones_like(key))
+    return counts[:n_cells]
+
+
+def exclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+
+def torus_cell_tables(pos: torch.Tensor, torus_hw: float, g: int):
+    """(cx, cy, key, counts, starts): cell coordinates, row-major key and
+    the CSR occupancy tables over the ``g * g`` cells, all int32."""
+    cx, cy = torus_cell_xy(pos, torus_hw, g)
+    key = cx * g + cy
+    counts = cell_counts(key, g * g)
+    return cx, cy, key, counts, exclusive_cumsum(counts)
+
+
+def _stencil_terms(pos, alive, k_sep, personal_space, eps, npos, near,
+                   wrap):
+    """Force of one 3x3-stencil gather, [N, 2]: ``mag * diff / d`` over
+    the ``near`` partners ``npos`` [N, K, 2], in the JAX package's
+    rounding (norm, clamp, ``k / d^2``, divide by ``d``)."""
+    diff = wrap(pos[:, None, :] - npos)
+    dist = torch.sqrt(sq_norm2(diff[..., 0], diff[..., 1]))
+    dist_c = dist.clamp(min=eps)
+    near = near & alive[:, None] & (dist < personal_space)
+    mag = rdiv(k_sep, dist_c * dist_c)
+    unit = diff / dist_c[..., None]
+    return torch.where(near[..., None], mag[..., None] * unit, 0.0).sum(1)
+
+
+def separation_grid(
+    pos: torch.Tensor,
+    alive: torch.Tensor,
+    k_sep: float,
+    personal_space: float,
+    eps: float,
+    cell: float,
+    max_per_cell: int,
+    torus_hw: Optional[float] = None,
+) -> torch.Tensor:
+    """Spatial-hash separation force, [N, D]; other dimensions than 2 get
+    ``separation_dense``.
+
+    Agents are stably sorted by cell key; each gathers a ``max_per_cell``
+    window from each of its 9 surrounding cells.  Cells holding more agents
+    are truncated per gather (the first ``max_per_cell`` in sort order).
+    Without ``torus_hw`` the key packs ``cx * 65536 + cy`` in int32 (it
+    wraps, as in the JAX package, and still names each cell once) and the
+    windows start at ``searchsorted``; with it, the ``g x g`` grid tiles
+    the torus, the stencil and displacements wrap, and the windows start
+    at the CSR table."""
+    n, d = pos.shape
+    if d != 2:
+        return separation_dense(pos, alive, k_sep, personal_space, eps)
+    if cell < personal_space:
+        raise ValueError(
+            f"grid cell ({cell}) must be >= personal_space "
+            f"({personal_space}) for the 3x3 stencil to cover the "
+            "separation radius"
+        )
+    alive = alive.bool()
+    if torus_hw is not None:
+        g = max(1, int(2.0 * torus_hw / cell))
+        if g < 3:
+            raise ValueError(
+                f"torus [-{torus_hw}, {torus_hw}) tiled by cell {cell} "
+                f"gives a {g}-cell grid; the wrapping 3x3 stencil needs "
+                "g >= 3 (use dense separation for such tiny worlds)"
+            )
+        cx, cy, keys, _, cell_starts = torus_cell_tables(pos, torus_hw, g)
+
+        def neighbor_key(dx, dy):
+            return torch.remainder(cx + dx, g) * g + torch.remainder(cy + dy,
+                                                                     g)
+
+        def wrap(diff):
+            return torus_wrap(diff, torus_hw)
+    else:
+        cx = _floor_div(pos[:, 0], cell) + _HALF
+        cy = _floor_div(pos[:, 1], cell) + _HALF
+        keys = cx * _GRID_BASE + cy
+
+        def neighbor_key(dx, dy):
+            return (cx + dx) * _GRID_BASE + (cy + dy)
+
+        def wrap(diff):
+            return diff
+
+    skeys, order = torch.sort(keys, stable=True)
+    spos = pos[order]
+    salive = alive[order]
+    window = torch.arange(max_per_cell, device=pos.device)
+    me = torch.arange(n, device=pos.device)
+    force = torch.zeros_like(pos)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            nkey = neighbor_key(dx, dy)
+            if torus_hw is not None:
+                start = cell_starts[nkey.long()]
+            else:
+                start = torch.searchsorted(skeys, nkey)
+            idx = start[:, None] + window[None, :]              # [N, K]
+            idx_c = idx.clamp(max=n - 1)
+            in_cell = (idx < n) & (skeys[idx_c] == nkey[:, None])
+            near = in_cell & salive[idx_c] & (order[idx_c] != me[:, None])
+            force = force + _stencil_terms(
+                pos, alive, k_sep, personal_space, eps, spos[idx_c], near,
+                wrap,
+            )
+    return force
+
+
+def separation_grid_plan(
+    pos: torch.Tensor,
+    alive: torch.Tensor,
+    k_sep: float,
+    personal_space: float,
+    eps: float,
+    plan,
+) -> torch.Tensor:
+    """Torus spatial-hash separation force off a shared ``HashgridPlan``,
+    [N, 2]: the portable hashgrid path.
+
+    The plan may be stale within its Verlet window, so partners' positions
+    are the CURRENT ``pos`` read through ``plan.order``, and the distance
+    test is at the true ``personal_space``.  With the candidate table
+    (``plan.has_list``) each agent sweeps its own cell's row
+    (:func:`separation_union_sweep`); else the 3x3 stencil over the CSR
+    tables, where a slot counts when ``slot < counts[cell]`` (live agents
+    only: dead ones are keyed past the grid) and each stencil cell is
+    truncated at ``plan.max_per_cell``."""
+    n = pos.shape[0]
+    if plan.cell_eff < personal_space + plan.skin:
+        raise ValueError(
+            f"plan cell ({plan.cell_eff}) must be >= personal_space "
+            f"+ skin ({personal_space} + {plan.skin}) for the 3x3 "
+            "stencil (and its union candidate table) to cover the "
+            "separation radius across the Verlet reuse window"
+        )
+    alive = alive.bool()
+    if plan.has_list:
+        return separation_union_sweep(pos, alive, k_sep, personal_space, eps,
+                                      plan)
+    if plan.counts is None:
+        raise ValueError(
+            "separation_grid_plan needs a plan built with need_csr=True "
+            "or neighbor_cap > 0"
+        )
+    g = plan.g
+    if g < 3:
+        raise ValueError(
+            f"torus tiled into a {g}-cell grid; the wrapping 3x3 stencil "
+            "needs g >= 3 (use dense separation for such tiny worlds)"
+        )
+    hw = plan.torus_hw
+    order = plan.order.long()
+    spos = pos[order]
+    counts, starts = plan.counts, plan.starts
+    window = torch.arange(plan.max_per_cell, device=pos.device)
+    me = torch.arange(n, device=pos.device)
+    force = torch.zeros_like(pos)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            nkey = (torch.remainder(plan.cx + dx, g) * g
+                    + torch.remainder(plan.cy + dy, g)).long()
+            occ = counts[nkey]
+            idx = starts[nkey][:, None] + window[None, :]
+            idx_c = idx.clamp(max=n - 1)
+            near = (window[None, :] < occ[:, None]) & (
+                order[idx_c] != me[:, None])
+            force = force + _stencil_terms(
+                pos, alive, k_sep, personal_space, eps, spos[idx_c], near,
+                lambda diff: torus_wrap(diff, hw),
+            )
+    return force
+
+
+def union_sweep_rows(
+    pos: torch.Tensor,
+    agents: torch.Tensor,
+    rows: torch.Tensor,
+    k_sep: float,
+    personal_space: float,
+    eps: float,
+    hw: float,
+    absolute: bool = False,
+    sequential: bool = False,
+) -> torch.Tensor:
+    """[M, 2]: the force on each of ``agents`` ([M] indices) from the
+    candidates of its row ``rows`` ([M, W], padded with ``n``), at the
+    CURRENT positions: select-form wrap, ``d = sqrt(dx^2 + dy^2)``,
+    ``k / max(d, eps)^3 * diff`` over the candidates closer than
+    ``personal_space`` other than the agent itself.  With ``absolute``,
+    ``sum |term|`` instead; with ``sequential``, the terms are summed one
+    column after another, in row order (the candidate kernel's order)."""
+    n = pos.shape[0]
+    valid = rows < n
+    npos = pos[rows.clamp(max=n - 1).long()]                  # [M, W, 2]
+    diff = wrap_select(pos[agents.long()][:, None, :] - npos, hw)
+    dist = torch.sqrt(sq_norm2(diff[..., 0], diff[..., 1]))
+    dist_c = dist.clamp(min=eps)
+    near = valid & (dist < personal_space) & (rows != agents[:, None])
+    scale = rdiv(k_sep, dist_c * dist_c * dist_c)
+    term = scale[..., None] * diff
+    if absolute:
+        term = term.abs()
+    term = torch.where(near[..., None], term, 0.0)
+    if not sequential:
+        return term.sum(1)
+    force = torch.zeros_like(term[:, 0])
+    for w in range(term.shape[1]):
+        force = force + term[:, w]
+    return force
+
+
+def separation_union_sweep(
+    pos: torch.Tensor,
+    alive: torch.Tensor,
+    k_sep: float,
+    personal_space: float,
+    eps: float,
+    plan,
+) -> torch.Tensor:
+    """The union sweep, [N, 2]: each agent reads its own cell's row of the
+    plan's stencil-union candidate table, one ``[N, W]`` gather in place
+    of the nine stencil gathers.  Dead agents (keyed past the grid) read
+    row ``g*g - 1`` and are masked."""
+    n = pos.shape[0]
+    g2 = plan.g * plan.g
+    rows = plan.cand[plan.key.clamp(max=g2 - 1).long()]
+    me = torch.arange(n, dtype=torch.int32, device=pos.device)
+    force = union_sweep_rows(pos, me, rows, k_sep, personal_space, eps,
+                             plan.torus_hw)
+    return torch.where(alive.bool()[:, None], force, 0.0)
 
 
 def neighbor_counts_sampled(*args, **kwargs):

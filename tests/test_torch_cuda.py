@@ -18,6 +18,14 @@ another order.  Both differences are bounded by a small multiple of
 The window kernel repeats its plain version (``ops/neighbors.py:
 separation_window``) op for op with IEEE intrinsics and in the same order,
 so its band is tighter: ``|kernel - plain| <= 1e-6 * sum|terms| + 1e-7``.
+So does the candidate-sweep kernel (its plain version sums in row order).
+
+The hashgrid slot kernel computes each term as its plain version does
+(``rsqrtf`` is what ``torch.rsqrt`` runs on the card) but sums in another
+order: ``1e-5 * sum|terms| + 1e-6``.  The whole slots path on the card (the
+kernel, the rescue's scatter-add, whose order changes from run to run, and
+the gather) against the same path on the CPU: ``1e-5 * sum|terms| + 1e-5``
+over the dense torus pass's terms (the CPU's ``rsqrt`` rounds differently).
 """
 
 import os
@@ -37,6 +45,13 @@ from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
 )
 from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
     window_separation as port_win,
+)
+from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as port_hp
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+    candidate_sweep as port_cand,
+)
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+    grid_separation as port_grid,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -235,3 +250,209 @@ def test_window_tick_on_the_card_matches_the_cpu(cuda):
         elif a[f].dtype.kind in "biu":
             np.testing.assert_array_equal(b[f], a[f], err_msg=f)
     assert np.isfinite(b["pos"]).all()
+
+
+# --- the hashgrid kernels ----------------------------------------------------
+
+HW = 16.0
+
+
+def _hash_swarm(n, seed, crowd=0, dead=0.1):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-HW, HW, (n, 2)).astype(np.float32)
+    pos[:crowd] = (1.0 + 0.5 * rng.normal(size=(crowd, 2))).astype(np.float32)
+    alive = rng.random(n) >= dead
+    alive[:crowd] = True
+    return torch.from_numpy(pos), torch.from_numpy(alive)
+
+
+def _torus_abs_sum(pos, alive):
+    """sum_j |term_ij| of the dense torus pass, [N, 2] (f64)."""
+    d = pos.double()[:, None, :] - pos.double()[None, :, :]
+    d = torch.remainder(d + HW, 2 * HW) - HW
+    r = d.norm(dim=-1)
+    near = ((r < R) & alive[:, None] & alive[None, :]
+            & ~torch.eye(len(pos), dtype=torch.bool, device=pos.device))
+    mag = K_SEP / r.clamp(min=EPS) ** 3
+    return torch.where(near[..., None], mag[..., None] * d.abs(), 0.0).sum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cell,cap,crowd,skin",
+    [(2.0, 8, 0, 0.0), (1.0, 8, 0, 0.0), (2.0, 8, 40, 0.0),
+     (1.5, 16, 0, 0.5)],
+    ids=["R1", "R2", "R1-overflow", "stale-skinned"],
+)
+def test_grid_sweep_kernel_matches_plain(cuda, cell, cap, crowd, skin):
+    pos, alive = _hash_swarm(600, 3, crowd)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    g = (int(2 * HW / (cell + skin)) // 16) * 16
+    plan = port_hp.build_hashgrid_plan(pos, alive, HW, cell, cap, g=g,
+                                       skin=skin)
+    if skin:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        pos = pos + 0.34 * (torch.rand(pos.shape, generator=gen,
+                                       device=cuda) - 0.5)
+    r = port_grid._stencil_radius(plan.cell_eff, R + skin)
+    x, y, slot = port_grid.slot_planes(pos, plan)
+    args = (x, y, slot, g, cap, r, K_SEP, R, EPS, HW)
+    before = port_grid.LAUNCHES
+    fx, fy = port_grid.grid_sweep_cuda(*args)
+    torch.cuda.synchronize()
+    assert port_grid.LAUNCHES == before + 1
+    px, py = port_grid.grid_sweep_plain(*args)
+    sx, sy = port_grid.grid_sweep_plain(*args, absolute=True)
+    for got, want, scale in ((fx, px, sx), (fy, py, sy)):
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (fx[x == port_grid.SENTINEL] == 0).all()
+    assert (int(plan.cap_overflow) > 0) == bool(crowd)
+    # The whole slots path, rescue included, against the CPU's.
+    kw = dict(cell=cell + skin, max_per_cell=cap, torus_hw=HW,
+              overflow_budget=64)
+    got = port_grid.separation_hashgrid(pos, alive, K_SEP, R, EPS, plan=plan,
+                                        **kw)
+    cplan = port_hp.plan_from_numpy(port_hp.plan_to_numpy(plan), "cpu")
+    want = port_grid.separation_hashgrid(pos.cpu(), alive.cpu(), K_SEP, R,
+                                         EPS, plan=cplan, **kw)
+    scale = _torus_abs_sum(pos, alive).cpu()
+    assert ((got.cpu().double() - want.double()).abs()
+            <= 1e-5 * scale + 1e-5).all()
+
+
+@pytest.mark.cuda
+def test_grid_sweep_kernel_input_checks(cuda):
+    x = torch.zeros(16 * 16 * 8, device=cuda)
+    slot = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        port_grid.grid_sweep_cuda(x.double(), x, slot, 16, 8, 1, K_SEP, R,
+                                  EPS, HW)
+    with pytest.raises(ValueError):
+        port_grid.grid_sweep_cuda(x[:-1], x[:-1], slot, 16, 8, 1, K_SEP, R,
+                                  EPS, HW)
+    with pytest.raises(ValueError):
+        port_grid.grid_sweep_cuda(x, x, slot.long(), 16, 8, 1, K_SEP, R, EPS,
+                                  HW)
+    with pytest.raises(ValueError):
+        port_grid.grid_sweep_cuda(x, x, slot, 16, 8, 3, K_SEP, R, EPS, HW)
+
+
+def _cand_plan(pos, alive, cap=24, skin=0.5, w=128, rk=48):
+    g = int(2 * HW / (max(2.0, R) + skin))
+    return port_hp.build_hashgrid_plan(pos, alive, HW, 2.0, cap, g=g,
+                                       skin=skin, need_csr=True,
+                                       neighbor_cap=w, recv_cap=rk)
+
+
+def _check_candidates(pos, plan):
+    before = port_cand.LAUNCHES
+    got = port_cand.candidate_sweep_cuda(pos, plan.cand, plan.recv, K_SEP, R,
+                                         EPS, HW)
+    torch.cuda.synchronize()
+    assert port_cand.LAUNCHES == before + 1
+    want = port_cand.candidate_sweep_plain(pos, plan.cand, plan.recv, K_SEP,
+                                           R, EPS, HW)
+    scale = port_cand.candidate_sweep_plain(pos, plan.cand, plan.recv, K_SEP,
+                                            R, EPS, HW, absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-6 * scale + 1e-7).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skin0", "stale", "partial-chain",
+                                  "truncated"])
+def test_candidate_kernel_matches_plain(cuda, case):
+    pos, alive = _hash_swarm(800, 5, crowd=60 if case == "truncated" else 0)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    if case == "truncated":    # cand rows past W and receivers past RK
+        plan = _cand_plan(pos, alive, cap=8, skin=0.0, w=32, rk=8)
+        assert int(plan.cand_overflow) > 0 and int(plan.recv_overflow) > 0
+    else:
+        plan = _cand_plan(pos, alive, skin=0.0 if case == "skin0" else 0.5)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    if case == "stale":
+        pos = pos + 0.4 * (torch.rand(pos.shape, generator=gen,
+                                      device=cuda) - 0.5)
+    got = _check_candidates(pos, plan)
+    if case == "partial-chain":
+        for _ in range(3):
+            pos = pos + 0.45 * torch.randn(pos.shape, generator=gen,
+                                           device=cuda)
+            plan = port_hp.refresh_plan_partial(pos, alive, plan)
+            got = _check_candidates(pos, plan)
+        assert int(plan.cells_rebuilt) > 0
+    assert (got[~alive] == 0).all()
+
+
+@pytest.mark.cuda
+def test_hashgrid_ticks_on_the_card_match_the_cpu(cuda):
+    base = tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", world_hw=24.0, formation_shape="none",
+        max_speed=5.0, hashgrid_overflow_budget=64)
+    cfgs = {
+        "slots": base.replace(grid_max_per_cell=8),
+        "candidates": base.replace(
+            hashgrid_kernel="candidates", grid_max_per_cell=24,
+            hashgrid_skin=1.5, hashgrid_neighbor_cap=48,
+            hashgrid_partial_refresh=True),
+    }
+    for name, cfg in cfgs.items():
+        cpu = tdsa.make_swarm(256, device="cpu", spread=18.0, seed=4)
+        cpu = cpu.replace(target=torch.full_like(cpu.pos, 3.0),
+                          has_target=torch.ones_like(cpu.has_target))
+        gpu = tdsa.state_from_numpy(tdsa.state_to_numpy(cpu), device=cuda)
+        jitter = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 3, (40, 256)).astype(np.int32))
+        mod = port_grid if name == "slots" else port_cand
+        before = mod.LAUNCHES
+        cpu = tdsa.swarm_rollout(cpu, None, cfg, 40, jitter=jitter)
+        gpu = tdsa.swarm_rollout(gpu, None, cfg, 40, jitter=jitter.to(cuda))
+        assert mod.LAUNCHES == before + 40, name
+        a, b = tdsa.state_to_numpy(cpu), tdsa.state_to_numpy(gpu)
+        for f in a:
+            if a[f].dtype.kind in "biu":
+                np.testing.assert_array_equal(b[f], a[f], err_msg=f)
+        assert np.isfinite(b["pos"]).all()
+
+
+@pytest.mark.cuda
+def test_hashgrid_rollouts_wait_for_the_device_only_to_refresh_a_plan(cuda):
+    # A per-tick plan (skin 0) never reads from the device; a carried
+    # Verlet plan reads its refresh decision once per tick.
+    import warnings
+
+    from distributed_swarm_algorithm_tpu_torch.models.swarm import (
+        _swarm_tick_plan,
+    )
+
+    base = tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", world_hw=24.0, formation_shape="none",
+        max_speed=5.0, hashgrid_overflow_budget=64, grid_max_per_cell=8)
+    s = tdsa.make_swarm(512, device=cuda, spread=18.0, seed=4)
+    s = s.replace(target=torch.full_like(s.pos, 3.0),
+                  has_target=torch.ones_like(s.has_target))
+    jitter = torch.zeros((6, 512), dtype=torch.int32, device=cuda)
+    carried = base.replace(hashgrid_kernel="candidates", hashgrid_skin=1.5,
+                           grid_max_per_cell=24, hashgrid_neighbor_cap=48,
+                           hashgrid_partial_refresh=True)
+    for cfg, ticks, syncs in ((base, 6, 0), (carried, 6, 6)):
+        tdsa.swarm_rollout(s, None, cfg, 2, jitter=jitter[:2])   # warm up
+        plan = tdsa.build_tick_plan(s, cfg) if syncs else None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                st = s
+                for k in range(ticks):
+                    if plan is None:
+                        st = tdsa.swarm_tick(st, None, cfg, jitter[k])
+                    else:
+                        st, plan = _swarm_tick_plan(st, None, cfg, plan,
+                                                    jitter[k])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert len(waits) == syncs, [str(w.message)[:120] for w in waits]

@@ -213,9 +213,16 @@ def test_entry_points_without_cuda_raise(monkeypatch, capsys):
     assert tdsa.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mode", ["grid", "window", "hashgrid"])
+@pytest.mark.parametrize(
+    "mode", ["k_align-hashgrid", "window", "field-deposit-sorted",
+             "tiebreak"])
 def test_unported_modes_raise_with_their_roadmap_item(mode):
-    s = tdsa.make_swarm(4, device="cpu")
+    # Every separation mode runs since slice 3; what still raises is the
+    # moments field (item 9), the window sizing helpers (item 6) and the
+    # sharded tick's tiebreak (item 16).
+    from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan
+
+    s = tdsa.make_swarm(4, device="cpu", spread=3.0)
     if mode == "window":   # the tick is ported; its sizing helpers are not
         from distributed_swarm_algorithm_tpu_torch.ops import neighbors
 
@@ -224,9 +231,26 @@ def test_unported_modes_raise_with_their_roadmap_item(mode):
             with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
                 helper(s.pos, 2.0)
         return
-    cfg = tdsa.DEFAULT_CONFIG.replace(separation_mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    hashgrid = tdsa.DEFAULT_CONFIG.replace(separation_mode="hashgrid",
+                                           world_hw=16.0)
+    plan = tdsa.build_tick_plan(s, hashgrid)
+    if mode == "tiebreak":
+        with pytest.raises(NotImplementedError, match="item 16"):
+            tdsa.build_hashgrid_plan(s.pos, s.alive, 16.0, 2.0, 8,
+                                     tiebreak=s.agent_id)
+        return
+    if mode == "field-deposit-sorted":
+        cfg = hashgrid.replace(k_coh=0.5, field_deposit="sorted")
+        for call in (lambda: hashgrid_plan.plan_cell_sums(plan, s.pos),
+                     lambda: hashgrid_plan.plan_field_keys(plan)):
+            with pytest.raises(NotImplementedError, match="item 9"):
+                call()
+    else:
+        cfg = hashgrid.replace(k_align=0.5)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
         tdsa.swarm_tick(s, None, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
+        tdsa.build_tick_plan(s, cfg)
 
 
 def test_unported_options_raise():

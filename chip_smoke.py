@@ -14,12 +14,17 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    against its own at five (W = 600 and W = 3000 included), the hashgrid
    slot kernel at four (R = 1, R = 2, past the cap, a stale skinned plan)
    and the candidate kernel at four (skin 0, stale, after partial
-   refreshes, truncated tables);
+   refreshes, truncated tables); the fused PSO kernel at N not a multiple
+   of its block, D = 1, 8, 30 and 100, one step and eight, uniforms handed
+   in and drawn in the kernel, with and without the best candidate, every
+   objective at least once, and the island kernel at 3 ragged islands;
 4. CPU vs GPU: the port's tick on the CPU and on the card, 100 ticks with
    the same injected jitter and a leader kill, ends in equal discrete
    state, in "pallas" mode, in "window" mode with a re-sort every 8 ticks
    (compared in agent-id order), and in "hashgrid" mode with the slot
    kernel and with the candidate kernel on a partially refreshed plan;
+   and three fused PSO blocks from one state with the same injected
+   uniforms on the CPU (plain version) and on the card (kernel);
 5. full width, "pallas": the protocol bench scenario (65,536 agents in
    +-1000 m, 4 tasks, shared target [50, 0], V formation) through
    ``VectorSwarm`` for 120 ticks, the leader killed at tick 60; the kernel
@@ -51,6 +56,23 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    leader must go 65535 -> 65534.  Then the slot kernel (at the station
    and converge final states) and the candidate kernel (at its final
    state) are held against their plain versions and timed beside them.
+
+8. full width, PSO: the JAX package's headline run (bench.py:27-29,158),
+   ``PSO("rastrigin", n=1_048_576, dim=30, steps_per_kernel=64)`` for 2,560
+   steps after a warm-up run of 64, timed with CUDA events: 40 launches of
+   the fused kernel and of no other, gbest never rising from run to run,
+   every position inside the domain; the kernel's uniforms of one step
+   read back at full width (mean, variance, equal to the plain version's);
+   then the kernel at the final state against its plain version over a
+   whole 64-step launch, timed beside it and its bound;
+9. full width, islands: 64 islands of 16,384 particles, Rastrigin-30D,
+   1,280 steps, migration of 4 every 64 (benchmarks/bench_islands.py:18-39)
+   through ``fused_island_run``: 20 launches of the island kernel, no
+   island's gbest rising, the global best reported; then the island kernel
+   against its plain version, timed beside it;
+10. full width, memetic: ``MemeticPSO("rastrigin", n=1_048_576, dim=30)``
+   for 100 steps (benchmarks/bench_memetic_1m.py:17-23, cut from 256
+   steps): fused PSO blocks counted, no personal best worsening.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -86,6 +108,16 @@ HG_BASE = dict(separation_mode="hashgrid", formation_shape="none",
 HG_FAST = dict(max_speed=5.0, hashgrid_kernel="candidates",
                hashgrid_skin=1.5, grid_max_per_cell=24,
                hashgrid_neighbor_cap=48, hashgrid_partial_refresh=True)
+# The PSO family: bench.py:27-29,158; bench_islands.py:18-22;
+# bench_memetic_1m.py:17-19 (100 of its 256 steps).
+PSO_N, PSO_DIM, PSO_STEPS, PSO_K = 1_048_576, 30, 2560, 64
+ISL_I, ISL_N, ISL_STEPS, ISL_EVERY, ISL_MIGRANTS = 64, 16_384, 1280, 64, 4
+MEM_STEPS = 100
+# Operations per element and step of the fused PSO kernels: two Philox
+# calls per four elements (10 rounds of 4 multiplies and 6 adds or xors),
+# the two uniforms from their bits, the update with its clamps, and
+# rastrigin (square, range reduction, 7 Horner steps, 3 more).
+PSO_OPS_PER_ELEMENT_STEP = 50 + 6 + 14 + 23
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -107,10 +139,12 @@ def check(ok, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=True):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs, after one
-    warm-up run, timed with CUDA events."""
-    fn()
+    warm-up run (unless ``warmup`` is false, for calls of seconds), timed
+    with CUDA events."""
+    if warmup:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -627,6 +661,176 @@ def run_fast_movers(dsa, kernels, settle_cfg, cfg):
     return state, plan, launches, leaders, spans, counters
 
 
+def pso_inputs(pf, name, n, d, seed, dev, islands=0):
+    """A transposed swarm on the card from numpy draws: (half width, seed,
+    gbest, pos, vel, bpos, bfit, r1, r2).  With ``islands`` the gbest is
+    [D, islands], each island's own best."""
+    from distributed_swarm_algorithm_tpu_torch.ops.objectives import (
+        get_objective,
+    )
+    _, hw = get_objective(name)
+    rng = np.random.default_rng(seed)
+    draws = [rng.uniform(-hw, hw, (d, n)), 0.1 * rng.uniform(-hw, hw, (d, n)),
+             rng.uniform(-hw, hw, (d, n)), rng.uniform(size=(d, n)),
+             rng.uniform(size=(d, n))]
+    pos, vel, bpos, r1, r2 = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                              for a in draws)
+    bfit = pf.OBJECTIVES_T[name](bpos)
+    if islands:
+        per = n // islands
+        flat = (torch.arange(islands, device=dev) * per
+                + bfit.reshape(islands, per).argmin(1))
+        gbest = bpos[:, flat].contiguous()
+    else:
+        gbest = bpos[:, int(bfit.argmin())][:, None].contiguous()
+    seed_t = torch.tensor([seed + 99], dtype=torch.int32, device=dev)
+    return float(hw), seed_t, gbest, pos, vel, bpos, bfit, r1, r2
+
+
+def compare_pso(pf, kernel, name, label, got, want, bfit_before, k_steps):
+    """Hold a fused PSO launch against its plain version.  Both run the
+    same arithmetic in the same order with the same draws, so for nine
+    objectives the band is zero: every output equal bit for bit.  Ackley
+    calls expf: after one step positions and velocities are equal, the
+    fitness within 1e-6 relative + 1e-6, and the ``fit < bfit`` decisions
+    differ only where ``|fit - bfit|`` is inside that; after more steps at
+    least 99% of the particles are equal."""
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], want[:4]))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    out = dict(phase="kernel_vs_plain", kernel=kernel, objective=name,
+               shape=label, k_steps=k_steps, max_abs_err=err,
+               bitwise_equal=equal,
+               band=("expf: fit within 1e-6 rel + 1e-6" if name == "ackley"
+                     else "0 (bit for bit)"))
+    record(**out)
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{label}: non-finite output")
+    if name != "ackley":
+        check(equal, f"{label}: {kernel} differs from its plain version")
+    elif k_steps == 1:
+        band = 1e-6 * want[3].abs() + 1e-6
+        fit = pf.OBJECTIVES_T[name](want[0])
+        flipped = (got[3] != bfit_before) != (want[3] != bfit_before)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{label}: positions differ")
+        check(bool((~flipped | ((fit - bfit_before).abs() <= band)).all()),
+              f"{label}: a select flipped outside the band")
+        check(bool((flipped | ((got[3] - want[3]).abs() <= band)).all()),
+              f"{label}: fitness outside the band")
+    else:
+        check(float((got[0] == want[0]).all(0).float().mean()) >= 0.99,
+              f"{label}: more than 1% of the particles differ")
+    return out
+
+
+def pso_small_shapes(pf, isl, dev):
+    """Phase 3's PSO part: each fused kernel against its plain version."""
+    names = list(pf.OBJECTIVES_T)
+    shapes = [(300, 8, 1, "host", True), (1000, 30, 8, "device", False),
+              (77, 1, 8, "device", True), (130, 100, 1, "device", True),
+              (1000, 30, 1, "host", False), (515, 8, 8, "device", True)]
+    cases = [(name, *shapes[1]) for name in names]
+    cases += [(names[i % len(names)], *shape)
+              for i, shape in enumerate(shapes)]
+    cases += [("ackley", *shapes[0]), ("michalewicz", *shapes[3])]
+    for name, n, d, k, rng, track in cases:
+        hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = pso_inputs(
+            pf, name, n, d, n + d, dev)
+        rr = (r1, r2) if rng == "host" else (None, None)
+        kw = dict(objective_name=name, half_width=hw, rng=rng, k_steps=k,
+                  track_best=track, step0=5)
+        before = pf.LAUNCHES
+        got = pf.fused_pso_step_t(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                  **kw)
+        check(pf.LAUNCHES == before + 1, "launch not counted")
+        want = pf.fused_pso_step_plain(seed, gbest, pos, vel, bpos, bfit,
+                                       *rr, **kw)
+        compare_pso(pf, "pso_fused", name,
+                    f"n={n} D={d} k={k} rng={rng} track_best={track}",
+                    got, want, bfit, k)
+    for name, k, rng in (("rastrigin", 8, "device"), ("griewank", 1, "host"),
+                         ("levy", 8, "device")):
+        n_i, n_l, d = 3, 157, 12
+        hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = pso_inputs(
+            pf, name, n_i * n_l, d, 7, dev, islands=n_i)
+        rr = (r1, r2) if rng == "host" else (None, None)
+        kw = dict(objective_name=name, half_width=hw, lanes_per_island=n_l,
+                  rng=rng, k_steps=k, step0=3)
+        before = isl.LAUNCHES
+        got = isl._islands_step_t(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                  **kw)
+        check(isl.LAUNCHES == before + 1, "launch not counted")
+        want = isl.islands_step_plain(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                      **kw)
+        compare_pso(pf, "islands_fused", name,
+                    f"I={n_i} n_l={n_l} D={d} k={k} rng={rng}", got, want,
+                    bfit, k)
+
+
+def pso_cpu_vs_gpu(dsa, pf, dev):
+    """Three fused blocks (one step each, the uniforms handed in) from one
+    state on the CPU, where the wrapper runs the plain version, and on the
+    card, where it launches the kernel.  Rastrigin needs no math library,
+    so the band is zero: equal bit for bit."""
+    from distributed_swarm_algorithm_tpu_torch.ops import pso as pso_ops
+    n, d, blocks = 4096, 30, 3
+    cpu = dsa.PSO("rastrigin", n=n, dim=d, seed=3, device="cpu",
+                  use_pallas=True)
+    gpu = dsa.PSO("rastrigin", n=n, dim=d, seed=3, device=dev)
+    gpu.state = pso_ops.pso_state_from_numpy(
+        pso_ops.pso_state_to_numpy(cpu.state), device=dev)
+    u = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=(2, blocks, d, n)).astype(np.float32))
+    a = pf.fused_pso_run(cpu.state, "rastrigin", blocks, rng="host",
+                         uniforms=(u[0], u[1]))
+    before = pf.LAUNCHES
+    b = pf.fused_pso_run(gpu.state, "rastrigin", blocks, rng="host",
+                         uniforms=(u[0].to(dev), u[1].to(dev)))
+    check(pf.LAUNCHES == before + blocks, "launches not counted")
+    fields = ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_pos",
+              "gbest_fit")
+    devs = {f: float((getattr(a, f) - getattr(b, f).cpu()).abs().max())
+            for f in fields}
+    record(phase="cpu_vs_gpu", path="fused_pso_run", particles=n, dim=d,
+           blocks=blocks, band="0 (bit for bit)", max_abs_dev=devs,
+           gbest_cpu=float(a.gbest_fit), gbest_gpu=float(b.gbest_fit))
+    check(all(v == 0.0 for v in devs.values()),
+          f"fused PSO differs CPU vs GPU: {devs}")
+    check(int(a.iteration) == int(b.iteration) == blocks, "iteration")
+
+
+def pso_bound_ms(n, d, k_steps, gbest_cols):
+    """Least time for one fused PSO launch on this card: pos, vel, bpos
+    and bfit read once and written once, gbest and the seed read (bytes),
+    against ``PSO_OPS_PER_ELEMENT_STEP`` operations per element and step
+    plus two per particle and step (the objective's offset and the pbest
+    comparison), over the f32 peak."""
+    nbytes = 2 * 4 * (3 * d + 1) * n + 4 * d * gbest_cols + 4
+    ops = k_steps * n * (d * PSO_OPS_PER_ELEMENT_STEP + 2)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def reset_launches(kernels):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+
+
+def timed(fn):
+    """(result, CUDA-event milliseconds) of ``fn()``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -646,11 +850,23 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
         candidate_sweep as cand,
     )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        pso_fused as pf,
+    )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        islands_fused as isl,
+    )
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
+    from distributed_swarm_algorithm_tpu_torch.ops import objectives
+    from distributed_swarm_algorithm_tpu_torch.parallel import islands
     from distributed_swarm_algorithm_tpu_torch.state import AGENT_AXIS_FIELDS
 
+    # Launch counters by kernel; the two PSO kernels share one source.
     kernels = {"separation": sep, "window_separation": win,
-               "grid_separation": grid, "candidate_sweep": cand}
+               "grid_separation": grid, "candidate_sweep": cand,
+               "pso_fused": pf, "islands_fused": isl}
+    sources = ["separation", "window_separation", "grid_separation",
+               "candidate_sweep", "pso_fused"]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -668,11 +884,11 @@ def main():
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = _build.build(list(kernels))
+    per_source = _build.build(sources)
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
-             for name in kernels}
+             for name in sources}
     record(phase="build", seconds=time.perf_counter() - t0,
            per_source=per_source, ptxas=ptxas)
 
@@ -707,6 +923,7 @@ def main():
                   "co-located trio lost or given a non-finite force")
 
     hashgrid_small_shapes(hp, grid, cand, dev)
+    pso_small_shapes(pf, isl, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -731,6 +948,8 @@ def main():
         cpu_vs_gpu(dsa, hcfg, torch.from_numpy(rng.integers(
             0, cfg.election_jitter_ticks + 1, (100, 1024)).astype(np.int32)),
             dev, AGENT_AXIS_FIELDS)
+
+    pso_cpu_vs_gpu(dsa, pf, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -900,6 +1119,190 @@ def main():
     cand_launches = launches["candidate_sweep"]
     station = hg["station"]
 
+    del state, plan, args
+
+    # 8. the PSO headline run at full width ---------------------------------
+    opt = dsa.PSO("rastrigin", n=PSO_N, dim=PSO_DIM, seed=0,
+                  steps_per_kernel=PSO_K)
+    check(opt.use_pallas, "PSO did not take the fused kernel on the card")
+    hw32 = float(np.float32(opt.half_width))
+    bests = [opt.best]
+    opt.run(PSO_K)                                   # warm-up: one launch
+    bests.append(opt.best)
+    reset_launches(kernels)
+    _, pso_run_ms = timed(lambda: opt.run(PSO_STEPS))
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    bests.append(opt.best)
+    state = opt.state
+    record(
+        phase="full_width", model="PSO", objective="rastrigin",
+        particles=PSO_N, dim=PSO_DIM, steps=PSO_STEPS, steps_per_kernel=PSO_K,
+        launches=launches, run_ms=pso_run_ms,
+        ms_per_launch_in_run=pso_run_ms / (PSO_STEPS // PSO_K),
+        particle_steps_per_sec=PSO_N * PSO_STEPS / (pso_run_ms / 1e3),
+        gbest_initial_warm_final=bests,
+        max_abs_pos=float(state.pos.abs().max()),
+        iteration=int(state.iteration),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, smi=smi,
+    )
+    hashgrid_launch_check(launches, "pso_fused", PSO_STEPS // PSO_K)
+    pso_launches = launches["pso_fused"]
+    check(bests[0] >= bests[1] >= bests[2] and np.isfinite(bests).all(),
+          f"gbest rose or is not finite: {bests}")
+    check(float(state.pos.abs().max()) <= hw32, "a position left the domain")
+    check(tuple(state.pos.shape) == (PSO_N, PSO_DIM)
+          and int(state.iteration) == PSO_K + PSO_STEPS, "wrong state")
+    check(bool((state.pbest_fit >= state.gbest_fit).all()),
+          "gbest is not the least pbest seen")
+
+    # One step's uniforms read back from the kernel at full width: with
+    # w = 0, c2 = 0 and pbest = pos + 1 the new velocity is r1 itself.
+    seed = torch.tensor([2024], dtype=torch.int32, device=dev)
+    zeros = torch.zeros((PSO_DIM, PSO_N), device=dev)
+    drawn = pf.fused_pso_step_cuda(
+        seed, zeros[:, :1].contiguous(), zeros, zeros, zeros + 1.0,
+        torch.zeros((1, PSO_N), device=dev), objective_name="sphere",
+        w=0.0, c1=1.0, c2=0.0, half_width=100.0, k_steps=1, step0=77,
+        track_best=False)[1]
+    expected = pf.philox_uniforms(seed, PSO_N, PSO_DIM, 77, 0)
+    u_mean, u_var = float(drawn.mean()), float(drawn.var())
+    record(phase="kernel_uniforms", samples=drawn.numel(), mean=u_mean,
+           variance=u_var, min=float(drawn.min()), max=float(drawn.max()),
+           equal_to_plain=bool(torch.equal(drawn, expected)),
+           band="|mean - 1/2| < 1e-3, |variance - 1/12| < 1e-3")
+    check(abs(u_mean - 0.5) < 1e-3 and abs(u_var - 1 / 12) < 1e-3
+          and 0.0 <= float(drawn.min()) and float(drawn.max()) < 1.0,
+          "the kernel's uniforms are not uniform on [0, 1)")
+    check(torch.equal(drawn, expected),
+          "the kernel's uniforms are not the plain version's")
+    del zeros, drawn, expected
+
+    # The kernel at the main path's shape: one 64-step launch from the
+    # final state against its plain version, timed beside it and the bound.
+    pos_t, vel_t, bpos_t, bfit_t = pf.prep_padded_t(state, PSO_N)
+    step_args = (seed, state.gbest_pos[:, None].contiguous(), pos_t, vel_t,
+                 bpos_t, bfit_t)
+    step_kw = dict(objective_name="rastrigin", half_width=opt.half_width,
+                   k_steps=PSO_K, track_best=False, step0=PSO_STEPS)
+    got = pf.fused_pso_step_cuda(*step_args, **step_kw)
+    want, pso_plain_ms = timed(
+        lambda: pf.fused_pso_step_plain(*step_args, **step_kw))
+    pso_cmp = compare_pso(pf, "pso_fused", "rastrigin",
+                          "main path, final state", got, want, bfit_t, PSO_K)
+    del got, want
+    pso_ms = cuda_ms(lambda: pf.fused_pso_step_cuda(*step_args, **step_kw), 5)
+    pso_ms_k8 = cuda_ms(lambda: pf.fused_pso_step_cuda(
+        *step_args, **dict(step_kw, k_steps=8)), 5)
+    pso_bound, pso_bound_by, ops, nbytes = pso_bound_ms(PSO_N, PSO_DIM,
+                                                        PSO_K, 1)
+    record(phase="pso_fused_timing", shape=[PSO_DIM, PSO_N], k_steps=PSO_K,
+           kernel_ms=pso_ms, plain_ms=pso_plain_ms, bound_ms=pso_bound,
+           bound_by=pso_bound_by, operations=ops, bytes=nbytes,
+           kernel_ms_at_k8=pso_ms_k8,
+           bound_ms_at_k8=pso_bound_ms(PSO_N, PSO_DIM, 8, 1)[:2],
+           kernel_share_of_run=pso_ms * pso_launches / pso_run_ms, smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    del opt, state, pos_t, vel_t, bpos_t, bfit_t, step_args
+
+    # 9. the island run at full width ---------------------------------------
+    fn, hw = objectives.get_objective("rastrigin")
+    ist = islands.island_init(fn, ISL_I, ISL_N, PSO_DIM, hw, seed=0)
+    run_kw = dict(migrate_every=ISL_EVERY, migrate_k=ISL_MIGRANTS,
+                  half_width=hw, steps_per_kernel=PSO_K)
+    island_bests = [ist.pso.gbest_fit.clone()]
+    ist = isl.fused_island_run(ist, "rastrigin", PSO_K, **run_kw)  # warm-up
+    island_bests.append(ist.pso.gbest_fit.clone())
+    reset_launches(kernels)
+    ist, isl_run_ms = timed(lambda: isl.fused_island_run(
+        ist, "rastrigin", ISL_STEPS, **run_kw))
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    island_bests.append(ist.pso.gbest_fit.clone())
+    best_fit, best_pos = islands.global_best(ist)
+    record(
+        phase="full_width", model="islands", objective="rastrigin",
+        islands=ISL_I, particles_per_island=ISL_N, dim=PSO_DIM,
+        steps=ISL_STEPS, migrate_every=ISL_EVERY, migrate_k=ISL_MIGRANTS,
+        steps_per_kernel=PSO_K, launches=launches, run_ms=isl_run_ms,
+        ms_per_launch_in_run=isl_run_ms / (ISL_STEPS // PSO_K),
+        particle_steps_per_sec=ISL_I * ISL_N * ISL_STEPS / (isl_run_ms / 1e3),
+        global_best=float(best_fit),
+        island_gbest_min_median_max=[
+            float(q) for q in torch.quantile(
+                ist.pso.gbest_fit, torch.tensor([0.0, 0.5, 1.0],
+                                                device=dev))],
+        max_abs_pos=float(ist.pso.pos.abs().max()),
+        iteration=int(ist.iteration),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, smi=smi,
+    )
+    hashgrid_launch_check(launches, "islands_fused", ISL_STEPS // PSO_K)
+    isl_launches = launches["islands_fused"]
+    check(bool((island_bests[0] >= island_bests[1]).all()
+               and (island_bests[1] >= island_bests[2]).all()
+               and torch.isfinite(island_bests[2]).all()),
+          "an island's gbest rose or is not finite")
+    check(float(best_fit) == float(ist.pso.gbest_fit.min())
+          and tuple(best_pos.shape) == (PSO_DIM,), "wrong global best")
+    check(float(ist.pso.pos.abs().max()) <= hw32
+          and tuple(ist.pso.pos.shape) == (ISL_I, ISL_N, PSO_DIM)
+          and int(ist.iteration) == PSO_K + ISL_STEPS, "wrong island state")
+    check(bool((ist.pso.pbest_fit.min(1).values >= ist.pso.gbest_fit).all()),
+          "an island's gbest is not the least pbest it has seen")
+
+    flat = lambda x: x.reshape(ISL_I * ISL_N, PSO_DIM).T.contiguous()  # noqa
+    step_args = (seed, ist.pso.gbest_pos.T.contiguous(), flat(ist.pso.pos),
+                 flat(ist.pso.vel), flat(ist.pso.pbest_pos),
+                 ist.pso.pbest_fit.reshape(1, -1).contiguous())
+    step_kw = dict(objective_name="rastrigin", half_width=hw,
+                   lanes_per_island=ISL_N, k_steps=PSO_K, step0=ISL_STEPS)
+    got = isl.islands_step_cuda(*step_args, **step_kw)
+    want, isl_plain_ms = timed(
+        lambda: isl.islands_step_plain(*step_args, **step_kw))
+    isl_cmp = compare_pso(pf, "islands_fused", "rastrigin",
+                          "main path, final state", got, want, step_args[5],
+                          PSO_K)
+    del got, want
+    isl_ms = cuda_ms(lambda: isl.islands_step_cuda(*step_args, **step_kw), 5)
+    isl_bound, isl_bound_by, ops, nbytes = pso_bound_ms(
+        ISL_I * ISL_N, PSO_DIM, PSO_K, ISL_I)
+    record(phase="islands_fused_timing", shape=[PSO_DIM, ISL_I * ISL_N],
+           islands=ISL_I, k_steps=PSO_K, kernel_ms=isl_ms,
+           plain_ms=isl_plain_ms, bound_ms=isl_bound, bound_by=isl_bound_by,
+           operations=ops, bytes=nbytes,
+           kernel_share_of_run=isl_ms * isl_launches / isl_run_ms, smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    del ist, step_args
+
+    # 10. a short memetic run at full width ---------------------------------
+    mem = dsa.MemeticPSO("rastrigin", n=PSO_N, dim=PSO_DIM, seed=0)
+    check(mem.use_pallas, "MemeticPSO did not take the fused kernel")
+    before_fit, before_best = mem.state.pbest_fit.clone(), mem.best
+    reset_launches(kernels)
+    _, mem_ms = timed(lambda: mem.run(MEM_STEPS))
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    blocks_per_chunk = -(-mem.refine_every // min(mem.steps_per_kernel,
+                                                 mem.refine_every))
+    record(
+        phase="full_width", model="MemeticPSO", objective="rastrigin",
+        particles=PSO_N, dim=PSO_DIM, steps=MEM_STEPS,
+        refine_every=mem.refine_every, refine_steps=mem.refine_steps,
+        steps_per_kernel=mem.steps_per_kernel, launches=launches,
+        run_ms=mem_ms,
+        particle_steps_per_sec=PSO_N * MEM_STEPS / (mem_ms / 1e3),
+        gbest_before_after=[before_best, mem.best],
+        pbest_improved=int((mem.state.pbest_fit < before_fit).sum()),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, smi=smi,
+        seconds_so_far=time.perf_counter() - t_start,
+    )
+    hashgrid_launch_check(
+        launches, "pso_fused",
+        (MEM_STEPS // mem.refine_every) * blocks_per_chunk)
+    check(bool((mem.state.pbest_fit <= before_fit).all())
+          and mem.best <= before_best and np.isfinite(mem.best),
+          "a personal best worsened in the memetic run")
+    check(float(mem.state.pos.abs().max()) <= hw32
+          and int(mem.state.iteration) == MEM_STEPS, "wrong memetic state")
+    del mem
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -959,6 +1362,36 @@ def main():
             "plain_ms": cand_plain_ms,
             "bound_ms": cand_bound_ms,
             "bound_by": cand_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "pso_fused",
+            "route": "cuda",
+            "source": "distributed_swarm_algorithm_tpu_torch/csrc/"
+                      "pso_fused.cu",
+            "replaces": "distributed_swarm_algorithm_tpu/ops/pallas/"
+                        "pso_fused.py:379",
+            "launches": pso_launches,
+            "max_abs_err": pso_cmp["max_abs_err"],
+            "ms": pso_ms,
+            "plain_ms": pso_plain_ms,
+            "bound_ms": pso_bound,
+            "bound_by": pso_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "islands_fused",
+            "route": "cuda",
+            "source": "distributed_swarm_algorithm_tpu_torch/csrc/"
+                      "pso_fused.cu",
+            "replaces": "distributed_swarm_algorithm_tpu/ops/pallas/"
+                        "islands_fused.py:48",
+            "launches": isl_launches,
+            "max_abs_err": isl_cmp["max_abs_err"],
+            "ms": isl_ms,
+            "plain_ms": isl_plain_ms,
+            "bound_ms": isl_bound,
+            "bound_by": isl_bound_by,
             "library_ms": None,
         },
     ]}), flush=True)

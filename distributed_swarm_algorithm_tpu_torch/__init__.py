@@ -13,7 +13,9 @@ torus hashgrid ("hashgrid", with its shared plan and Verlet carry) or no
 separation, and greedy allocation.  The kernels are hand-written CUDA C++
 (``csrc/separation.cu``, ``csrc/window_separation.cu``,
 ``csrc/grid_separation.cu``, ``csrc/candidate_sweep.cu``), built with
-``nvcc`` on first use.
+``nvcc`` on first use.  Also ported: the PSO family (``PSO``,
+``MemeticPSO``, the island model of ``parallel/islands.py``) with the fused
+step kernels of ``csrc/pso_fused.cu`` for one swarm and for islands.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -45,6 +47,20 @@ from .utils.config import (
 )
 from .utils.platform import resolve_device
 from .models.swarm import VectorSwarm, swarm_rollout, swarm_tick
+from .models.pso import PSO
+from .models.memetic import MemeticPSO
+from .ops import objectives
+from .ops.cuda.pso_fused import fused_pso_run
+from .ops.memetic import gd_refine, memetic_run, refine_pbest
+from .ops.pso import (
+    PSOState,
+    pso_init,
+    pso_run,
+    pso_state_from_numpy,
+    pso_state_to_numpy,
+    pso_step,
+)
+from .ops.topology import neighbor_best, ring_best, von_neumann_best
 from .ops.allocation import (
     allocation_step,
     arbitrate,
@@ -88,6 +104,10 @@ __all__ = [
     "build_tick_plan", "HashgridPlan", "build_hashgrid_plan",
     "refresh_plan", "refresh_plan_partial", "plan_to_numpy",
     "plan_from_numpy",
+    "PSO", "PSOState", "pso_init", "pso_step", "pso_run", "fused_pso_run",
+    "pso_state_from_numpy", "pso_state_to_numpy",
+    "MemeticPSO", "memetic_run", "refine_pbest", "gd_refine",
+    "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",
     "NO_LEADER", "NO_CAP", "NO_WINNER",

@@ -2,6 +2,8 @@
 
   swarm   the vectorized swarm (VectorSwarm) on the CUDA card, or on the
           CPU with ``--device cpu``
+  pso     particle swarm optimization (PSO, MemeticPSO, or the island
+          model with ``--islands``), on the card or with ``--device cpu``
 
 The other subcommands of the JAX package's CLI are ported with their
 slices (ROADMAP Queue A).
@@ -48,6 +50,123 @@ def _cmd_swarm(args) -> int:
     return 0
 
 
+def _cmd_pso(args) -> int:
+    if args.islands < 1:
+        raise SystemExit(f"error: --islands ({args.islands}) must be >= 1")
+    if args.islands > 1:
+        # The island path has its own migration-based social structure;
+        # reject flags it would otherwise silently drop.
+        if args.topology != "gbest" or args.refine_every > 0:
+            raise SystemExit(
+                "error: --topology/--refine-every are not supported with "
+                "--islands > 1 (each island is a gbest swarm; diversity "
+                "comes from migration)"
+            )
+        return _cmd_pso_islands(args)
+
+    kwargs = dict(topology=args.topology, ring_radius=args.ring_radius,
+                  device=args.device)
+    if args.refine_every > 0:
+        from .models.memetic import MemeticPSO
+
+        opt = MemeticPSO(
+            args.objective, n=args.n, dim=args.dim, seed=args.seed,
+            refine_every=args.refine_every, refine_steps=args.refine_steps,
+            lr=args.lr, **kwargs,
+        )
+    else:
+        from .models.pso import PSO
+
+        opt = PSO(args.objective, n=args.n, dim=args.dim, seed=args.seed,
+                  **kwargs)
+    start = time.perf_counter()
+    opt.run(args.steps)
+    # run() does not wait for the card; reading the best does, so the
+    # clock covers the run and not only its enqueue.
+    best = opt.best
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "objective": args.objective,
+        "particles": args.n,
+        "dim": args.dim,
+        "iters": args.steps,
+        "topology": args.topology,
+        "memetic": args.refine_every > 0,
+        "path": ("cuda-fused" if opt.device.type == "cuda" else "plain-fused")
+        if opt.use_pallas else "portable",
+        "backend": f"torch-{opt.device.type}",
+        "best": best,
+        "steps_per_sec": round(args.steps / elapsed, 1),
+    }))
+    return 0
+
+
+def _cmd_pso_islands(args) -> int:
+    """Island-model PSO: the fused kernel on the card inside its envelope,
+    the portable island step elsewhere."""
+    from .ops.cuda.islands_fused import (
+        fused_island_run,
+        islands_pallas_supported,
+    )
+    from .ops.objectives import get_objective
+    from .parallel.islands import global_best, island_init, island_run
+
+    fn, hw = get_objective(args.objective)
+    n_per, rem = divmod(args.n, args.islands)
+    if n_per < 1:
+        raise SystemExit(
+            f"error: --n ({args.n}) must be >= --islands ({args.islands})"
+        )
+    if rem:
+        print(
+            f"note: --n {args.n} not divisible by --islands "
+            f"{args.islands}; running {n_per * args.islands} particles",
+            file=sys.stderr,
+        )
+    st = island_init(fn, n_islands=args.islands, n_per_island=n_per,
+                     dim=args.dim, half_width=hw, seed=args.seed,
+                     device=args.device)
+    dev = st.pso.device
+    use_fused = dev.type == "cuda" and islands_pallas_supported(
+        args.objective, st.pso.pos.dtype, st.pso.pos.shape[-1]
+    )
+    start = time.perf_counter()
+    if use_fused:
+        st = fused_island_run(
+            st, args.objective, args.steps,
+            migrate_every=args.migrate_every, migrate_k=args.migrate_k,
+            half_width=hw,
+        )
+    else:
+        st = island_run(
+            st, fn, args.steps, migrate_every=args.migrate_every,
+            migrate_k=args.migrate_k, half_width=hw,
+        )
+    fit, _ = global_best(st)
+    best = float(fit)   # waits for the card, inside the timing
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "objective": args.objective,
+        "islands": args.islands,
+        "particles_per_island": n_per,
+        "dim": args.dim,
+        "iters": args.steps,
+        "path": "cuda-fused" if use_fused else "portable",
+        "backend": f"torch-{dev.type}",
+        "best": best,
+        "steps_per_sec": round(args.steps / elapsed, 1),
+    }))
+    return 0
+
+
+def _add_device(p) -> None:
+    p.add_argument(
+        "--device", default=None, choices=["cuda", "cpu"],
+        help="where the command runs (default: cuda; without a CUDA device "
+             "the command fails unless cpu is asked for)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="distributed_swarm_algorithm_tpu_torch"
@@ -77,12 +196,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="torus half-width for --separation hashgrid: the world "
              "becomes [-HW, HW)^2 (default: 4x --spread)",
     )
-    p_swarm.add_argument(
-        "--device", default=None, choices=["cuda", "cpu"],
-        help="where the swarm runs (default: cuda; without a CUDA device "
-             "the command fails unless cpu is asked for)",
-    )
+    _add_device(p_swarm)
     p_swarm.set_defaults(fn=_cmd_swarm)
+
+    p_pso = sub.add_parser("pso", help="particle swarm optimization")
+    p_pso.add_argument("--objective", default="rastrigin")
+    p_pso.add_argument("--n", type=int, default=8192,
+                       help="total particles (split across --islands)")
+    p_pso.add_argument("--dim", type=int, default=30)
+    p_pso.add_argument("--steps", type=int, default=500)
+    p_pso.add_argument("--seed", type=int, default=0)
+    p_pso.add_argument("--islands", type=int, default=1,
+                       help="island-model: number of independent swarms "
+                            "with periodic ring migration")
+    p_pso.add_argument("--migrate-every", type=int, default=25)
+    p_pso.add_argument("--migrate-k", type=int, default=4)
+    p_pso.add_argument("--topology", default="gbest",
+                       choices=["gbest", "ring", "vonneumann"],
+                       help="social topology (lbest ring / torus grid)")
+    p_pso.add_argument("--ring-radius", type=int, default=1)
+    p_pso.add_argument("--refine-every", type=int, default=0,
+                       help="memetic mode: autograd refinement every K "
+                            "iterations (0 = off)")
+    p_pso.add_argument("--refine-steps", type=int, default=5)
+    p_pso.add_argument("--lr", type=float, default=0.01,
+                       help="memetic gradient-descent learning rate")
+    _add_device(p_pso)
+    p_pso.set_defaults(fn=_cmd_pso)
     return parser
 
 
@@ -94,7 +234,7 @@ def main(argv=None) -> int:
         return 2
     try:
         return args.fn(args)
-    except (ValueError, RuntimeError) as e:
+    except (ValueError, RuntimeError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

@@ -53,6 +53,14 @@ from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
 from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
     grid_separation as port_grid,
 )
+from distributed_swarm_algorithm_tpu_torch.ops import objectives as port_obj
+from distributed_swarm_algorithm_tpu_torch.ops import pso as port_pso
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+    islands_fused as port_isl,
+)
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+    pso_fused as port_pf,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 K_SEP, R, EPS = 20.0, 2.0, 1e-3
@@ -456,3 +464,229 @@ def test_hashgrid_rollouts_wait_for_the_device_only_to_refresh_a_plan(cuda):
             torch.cuda.set_sync_debug_mode("default")
         waits = [w for w in seen if "synchroniz" in str(w.message)]
         assert len(waits) == syncs, [str(w.message)[:120] for w in waits]
+
+
+# --------------------------------------------------------------------------
+# The fused PSO kernels (csrc/pso_fused.cu) against their plain versions.
+#
+# Kernel and plain version run the same arithmetic in the same order (IEEE
+# intrinsics, sums over d in order, the same Philox draws), so for nine
+# objectives every output is equal bit for bit, over a whole k-step launch.
+# Ackley calls expf: its fitness is held to 1e-6 relative, and the
+# `fit < bfit` decisions may differ only where |fit - bfit| is inside that.
+# --------------------------------------------------------------------------
+
+PSO_NAMES = list(port_pf.OBJECTIVES_T)
+
+
+def _pso_inputs(name, n, d, seed, device, islands=0):
+    _, hw = port_obj.get_objective(name)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-hw, hw, (d, n)).astype(np.float32)
+    vel = (0.1 * rng.uniform(-hw, hw, (d, n))).astype(np.float32)
+    bpos = rng.uniform(-hw, hw, (d, n)).astype(np.float32)
+    r1 = rng.uniform(size=(d, n)).astype(np.float32)
+    r2 = rng.uniform(size=(d, n)).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    pos, vel, bpos, r1, r2 = map(to, (pos, vel, bpos, r1, r2))
+    bfit = port_pf.OBJECTIVES_T[name](bpos)
+    if islands:
+        per = bfit.reshape(islands, n // islands)
+        flat = (torch.arange(islands, device=device) * (n // islands)
+                + per.argmin(1))
+        gbest = bpos[:, flat].contiguous()
+    else:
+        gbest = bpos[:, int(bfit.argmin())][:, None].contiguous()
+    seed_t = torch.tensor([seed + 99], dtype=torch.int32, device=device)
+    return float(hw), seed_t, gbest, pos, vel, bpos, bfit, r1, r2
+
+
+def _assert_kernel_equals_plain(name, got, want, bfit_before, k_steps):
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got)
+    if name != "ackley":
+        for label, a, b in zip(("pos", "vel", "bpos", "bfit"), got, want):
+            assert torch.equal(a, b), (
+                name, label, float((a - b).abs().max()))
+        return
+    band = 1e-6 * want[3].abs() + 1e-6
+    if k_steps == 1:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        fit = port_pf.OBJECTIVES_T[name](want[0])
+        flipped = (got[3] != bfit_before) != (want[3] != bfit_before)
+        assert bool((~flipped | ((fit - bfit_before).abs() <= band)).all())
+        assert bool((flipped | ((got[3] - want[3]).abs() <= band)).all())
+    else:
+        same = (got[0] == want[0]).all(0)
+        assert float(same.float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize(
+    "n,d,k_steps,rng,track_best",
+    [(300, 8, 1, "host", True), (1000, 30, 8, "device", False),
+     (77, 1, 8, "device", True), (130, 100, 1, "device", True),
+     (4099, 30, 1, "host", False)],
+    ids=["300x8-host", "1000x30-k8", "77x1-k8", "130x100", "4099x30-host"],
+)
+def test_pso_kernel_equals_plain(cuda, name, n, d, k_steps, rng, track_best):
+    hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = _pso_inputs(
+        name, n, d, n + d, cuda)
+    kw = dict(objective_name=name, half_width=hw, rng=rng, k_steps=k_steps,
+              track_best=track_best, step0=5)
+    rr = (r1, r2) if rng == "host" else (None, None)
+    before = port_pf.LAUNCHES
+    got = port_pf.fused_pso_step_t(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                   **kw)
+    assert port_pf.LAUNCHES == before + 1
+    want = port_pf.fused_pso_step_plain(seed, gbest, pos, vel, bpos, bfit,
+                                        *rr, **kw)
+    _assert_kernel_equals_plain(name, got, want, bfit, k_steps)
+    assert float(got[0].abs().max()) <= np.float32(hw)
+    if track_best and name != "ackley":
+        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+        assert float(got[4]) == float(got[3].min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rastrigin", "griewank", "michalewicz"])
+@pytest.mark.parametrize("k_steps,rng", [(1, "host"), (8, "device")])
+def test_islands_kernel_equals_plain(cuda, name, k_steps, rng):
+    n_i, n_l, d = 3, 157, 12
+    hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = _pso_inputs(
+        name, n_i * n_l, d, 7, cuda, islands=n_i)
+    assert gbest.shape == (d, n_i)
+    kw = dict(objective_name=name, half_width=hw, lanes_per_island=n_l,
+              rng=rng, k_steps=k_steps, step0=3)
+    rr = (r1, r2) if rng == "host" else (None, None)
+    before = port_isl.LAUNCHES, port_pf.LAUNCHES
+    got = port_isl._islands_step_t(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                   **kw)
+    assert (port_isl.LAUNCHES, port_pf.LAUNCHES) == (before[0] + 1,
+                                                     before[1])
+    want = port_isl.islands_step_plain(seed, gbest, pos, vel, bpos, bfit,
+                                       *rr, **kw)
+    _assert_kernel_equals_plain(name, got, want, bfit, k_steps)
+    # Each island follows its own best: with one shared column the result
+    # differs.
+    shared = port_isl.islands_step_plain(
+        seed, gbest[:, :1].expand(-1, n_i).contiguous(), pos, vel, bpos,
+        bfit, *rr, **kw)
+    assert not torch.equal(shared[0], want[0])
+
+
+@pytest.mark.cuda
+def test_pso_kernel_draws_the_plain_versions_uniforms(cuda):
+    # With w = 0, c2 = 0, pbest = pos + 1 and no clamp in reach, one step
+    # leaves vel = c1 * r1 exactly, so the kernel's draws can be read back.
+    n, d = 1000, 30
+    pos = torch.zeros(d, n, device=cuda)
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda)
+    out = port_pf.fused_pso_step_cuda(
+        seed, torch.zeros(d, 1, device=cuda), pos, torch.zeros_like(pos),
+        pos + 1.0, torch.zeros(1, n, device=cuda), objective_name="sphere",
+        w=0.0, c1=1.0, c2=0.0, half_width=100.0, k_steps=1, step0=9,
+        track_best=False)
+    assert torch.equal(out[1], port_pf.philox_uniforms(seed, n, d, 9, 0))
+    assert abs(float(out[1].mean()) - 0.5) < 1e-2
+    assert abs(float(out[1].var()) - 1 / 12) < 5e-3
+
+
+@pytest.mark.cuda
+def test_pso_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = _pso_inputs(
+        "sphere", 64, 4, 1, cuda)
+    kw = dict(objective_name="sphere")
+    before = port_pf.LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        port_pf.fused_pso_step_cuda(seed, gbest, pos.double(), vel, bpos,
+                                    bfit, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_pf.fused_pso_step_cuda(seed, gbest, pos.T.contiguous().T, vel,
+                                    bpos, bfit, **kw)
+    with pytest.raises(ValueError, match="bfit must be"):
+        port_pf.fused_pso_step_cuda(seed, gbest, pos, vel, bpos, bfit[0],
+                                    **kw)
+    with pytest.raises(ValueError, match="seed"):
+        port_pf.fused_pso_step_cuda(seed.cpu(), gbest, pos, vel, bpos, bfit,
+                                    **kw)
+    with pytest.raises(ValueError, match="do not divide"):
+        port_isl.islands_step_cuda(seed, gbest, pos, vel, bpos, bfit,
+                                   lanes_per_island=5, **kw)
+    # The wrapper sizes the candidate arrays by the block the entry picks.
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    pick = _build.load("pso_fused").dsa_pso_fused_block
+    pick.argtypes, pick.restype = [ctypes.c_int], ctypes.c_int
+    for d in (1, 30, 100, 151, 152, 302, 303, 605, 606, 5000):
+        assert pick(d) == port_pf.kernel_block(d), d
+    big = torch.zeros(606, 8, device=cuda)
+    with pytest.raises(ValueError, match="envelope"):
+        port_pf.fused_pso_step_cuda(seed, big[:, :1].contiguous(), big, big,
+                                    big, torch.zeros(1, 8, device=cuda), **kw)
+    assert port_pf.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_fused_runs_never_wait_for_the_device(cuda):
+    import warnings
+
+    from distributed_swarm_algorithm_tpu_torch.ops import memetic
+    from distributed_swarm_algorithm_tpu_torch.parallel import islands
+
+    fn, hw = port_obj.get_objective("rastrigin")
+    st = port_pso.pso_init(fn, 3000, 30, hw, seed=0, device=cuda)
+    ist = islands.island_init(fn, 4, 500, 30, hw, seed=0, device=cuda)
+    runs = {
+        "pso": lambda: port_pf.fused_pso_run(
+            st, "rastrigin", 20, half_width=hw, steps_per_kernel=8),
+        "islands": lambda: port_isl.fused_island_run(
+            ist, "rastrigin", 20, migrate_every=8, migrate_k=2,
+            half_width=hw, steps_per_kernel=8),
+        "memetic": lambda: memetic.fused_memetic_run(
+            st, "rastrigin", fn, 20, refine_every=5, half_width=hw),
+    }
+    for name, run in runs.items():
+        run()                                   # builds and warms up
+        torch.cuda.synchronize()
+        before = port_pf.LAUNCHES + port_isl.LAUNCHES
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (name, [str(w.message)[:120] for w in waits])
+        assert port_pf.LAUNCHES + port_isl.LAUNCHES > before
+        best = out.pso.gbest_fit.min() if name == "islands" else out.gbest_fit
+        assert bool(torch.isfinite(best))
+
+
+@pytest.mark.cuda
+def test_pso_models_take_the_kernel_on_the_card(cuda):
+    opt = tdsa.PSO("rastrigin", n=5000, dim=30, seed=0)
+    assert opt.use_pallas and opt.device.type == "cuda"
+    first, before = opt.best, port_pf.LAUNCHES
+    opt.run(64)
+    assert port_pf.LAUNCHES == before + 8 and opt.best < first
+    assert int(opt.state.iteration) == 64
+    mem = tdsa.MemeticPSO("sphere", n=2000, dim=10, seed=1, refine_every=4)
+    before = port_pf.LAUNCHES
+    mem.run(10)
+    assert port_pf.LAUNCHES == before + 3 and mem.best < 1.0
+    # One block on the card and on the CPU from the same state with the same
+    # injected uniforms: rastrigin is held bit for bit.
+    state = tdsa.PSO("rastrigin", n=700, dim=30, seed=2).state
+    cpu = port_pso.pso_state_from_numpy(port_pso.pso_state_to_numpy(state),
+                                        device="cpu")
+    u = torch.rand(2, 1, 30, 700)
+    on_card = port_pf.fused_pso_run(state, "rastrigin", 1, rng="host",
+                                    uniforms=(u[0].to(cuda), u[1].to(cuda)))
+    on_cpu = port_pf.fused_pso_run(cpu, "rastrigin", 1, rng="host",
+                                   uniforms=(u[0], u[1]))
+    for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_fit"):
+        assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f

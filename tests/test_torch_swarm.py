@@ -215,12 +215,35 @@ def test_entry_points_without_cuda_raise(monkeypatch, capsys):
 
 @pytest.mark.parametrize(
     "mode", ["k_align-hashgrid", "window", "field-deposit-sorted",
-             "tiebreak"])
+             "tiebreak", "island-telemetry", "island-shift-fn"])
 def test_unported_modes_raise_with_their_roadmap_item(mode):
     # Every separation mode runs since slice 3; what still raises is the
-    # moments field (item 9), the window sizing helpers (item 6) and the
-    # sharded tick's tiebreak (item 16).
+    # moments field (item 9), the window sizing helpers (item 6), the
+    # sharded tick's tiebreak (item 16) and, of the island model, its
+    # telemetry (item 11) and the sharded ring shift (item 17).
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan
+
+    if mode.startswith("island"):
+        from distributed_swarm_algorithm_tpu_torch.ops import objectives
+        from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+            islands_fused,
+        )
+        from distributed_swarm_algorithm_tpu_torch.parallel import islands
+
+        st = islands.island_init(objectives.sphere, 2, 8, 2, 5.12,
+                                 device="cpu")
+        if mode == "island-telemetry":
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue A item 11"):
+                islands.island_run(st, objectives.sphere, 1, telemetry=True)
+        else:
+            flat = torch.zeros(2, 16)
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue A item 17"):
+                islands_fused._migrate_t(
+                    flat, flat, flat, torch.zeros(1, 16), 1, 2, 8,
+                    shift_fn=lambda p, f: (p, f))
+        return
 
     s = tdsa.make_swarm(4, device="cpu", spread=3.0)
     if mode == "window":   # the tick is ported; its sizing helpers are not

@@ -72,7 +72,20 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    against its plain version, timed beside it;
 10. full width, memetic: ``MemeticPSO("rastrigin", n=1_048_576, dim=30)``
    for 100 steps (benchmarks/bench_memetic_1m.py:17-23, cut from 256
-   steps): fused PSO blocks counted, no personal best worsening.
+   steps): fused PSO blocks counted, no personal best worsening;
+11. full width, the bat, grey-wolf, salp and whale optimizers, each at its
+   JAX bench's configuration, Rastrigin-30D at 1,048,576
+   (benchmarks/bench_bat_1m.py:14-22, bench_gwo_1m.py:16-23 with t_max =
+   5,120, bench_salp_1m.py:16-22 and bench_woa_1m.py:15-21 with t_max =
+   512): ``Bat`` and ``GWO`` for 1,280 steps in launches of 8, ``Salp``
+   for 512 in launches of 16, ``WOA`` for 512 in launches of 8, each after
+   a warm-up launch, timed with CUDA events: the launch count, no
+   incumbent (gwo: no leader) rising, every position inside the domain;
+   then one launch of the kernel at the final state against its plain
+   version, timed beside it and its bound.  Phase 3 holds the four kernels
+   at small ragged shapes (several tiles for salp and whale, 1 and k
+   steps, draws handed in and made in the kernel) and phase 4 three
+   launches of each on the CPU and on the card.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -113,6 +126,40 @@ HG_FAST = dict(max_speed=5.0, hashgrid_kernel="candidates",
 PSO_N, PSO_DIM, PSO_STEPS, PSO_K = 1_048_576, 30, 2560, 64
 ISL_I, ISL_N, ISL_STEPS, ISL_EVERY, ISL_MIGRANTS = 64, 16_384, 1280, 64, 4
 MEM_STEPS = 100
+# The optimizer zoo's first group, each at its JAX bench's configuration
+# (bench_bat_1m.py:14-22, bench_gwo_1m.py:16-23, bench_salp_1m.py:16-22,
+# bench_woa_1m.py:15-21): family -> (steps, steps per launch, t_max).
+ZOO_N, ZOO_DIM = 1_048_576, 30
+ZOO = {"bat": (1280, 8, None), "gwo": (1280, 8, 5120),
+       "salp": (512, 16, 512), "woa": (512, 8, 512)}
+ZOO_TPU_KERNELS = {"bat": "bat_fused.py:138", "gwo": "gwo_fused.py:98",
+                   "salp": "salp_fused.py:156", "woa": "woa_fused.py:126"}
+# Operations of each family kernel, counted from its source (csrc/*_fused.cu)
+# with a Philox call at 100 (10 rounds of 4 multiplies and 6 adds or xors),
+# a uniform from its bits at 3, rastrigin at 23 per element and 1 per
+# particle, expf at 10: (per element and step, per particle and step, per
+# element once a launch, per particle once a launch).
+#   bat   64 = eps (a quarter call, its uniform, 2u-1: 30), the walk and the
+#         flight with their select and clip (9), rastrigin (23), the pos/vel
+#         selects (2); 134 = the row call and its three uniforms (109), freq
+#         (2), the walk and acceptance tests (4), three selects, the
+#         loudness product and the pulse (18), rastrigin's offset (1);
+#   gwo   198 = per leader, A's and C's draws (2 x 28) and the attraction
+#         term (8), times 3, the sum (3), /3 and the clip (3); 6 = the
+#         schedule a; then rastrigin once (23 and 1);
+#   salp  28 = the follower (2), the clip (2), rastrigin (23), the running
+#         best's select (1); 3 = its test, the fit select, the offset;
+#   whale 75 = A's and C's draws (56), A and C (3), the explore test and
+#         select (3), the contraction (5), the spiral (5), the select and
+#         the clip (3); 147 = the row call and two uniforms (106), a (6),
+#         l (2), e^{b l} (11), cos 2 pi l (17), the peer's lane (5); then
+#         rastrigin once (23 and 1).
+ZOO_OPS = {"bat": (64, 134, 0, 0), "gwo": (198, 6, 23, 1),
+           "salp": (28, 3, 0, 0), "woa": (75, 147, 23, 1)}
+# The bat and whale runs on the CPU against the card: a last-bit
+# difference of exp (and of the bat's mean loudness) carried three steps.
+ZOO_CPU_BAND = {"pos": dict(rtol=1e-5, atol=1e-5),
+                "fit": dict(rtol=2e-5, atol=2e-5)}
 # Operations per element and step of the fused PSO kernels: two Philox
 # calls per four elements (10 rounds of 4 multiplies and 6 adds or xors),
 # the two uniforms from their bits, the update with its clamps, and
@@ -831,6 +878,296 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def zoo_modules():
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        bat_fused, gwo_fused, salp_fused, woa_fused,
+    )
+    return {"bat": bat_fused, "gwo": gwo_fused, "salp": salp_fused,
+            "woa": woa_fused}
+
+
+def zoo_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n=None, seed=0):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    family ``fam`` on numpy-drawn inputs on the card."""
+    from distributed_swarm_algorithm_tpu_torch.ops.objectives import (
+        get_objective,
+    )
+    _, hw = get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = pf.OBJECTIVES_T[name](pos)
+    best = pos[:, int(fit.argmin())][:, None].contiguous()
+    it0 = int(g.integers(0, 50))
+    kw = dict(objective_name=name, half_width=hw, rng=rng, k_steps=k,
+              step0=int(g.integers(0, 1000)))
+    mod = mods[fam]
+    if fam == "bat":
+        vel = to(g.uniform(-1, 1, (d, n)))
+        loud = to(g.uniform(0.4, 1.0, (1, n)))
+        pulse = to(g.uniform(0.0, 0.6, (1, n)))
+        draws = [to(g.uniform(size=s)) for s in ((1, n), (1, n), (d, n),
+                                                 (1, n))]
+        args = [i32(seed + 7, it0), best, loud.mean().reshape(1), pos, vel,
+                fit, loud, pulse]
+    elif fam == "gwo":
+        order = torch.sort(fit[0], stable=True).indices[:3]
+        draws = [to(g.uniform(size=(3 * d, n))) for _ in range(2)]
+        args = [i32(seed + 7, it0), pos[:, order].T.contiguous(), pos]
+        kw.update(t_max=60)
+    elif fam == "salp":
+        draws = [to(g.uniform(size=(d, 1))) for _ in range(2)]
+        args = [i32(seed + 7, it0), best, pos, fit]
+        kw.update(t_max=60, tile_n=tile_n or n)
+    else:
+        draws = [to(g.uniform(size=s)) for s in ((d, n), (d, n), (1, n),
+                                                 (1, n))]
+        tile = tile_n or n
+        args = [i32(seed + 7, int(g.integers(0, n // tile)), it0,
+                    int(g.integers(0, tile))), best, pos]
+        kw.update(t_max=60, tile_n=tile)
+    if rng == "host":
+        args += draws
+    return (getattr(mod, f"fused_{fam}_step_cuda"),
+            getattr(mod, f"fused_{fam}_step_plain"), args, kw)
+
+
+def compare_family(fam, name, label, got, want, k_steps):
+    """Hold a family kernel's launch against its plain version.  Both run
+    the same arithmetic in the same order with the same draws (the bat
+    pulse and the whale spiral call expf, as torch.exp does on the card),
+    so the band is zero: every output equal bit for bit.  With ackley,
+    whose expf is the objective's, at least 99% of the lanes are equal."""
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    lanes_equal = float((got[0] == want[0]).all(0).float().mean())
+    out = dict(phase="kernel_vs_plain", kernel=f"{fam}_fused",
+               objective=name, shape=label, k_steps=k_steps,
+               max_abs_err=err, bitwise_equal=equal,
+               share_of_lanes_equal=lanes_equal,
+               band=("expf: 99% of the lanes equal" if name == "ackley"
+                     else "0 (bit for bit)"))
+    record(**out)
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{fam} {label}: non-finite output")
+    if name == "ackley":
+        check(lanes_equal >= 0.99, f"{fam} {label}: over 1% of lanes differ")
+    else:
+        check(equal, f"{fam} {label}: the kernel differs from its plain "
+                     "version")
+    return out
+
+
+def zoo_small_shapes(mods, pf, dev):
+    """Phase 3's zoo part: each family kernel against its plain version at
+    ragged shapes, 1 and k steps, both rng modes, several tiles."""
+    cases = [
+        ("bat", "rastrigin", 300, 8, 1, "host", None),
+        ("bat", "sphere", 1000, 30, 8, "device", None),
+        ("bat", "michalewicz", 77, 1, 8, "device", None),
+        ("bat", "ackley", 515, 30, 8, "device", None),
+        ("gwo", "rastrigin", 300, 8, 1, "host", None),
+        ("gwo", "griewank", 1000, 30, 8, "device", None),
+        ("gwo", "levy", 77, 1, 8, "device", None),
+        ("gwo", "schwefel", 130, 100, 3, "device", None),
+        ("salp", "rastrigin", 512, 8, 1, "host", 128),
+        ("salp", "zakharov", 1024, 30, 16, "device", 128),
+        ("salp", "styblinski_tang", 4096, 30, 16, "device", 4096),
+        ("salp", "rosenbrock", 384, 3, 9, "device", 128),
+        ("woa", "rastrigin", 512, 8, 1, "host", 128),
+        ("woa", "sphere", 1024, 30, 8, "device", 128),
+        ("woa", "michalewicz", 256, 1, 8, "device", 256),
+        ("woa", "ackley", 640, 30, 8, "device", 128),
+    ]
+    for fam, name, n, d, k, rng, tile_n in cases:
+        kernel, plain, args, kw = zoo_case(mods, pf, fam, name, n, d, k, rng,
+                                           dev, tile_n)
+        before = mods[fam].LAUNCHES
+        got = kernel(*args, **kw)
+        check(mods[fam].LAUNCHES == before + 1, "launch not counted")
+        compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
+                       f"tile_n={tile_n}", got, plain(*args, **kw), k)
+
+
+def zoo_cpu_vs_gpu(dsa, mods, dev):
+    """Three launches of each family from one state, one step each with
+    the draws handed in, on the CPU (plain version) and on the card
+    (kernel), at 4,096 x 30 in tiles of 1,024 for salp and whale (the
+    chain link and the tile shift at work).  Rastrigin needs no math
+    library, so gwo and salp are equal bit for bit.  The bat run averages
+    the loudness over the colony (a sum the two devices add in other
+    orders) and takes its pulse from exp, the whale its spiral: each
+    device's library rounds its own way, so their floats carry
+    ``ZOO_CPU_BAND`` while the bat's loudness (every acceptance) and the
+    iteration stay exact."""
+    from distributed_swarm_algorithm_tpu_torch.ops import (
+        bat, gwo, objectives, salp, woa,
+    )
+    n, d, calls = 4096, 30, 3
+    fn, hw = objectives.get_objective("rastrigin")
+    g = torch.Generator().manual_seed(5)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    cases = {
+        "bat": (bat, dict(uniforms=[(u(1, n), u(1, n), u(d, n), u(1, n))
+                                    for _ in range(calls)])),
+        "gwo": (gwo, dict(uniforms=[(u(3 * d, n), u(3 * d, n))
+                                    for _ in range(calls)], tile_n=n)),
+        "salp": (salp, dict(uniforms=[(u(d, 1), u(d, 1))
+                                      for _ in range(calls)], tile_n=1024)),
+        "woa": (woa, dict(uniforms=[(u(d, n), u(d, n), u(1, n), u(1, n))
+                                    for _ in range(calls)], tile_n=1024,
+                          shifts=torch.tensor([[1, 5], [3, 1000], [2, 77]],
+                                              dtype=torch.int32))),
+    }
+    for fam, (ops, kw) in cases.items():
+        run = getattr(mods[fam], f"fused_{fam}_run")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        cpu = getattr(ops, f"{fam}_init")(fn, n, d, hw, seed=3, device="cpu")
+        gpu = getattr(ops, f"{fam}_state_from_numpy")(to_np(cpu), device=dev)
+        a = to_np(run(cpu, "rastrigin", calls, rng="host", **kw))
+        kw_gpu = {key: ([tuple(t.to(dev) for t in c) for c in v]
+                        if key == "uniforms" else
+                        v.to(dev) if torch.is_tensor(v) else v)
+                  for key, v in kw.items()}
+        before = mods[fam].LAUNCHES
+        b = to_np(run(gpu, "rastrigin", calls, rng="host", **kw_gpu))
+        check(mods[fam].LAUNCHES == before + calls, "launches not counted")
+        devs = {f: float(np.abs(a[f].astype(np.float64)
+                                - b[f].astype(np.float64)).max())
+                for f in a}
+        exact = ({"loudness", "iteration"} if fam == "bat" else
+                 {"iteration"} if fam == "woa" else set(a))
+        close = all(np.allclose(b[f], a[f], **(ZOO_CPU_BAND["fit"]
+                                               if "fit" in f else
+                                               ZOO_CPU_BAND["pos"]))
+                    for f in a)
+        record(phase="cpu_vs_gpu", path=f"fused_{fam}_run", particles=n,
+               dim=d, launches=calls,
+               band=("0 (bit for bit)" if exact == set(a) else
+                     f"{ZOO_CPU_BAND} for all but {sorted(exact)}, exact"),
+               max_abs_dev=devs)
+        check(all(devs[f] == 0.0 for f in exact) and close,
+              f"fused {fam} run differs CPU vs GPU: {devs}")
+
+
+def zoo_bound_ms(fam, n, d, k_steps):
+    """Least time for one launch of a family kernel on this card: its
+    operations (``ZOO_OPS``) over the f32 peak, against the bytes it must
+    move (each state array read once and each output written once) over
+    the memory rate."""
+    per_elem, per_particle, elem_once, particle_once = ZOO_OPS[fam]
+    ops = (k_steps * n * (d * per_elem + per_particle)
+           + n * (d * elem_once + particle_once))
+    nbytes = {"bat": 8 * (2 * d + 3) * n + 4 * d + 12,
+              "gwo": 4 * (2 * d + 1) * n + 12 * d + 8,
+              "salp": 4 * (2 * d + 2) * n + 4 * d + 8,
+              "woa": 4 * (2 * d + 1) * n + 4 * d + 16}[fam]
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def zoo_incumbent(fam, state):
+    """The family's incumbent best as a tensor: gwo's three leader fits."""
+    return (state.leader_fit if fam == "gwo" else state.best_fit).clone()
+
+
+def zoo_launch_args(fam, state, seed, dev):
+    """One full-width launch's (args, keywords) at a family state."""
+    pos_t = state.pos.T.contiguous()
+    it = state.iteration.reshape(1).to(torch.int32)
+    fit_t = state.fit[None, :].contiguous()
+    if fam == "bat":
+        return ([torch.cat([seed, it]), state.best_pos[:, None].contiguous(),
+                 state.loudness.mean().reshape(1), pos_t,
+                 state.vel.T.contiguous(), fit_t,
+                 state.loudness[None, :].contiguous(),
+                 state.pulse[None, :].contiguous()], {})
+    if fam == "gwo":
+        return ([torch.cat([seed, it]), state.leaders.contiguous(), pos_t],
+                dict(t_max=ZOO["gwo"][2]))
+    if fam == "salp":
+        return ([torch.cat([seed, it]), state.best_pos[:, None].contiguous(),
+                 pos_t, fit_t], dict(t_max=ZOO["salp"][2], tile_n=4096))
+    shifts = torch.tensor([37], dtype=torch.int32, device=dev)
+    return ([torch.cat([seed, shifts, it, shifts * 33]),
+             state.best_pos[:, None].contiguous(), pos_t],
+            dict(t_max=ZOO["woa"][2], tile_n=4096))
+
+
+def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
+    """Phase 11 for one family: the model's run at its bench's width after
+    a warm-up launch, counted and checked; then one launch at the final
+    state against its plain version, timed beside it and its bound."""
+    steps, k, t_max = ZOO[fam]
+    model = {"bat": dsa.Bat, "gwo": dsa.GWO, "salp": dsa.Salp,
+             "woa": dsa.WOA}[fam]
+    kw = dict(seed=0)
+    if fam != "salp":
+        kw["steps_per_kernel"] = k
+    if t_max is not None:
+        kw["t_max"] = t_max
+    opt = model("rastrigin", n=ZOO_N, dim=ZOO_DIM, **kw)
+    check(opt.use_pallas, f"{fam}: the model did not take the fused kernel")
+    hw32 = float(np.float32(opt.half_width))
+    bests = [zoo_incumbent(fam, opt.state)]
+    opt.run(k)                                       # warm-up: one launch
+    bests.append(zoo_incumbent(fam, opt.state))
+    reset_launches(kernels)
+    _, run_ms = timed(lambda: opt.run(steps))
+    launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = opt.state
+    bests.append(zoo_incumbent(fam, state))
+    rec = dict(
+        phase="full_width", model=type(opt).__name__, objective="rastrigin",
+        particles=ZOO_N, dim=ZOO_DIM, steps=steps, steps_per_kernel=k,
+        t_max=t_max, launches=launches, run_ms=run_ms,
+        ms_per_launch_in_run=run_ms / (steps // k),
+        particle_steps_per_sec=ZOO_N * steps / (run_ms / 1e3),
+        best_initial_warm_final=[b.tolist() for b in bests],
+        max_abs_pos=float(state.pos.abs().max()),
+        iteration=int(state.iteration), peak_mem_gib=peak, smi=smi)
+    record(**rec)
+    hashgrid_launch_check(launches, f"{fam}_fused", steps // k)
+    check(bool((bests[0] >= bests[1]).all() and (bests[1] >= bests[2]).all()
+               and torch.isfinite(bests[2]).all()),
+          f"{fam}: the incumbent rose or is not finite: {rec}")
+    check(rec["max_abs_pos"] <= hw32, f"{fam}: a position left the domain")
+    check(tuple(state.pos.shape) == (ZOO_N, ZOO_DIM)
+          and rec["iteration"] == k + steps, f"{fam}: wrong state")
+
+    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    args, extra = zoo_launch_args(fam, state, seed, dev)
+    step_kw = dict(objective_name="rastrigin", half_width=opt.half_width,
+                   k_steps=k, step0=steps, **extra)
+    kernel = getattr(mod, f"fused_{fam}_step_cuda")
+    got = kernel(*args, **step_kw)
+    want, plain_ms = timed(
+        lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
+    cmp = compare_family(fam, "rastrigin", "main path, final state", got,
+                         want, k)
+    del got, want
+    ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
+    bound, bound_by, ops, nbytes = zoo_bound_ms(fam, ZOO_N, ZOO_DIM, k)
+    record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
+           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+           bound_by=bound_by, operations=ops, bytes=nbytes,
+           kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
+           smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    return dict(name=f"{fam}_fused", route="cuda",
+                source=f"distributed_swarm_algorithm_tpu_torch/csrc/"
+                       f"{fam}_fused.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                         + ZOO_TPU_KERNELS[fam],
+                launches=launches[f"{fam}_fused"],
+                max_abs_err=cmp["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -862,11 +1199,14 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.state import AGENT_AXIS_FIELDS
 
     # Launch counters by kernel; the two PSO kernels share one source.
+    zoo = zoo_modules()
     kernels = {"separation": sep, "window_separation": win,
                "grid_separation": grid, "candidate_sweep": cand,
-               "pso_fused": pf, "islands_fused": isl}
+               "pso_fused": pf, "islands_fused": isl,
+               **{f"{fam}_fused": mod for fam, mod in zoo.items()}}
     sources = ["separation", "window_separation", "grid_separation",
-               "candidate_sweep", "pso_fused"]
+               "candidate_sweep", "pso_fused",
+               *(f"{fam}_fused" for fam in zoo)]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -924,6 +1264,7 @@ def main():
 
     hashgrid_small_shapes(hp, grid, cand, dev)
     pso_small_shapes(pf, isl, dev)
+    zoo_small_shapes(zoo, pf, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -950,6 +1291,7 @@ def main():
             dev, AGENT_AXIS_FIELDS)
 
     pso_cpu_vs_gpu(dsa, pf, dev)
+    zoo_cpu_vs_gpu(dsa, zoo, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -1303,6 +1645,10 @@ def main():
           and int(mem.state.iteration) == MEM_STEPS, "wrong memetic state")
     del mem
 
+    # 11. the bat, grey-wolf, salp and whale optimizers at full width -------
+    zoo_rows = [zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev)
+                for fam, mod in zoo.items()]
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -1394,6 +1740,7 @@ def main():
             "bound_by": isl_bound_by,
             "library_ms": None,
         },
+        *zoo_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -15,7 +15,10 @@ separation, and greedy allocation.  The kernels are hand-written CUDA C++
 ``csrc/grid_separation.cu``, ``csrc/candidate_sweep.cu``), built with
 ``nvcc`` on first use.  Also ported: the PSO family (``PSO``,
 ``MemeticPSO``, the island model of ``parallel/islands.py``) with the fused
-step kernels of ``csrc/pso_fused.cu`` for one swarm and for islands.
+step kernels of ``csrc/pso_fused.cu`` for one swarm and for islands, and
+the bat, grey wolf, salp and whale optimizers (``Bat``, ``GWO``, ``Salp``,
+``WOA``) with their fused kernels (``csrc/bat_fused.cu``,
+``csrc/gwo_fused.cu``, ``csrc/salp_fused.cu``, ``csrc/woa_fused.cu``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -49,6 +52,46 @@ from .utils.platform import resolve_device
 from .models.swarm import VectorSwarm, swarm_rollout, swarm_tick
 from .models.pso import PSO
 from .models.memetic import MemeticPSO
+from .models.bat import Bat
+from .models.gwo import GWO
+from .models.salp import Salp
+from .models.woa import WOA
+from .ops.bat import (
+    BatState,
+    bat_init,
+    bat_run,
+    bat_state_from_numpy,
+    bat_state_to_numpy,
+    bat_step,
+)
+from .ops.gwo import (
+    GWOState,
+    gwo_init,
+    gwo_run,
+    gwo_state_from_numpy,
+    gwo_state_to_numpy,
+    gwo_step,
+)
+from .ops.salp import (
+    SalpState,
+    salp_init,
+    salp_run,
+    salp_state_from_numpy,
+    salp_state_to_numpy,
+    salp_step,
+)
+from .ops.woa import (
+    WOAState,
+    woa_init,
+    woa_run,
+    woa_state_from_numpy,
+    woa_state_to_numpy,
+    woa_step,
+)
+from .ops.cuda.bat_fused import fused_bat_run
+from .ops.cuda.gwo_fused import fused_gwo_run
+from .ops.cuda.salp_fused import fused_salp_run
+from .ops.cuda.woa_fused import fused_woa_run
 from .ops import objectives
 from .ops.cuda.pso_fused import fused_pso_run
 from .ops.memetic import gd_refine, memetic_run, refine_pbest
@@ -107,6 +150,14 @@ __all__ = [
     "PSO", "PSOState", "pso_init", "pso_step", "pso_run", "fused_pso_run",
     "pso_state_from_numpy", "pso_state_to_numpy",
     "MemeticPSO", "memetic_run", "refine_pbest", "gd_refine",
+    "Bat", "BatState", "bat_init", "bat_step", "bat_run", "fused_bat_run",
+    "bat_state_from_numpy", "bat_state_to_numpy",
+    "GWO", "GWOState", "gwo_init", "gwo_step", "gwo_run", "fused_gwo_run",
+    "gwo_state_from_numpy", "gwo_state_to_numpy",
+    "Salp", "SalpState", "salp_init", "salp_step", "salp_run",
+    "fused_salp_run", "salp_state_from_numpy", "salp_state_to_numpy",
+    "WOA", "WOAState", "woa_init", "woa_step", "woa_run", "fused_woa_run",
+    "woa_state_from_numpy", "woa_state_to_numpy",
     "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",

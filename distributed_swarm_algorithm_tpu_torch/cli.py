@@ -4,6 +4,9 @@
           CPU with ``--device cpu``
   pso     particle swarm optimization (PSO, MemeticPSO, or the island
           model with ``--islands``), on the card or with ``--device cpu``
+  bat, gwo, salp, woa
+          the bat algorithm, grey wolf, salp swarm and whale optimizers,
+          on the card or with ``--device cpu``
 
 The other subcommands of the JAX package's CLI are ported with their
 slices (ROADMAP Queue A).
@@ -92,8 +95,7 @@ def _cmd_pso(args) -> int:
         "iters": args.steps,
         "topology": args.topology,
         "memetic": args.refine_every > 0,
-        "path": ("cuda-fused" if opt.device.type == "cuda" else "plain-fused")
-        if opt.use_pallas else "portable",
+        "path": _path(opt),
         "backend": f"torch-{opt.device.type}",
         "best": best,
         "steps_per_sec": round(args.steps / elapsed, 1),
@@ -157,6 +159,68 @@ def _cmd_pso_islands(args) -> int:
         "steps_per_sec": round(args.steps / elapsed, 1),
     }))
     return 0
+
+
+def _path(opt) -> str:
+    """Which path an optimizer's ``run`` takes: the fused kernel on the
+    card, its plain version on the CPU, or the portable step."""
+    if not opt.use_pallas:
+        return "portable"
+    return "cuda-fused" if opt.device.type == "cuda" else "plain-fused"
+
+
+def _run_report(opt, args, count_key: str) -> int:
+    """The optimizer subcommands' tail: a timed run and one JSON line."""
+    start = time.perf_counter()
+    opt.run(args.steps)
+    # run() does not wait for the card; reading the best does, so the
+    # clock covers the run and not only its enqueue.
+    best = opt.best
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "objective": args.objective,
+        count_key: args.n,
+        "dim": args.dim,
+        "iters": args.steps,
+        "path": _path(opt),
+        "backend": f"torch-{opt.device.type}",
+        "best": best,
+        "steps_per_sec": round(args.steps / elapsed, 1),
+    }))
+    return 0
+
+
+def _cmd_bat(args) -> int:
+    from .models.bat import Bat
+
+    opt = Bat(args.objective, n=args.n, dim=args.dim, seed=args.seed,
+              device=args.device)
+    return _run_report(opt, args, "bats")
+
+
+def _scheduled_cmd(module: str, cls: str, noun: str):
+    """Handler of a family whose one extra knob is the schedule horizon
+    ``--t-max`` (0 means ``--steps``)."""
+
+    def cmd(args) -> int:
+        import importlib
+
+        model = getattr(
+            importlib.import_module(f".models.{module}", __package__), cls)
+        opt = model(args.objective, n=args.n, dim=args.dim,
+                    t_max=args.t_max if args.t_max else args.steps,
+                    seed=args.seed, device=args.device)
+        return _run_report(opt, args, noun)
+
+    return cmd
+
+
+# (subcommand, module, class, report noun, help text)
+_SCHEDULED_FAMILIES = (
+    ("gwo", "gwo", "GWO", "wolves", "grey wolf optimizer"),
+    ("woa", "woa", "WOA", "whales", "whale optimization"),
+    ("salp", "salp", "Salp", "salps", "salp swarm algorithm"),
+)
 
 
 def _add_device(p) -> None:
@@ -223,6 +287,23 @@ def build_parser() -> argparse.ArgumentParser:
                        help="memetic gradient-descent learning rate")
     _add_device(p_pso)
     p_pso.set_defaults(fn=_cmd_pso)
+
+    def optimizer_parser(name, helptext):
+        p = sub.add_parser(name, help=helptext)
+        p.add_argument("--objective", default="rastrigin")
+        p.add_argument("--n", type=int, default=128)
+        p.add_argument("--dim", type=int, default=30)
+        p.add_argument("--steps", type=int, default=500)
+        p.add_argument("--seed", type=int, default=0)
+        _add_device(p)
+        return p
+
+    for name, module, cls, noun, helptext in _SCHEDULED_FAMILIES:
+        p_fam = optimizer_parser(name, helptext)
+        p_fam.add_argument("--t-max", type=int, default=0,
+                           help="schedule horizon (default --steps)")
+        p_fam.set_defaults(fn=_scheduled_cmd(module, cls, noun))
+    optimizer_parser("bat", "bat algorithm").set_defaults(fn=_cmd_bat)
     return parser
 
 

@@ -16,6 +16,12 @@ def rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     return torch.full_like(den, num) / den
 
 
+def div(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``x / y`` as one IEEE division per element (on the card PyTorch
+    multiplies by the reciprocal of a Python scalar)."""
+    return x / torch.full((), y, dtype=x.dtype, device=x.device)
+
+
 def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, ``sqrt(sum(x * x))``, as
     ``jnp.linalg.norm`` computes it."""

@@ -35,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .._numerics import div as _div
 from ..pso import C1, C2, W, PSOState
 from . import _build
 from .common import ceil_to, cyclic_pad_rows
@@ -68,12 +69,6 @@ _COS2PI_COEFS = (
     60.242465057957851, -85.456685407770465, 64.939390114297879,
     -19.739208758219114, 0.99999999991936284,
 )
-
-
-def _div(x: torch.Tensor, y: float) -> torch.Tensor:
-    """``x / y`` as one IEEE division per element (PyTorch multiplies by
-    the reciprocal of a Python scalar on the card)."""
-    return x / torch.full((), y, dtype=x.dtype, device=x.device)
 
 
 def _sum_rows(t: torch.Tensor) -> torch.Tensor:

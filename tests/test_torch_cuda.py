@@ -690,3 +690,272 @@ def test_pso_models_take_the_kernel_on_the_card(cuda):
                                    uniforms=(u[0], u[1]))
     for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_fit"):
         assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f
+
+
+# --------------------------------------------------------------------------
+# The fused bat, grey-wolf, salp and whale kernels (csrc/bat_fused.cu,
+# gwo_fused.cu, salp_fused.cu, woa_fused.cu) against their plain versions.
+#
+# Each kernel repeats its plain version op for op (IEEE intrinsics, sums
+# over d in order, the same Philox draws; the bat pulse and the whale
+# spiral call expf, as torch.exp does on the card), so every output is
+# equal bit for bit over a whole k-step launch, except with ackley (the
+# objective's expf, as for B5): there at least 99% of the lanes are equal.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    bat_fused as port_bat,
+    gwo_fused as port_gwo,
+    salp_fused as port_salp,
+    woa_fused as port_woa,
+)
+
+FAMILIES = {"bat": port_bat, "gwo": port_gwo, "salp": port_salp,
+            "woa": port_woa}
+
+
+def _family_case(fam, name, n, d, k, rng, device, tile_n=None, seed=0):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    family ``fam`` on numpy-drawn inputs on ``device``."""
+    _, hw = port_obj.get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = port_pf.OBJECTIVES_T[name](pos)
+    best = pos[:, int(fit.argmin())][:, None].contiguous()
+    it0 = int(g.integers(0, 50))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa
+    kw = dict(objective_name=name, half_width=hw, rng=rng, k_steps=k,
+              step0=int(g.integers(0, 1000)))
+    mod = FAMILIES[fam]
+    if fam == "bat":
+        vel = to(g.uniform(-1, 1, (d, n)))
+        loud = to(g.uniform(0.4, 1.0, (1, n)))
+        pulse = to(g.uniform(0.0, 0.6, (1, n)))
+        draws = [to(g.uniform(size=s)) for s in ((1, n), (1, n), (d, n),
+                                                 (1, n))]
+        args = [i32(seed + 7, it0), best, loud.mean().reshape(1), pos, vel,
+                fit, loud, pulse]
+        plain, kernel = mod.fused_bat_step_plain, mod.fused_bat_step_cuda
+    elif fam == "gwo":
+        order = torch.sort(fit[0], stable=True).indices[:3]
+        draws = [to(g.uniform(size=(3 * d, n))) for _ in range(2)]
+        args = [i32(seed + 7, it0), pos[:, order].T.contiguous(), pos]
+        kw.update(t_max=60)
+        plain, kernel = mod.fused_gwo_step_plain, mod.fused_gwo_step_cuda
+    elif fam == "salp":
+        draws = [to(g.uniform(size=(d, 1))) for _ in range(2)]
+        args = [i32(seed + 7, it0), best, pos, fit]
+        kw.update(t_max=60, tile_n=tile_n or n)
+        plain, kernel = mod.fused_salp_step_plain, mod.fused_salp_step_cuda
+    else:
+        draws = [to(g.uniform(size=s)) for s in ((d, n), (d, n), (1, n),
+                                                 (1, n))]
+        tile = tile_n or n
+        args = [i32(seed + 7, int(g.integers(0, n // tile)), it0,
+                    int(g.integers(0, tile))), best, pos]
+        kw.update(t_max=60, tile_n=tile)
+        plain, kernel = mod.fused_woa_step_plain, mod.fused_woa_step_cuda
+    if rng == "host":
+        args += draws
+    return kernel, plain, args, kw
+
+
+def _assert_family_equal(name, got, want):
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    if name != "ackley":
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (name, i, float((a - b).abs().max()))
+    else:
+        assert float((got[0] == want[0]).all(0).float().mean()) >= 0.99
+
+
+FAMILY_CASES = [
+    # fam, objective, n, d, k, rng, tile_n
+    ("bat", "rastrigin", 300, 8, 1, "host", None),
+    ("bat", "sphere", 1000, 30, 8, "device", None),
+    ("bat", "michalewicz", 77, 1, 8, "device", None),
+    ("bat", "ackley", 515, 30, 8, "device", None),
+    ("gwo", "rastrigin", 300, 8, 1, "host", None),
+    ("gwo", "griewank", 1000, 30, 8, "device", None),
+    ("gwo", "levy", 77, 1, 8, "device", None),
+    ("gwo", "schwefel", 130, 100, 3, "device", None),
+    ("salp", "rastrigin", 512, 8, 1, "host", 128),
+    ("salp", "zakharov", 1024, 30, 16, "device", 128),
+    ("salp", "styblinski_tang", 4096, 30, 16, "device", 4096),
+    ("salp", "rosenbrock", 384, 3, 9, "device", 128),
+    ("woa", "rastrigin", 512, 8, 1, "host", 128),
+    ("woa", "sphere", 1024, 30, 8, "device", 128),
+    ("woa", "michalewicz", 256, 1, 8, "device", 256),
+    ("woa", "ackley", 640, 30, 8, "device", 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "fam,name,n,d,k,rng,tile_n", FAMILY_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}x{c[3]}-k{c[4]}-{c[5]}" for c in
+         FAMILY_CASES])
+def test_family_kernel_equals_plain(cuda, fam, name, n, d, k, rng, tile_n):
+    _, plain, args, kw = _family_case(fam, name, n, d, k, rng, cuda, tile_n)
+    mod = FAMILIES[fam]
+    before = mod.LAUNCHES
+    # The entry sends CUDA tensors to the kernel, never to the plain version.
+    got = getattr(mod, f"fused_{fam}_step_t")(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    want = plain(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    _assert_family_equal(name, got, want)
+    hw = kw["half_width"]
+    assert float(got[0].abs().max()) <= np.float32(hw)
+
+
+@pytest.mark.cuda
+def test_family_kernels_read_their_draws_and_reject_bad_operands(cuda):
+    for fam in FAMILIES:
+        kernel, plain, args, kw = _family_case(fam, "sphere", 256, 4, 1,
+                                               "device", cuda, 128)
+        mod = FAMILIES[fam]
+        before = mod.LAUNCHES
+        with pytest.raises(TypeError, match="float32"):
+            kernel(*args[:-1], args[-1].double(), **kw)
+        strided = torch.stack([args[-1], args[-1]], -1)[..., 0]
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(*args[:-1], strided, **kw)
+        with pytest.raises(ValueError, match="scalars"):
+            kernel(args[0].cpu(), *args[1:], **kw)
+        assert mod.LAUNCHES == before
+        # Another seed draws other numbers.
+        a = kernel(*args, **kw)
+        b = kernel(args[0] + 1, *args[1:], **kw)
+        assert not torch.equal(a[0], b[0]), fam
+    with pytest.raises(ValueError, match="k_steps"):
+        _, _, args, kw = _family_case("salp", "sphere", 256, 4, 17,
+                                      "device", cuda, 128)
+        port_salp.fused_salp_step_cuda(*args, **kw)
+    # The wrappers' envelopes are the entries' block picks.
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    for fam, mod in FAMILIES.items():
+        pick = getattr(_build.load(f"{fam}_fused"), f"dsa_{fam}_fused_block")
+        pick.argtypes, pick.restype = [ctypes.c_int], ctypes.c_int
+        for d in (1, 30, 100, 152, 228, 229, 452, 453, 605, 606, 908, 909,
+                  1816, 1817):
+            assert pick(d) == mod.kernel_block(d), (fam, d)
+
+
+@pytest.mark.cuda
+def test_family_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build([f"{fam}_fused" for fam in FAMILIES])
+    for fam in FAMILIES:
+        log = _build.build_log(f"{fam}_fused")
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert spills, (fam, log[:400])
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (fam, spills)
+
+
+@pytest.mark.cuda
+def test_family_runs_never_wait_for_the_device(cuda):
+    import warnings
+
+    from distributed_swarm_algorithm_tpu_torch.ops import bat, gwo, salp, woa
+    fn, hw = port_obj.get_objective("rastrigin")
+    states = {
+        "bat": bat.bat_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "gwo": gwo.gwo_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "salp": salp.salp_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "woa": woa.woa_init(fn, 3000, 30, hw, seed=0, device=cuda),
+    }
+    runs = {
+        "bat": lambda: port_bat.fused_bat_run(states["bat"], "rastrigin", 20,
+                                              half_width=hw),
+        "gwo": lambda: port_gwo.fused_gwo_run(states["gwo"], "rastrigin", 20,
+                                              half_width=hw),
+        "salp": lambda: port_salp.fused_salp_run(states["salp"], "rastrigin",
+                                                 40, half_width=hw),
+        "woa": lambda: port_woa.fused_woa_run(states["woa"], "rastrigin", 20,
+                                              half_width=hw),
+    }
+    for fam, run in runs.items():
+        run()                                   # builds and warms up
+        torch.cuda.synchronize()
+        before = FAMILIES[fam].LAUNCHES
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (fam, [str(w.message)[:120] for w in waits])
+        assert FAMILIES[fam].LAUNCHES == before + 3, fam
+        best = out.leader_fit[0] if fam == "gwo" else out.best_fit
+        assert bool(torch.isfinite(best))
+
+
+@pytest.mark.cuda
+def test_family_models_take_the_kernel_and_match_the_cpu(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import bat, gwo, salp, woa
+    models = {"bat": tdsa.Bat("rastrigin", n=5000, dim=30, seed=0),
+              "gwo": tdsa.GWO("rastrigin", n=5000, dim=30, seed=0),
+              "salp": tdsa.Salp("rastrigin", n=5000, dim=30, seed=0),
+              "woa": tdsa.WOA("rastrigin", n=5000, dim=30, seed=0)}
+    for fam, opt in models.items():
+        assert opt.use_pallas and opt.device.type == "cuda", fam
+        first, before = opt.best, FAMILIES[fam].LAUNCHES
+        opt.run(32)
+        launches = {"salp": 2}.get(fam, 4)
+        assert FAMILIES[fam].LAUNCHES == before + launches, fam
+        assert opt.best <= first and int(opt.state.iteration) == 32, fam
+    # Three launches on the card and on the CPU from one state with the same
+    # draws handed in: gwo and salp are held bit for bit.  The bat's mean
+    # loudness is a sum each device adds in its own order, and the bat's
+    # pulse and the whale's spiral call exp, which each device's library
+    # rounds its own way: their floats within rtol = atol = 1e-5 (fitness
+    # 2e-5), the bat's loudness (every acceptance) exact.
+    n, d = 768, 30
+    g = torch.Generator().manual_seed(3)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    cases = {
+        "bat": (bat, port_bat.fused_bat_run,
+                dict(uniforms=[(u(1, n), u(1, n), u(d, n), u(1, n))
+                               for _ in range(3)], tile_n=n)),
+        "gwo": (gwo, port_gwo.fused_gwo_run,
+                dict(uniforms=[(u(3 * d, n), u(3 * d, n))
+                               for _ in range(3)], tile_n=n)),
+        "salp": (salp, port_salp.fused_salp_run,
+                 dict(uniforms=[(u(d, 1), u(d, 1)) for _ in range(3)],
+                      tile_n=n)),
+        "woa": (woa, port_woa.fused_woa_run,
+                dict(uniforms=[(u(d, n), u(d, n), u(1, n), u(1, n))
+                               for _ in range(3)], tile_n=n,
+                     shifts=torch.tensor([[0, 5], [0, 600], [0, 1]],
+                                         dtype=torch.int32))),
+    }
+    fn, hw = port_obj.get_objective("rastrigin")
+    for fam, (ops, run, kw) in cases.items():
+        init = getattr(ops, f"{fam}_init")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        from_np = getattr(ops, f"{fam}_state_from_numpy")
+        cpu = init(fn, n, d, hw, seed=2, device="cpu")
+        gpu = from_np(to_np(cpu), device=cuda)
+        on_cpu = run(cpu, "rastrigin", 3, rng="host", **kw)
+        kw_gpu = {k: ([tuple(t.to(cuda) for t in c) for c in v]
+                      if k == "uniforms" else
+                      v.to(cuda) if torch.is_tensor(v) else v)
+                  for k, v in kw.items()}
+        on_card = to_np(run(gpu, "rastrigin", 3, rng="host", **kw_gpu))
+        for f, a in to_np(on_cpu).items():
+            if fam in ("gwo", "salp") or f in ("loudness", "iteration"):
+                np.testing.assert_array_equal(on_card[f], a,
+                                              err_msg=f"{fam} {f}")
+            else:
+                tol = 2e-5 if "fit" in f else 1e-5
+                np.testing.assert_allclose(on_card[f], a, rtol=tol,
+                                           atol=tol, err_msg=f"{fam} {f}")

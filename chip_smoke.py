@@ -85,7 +85,23 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    version, timed beside it and its bound.  Phase 3 holds the four kernels
    at small ragged shapes (several tiles for salp and whale, 1 and k
    steps, draws handed in and made in the kernel) and phase 4 three
-   launches of each on the CPU and on the card.
+   launches of each on the CPU and on the card;
+12. full width, differential evolution, SHADE, the genetic algorithm and
+   moth-flame optimization, each at its JAX bench's configuration,
+   Rastrigin-30D at 1,048,576 in 256 tiles of 4,096 lanes
+   (benchmarks/bench_de_1m.py:16-22, bench_shade_1m.py:16-22,
+   bench_ga_1m.py:16-22, bench_mfo_1m.py:17-23 with t_max = 1,000): ``DE``
+   for 1,024 steps in launches of 32, ``SHADE`` for 256 generations, one a
+   launch, ``GA`` and ``MFO`` for 256 in launches of 8 (MFO re-sorting its
+   flames every 8 launches and at the end), each after a warm-up launch,
+   timed with CUDA events: the launch count, no incumbent (MFO: no best
+   flame) rising, every position inside the domain; SHADE's device busy
+   share from a trace of 16 more generations; then one launch of the kernel
+   at the final state against its plain version, timed beside it and its
+   bound.  Phase 3 holds the four kernels at small ragged shapes (4 tiles or
+   more, 1 and k steps, GA at every k from 1 to 8, draws handed in and made
+   in the kernel) and phase 4 three launches of each on the CPU and on the
+   card.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -160,6 +176,37 @@ ZOO_OPS = {"bat": (64, 134, 0, 0), "gwo": (198, 6, 23, 1),
 # difference of exp (and of the bat's mean loudness) carried three steps.
 ZOO_CPU_BAND = {"pos": dict(rtol=1e-5, atol=1e-5),
                 "fit": dict(rtol=2e-5, atol=2e-5)}
+# The rotational-donor families, each at its JAX bench's configuration
+# (bench_de_1m.py:16-22, steps_per_kernel 32; bench_shade_1m.py:16-22;
+# bench_ga_1m.py:16-22, the driver's 8 steps a launch; bench_mfo_1m.py:17-23,
+# t_max 1,000): family -> (steps, steps per launch, t_max).
+ROT = {"de": (1024, 32, None), "shade": (256, 1, None), "ga": (256, 8, None),
+       "mfo": (256, 8, 1000)}
+ROT_TPU_KERNELS = {"de": "de_fused.py:125", "shade": "shade_fused.py:122",
+                   "ga": "ga_fused.py:204", "mfo": "mfo_fused.py:139"}
+# Their operations, counted as ZOO_OPS from csrc/*_fused.cu: (per element and
+# step, per particle and step).
+#   de    58 = the draw (a quarter call and its uniform: 28), the crossover
+#         test (1), the mutant and its clip (5), the select (1), rastrigin
+#         (23); 12 = the three donor lanes, the acceptance and its select,
+#         rastrigin's offset;
+#   shade 63 = the draw (28), the crossover test (1), the source select (1),
+#         the mutant and its clip (9), the select (1), rastrigin (23); 128 =
+#         the source uniform's call and bits (103), the donor and elite lanes
+#         (20), the fixed-point fraction, the acceptance and selects (5);
+#   ga    207 = three draws (84), beta through log2 and 2^x (44), c1 or c2
+#         (6), the gate (2), delta (43), the mutation and the clip (5),
+#         rastrigin (23); 150 = the gate's call and bits (103), the two
+#         tournaments (16), the argmin and argmax with their share of the
+#         reductions (30), rastrigin's offset;
+#   mfo   101 = the draw (28), l (3), the flame select (1), |flame - x| (2),
+#         2^(b l log2 e) (20), cos 2 pi l (17), the spiral and the clip (5),
+#         rastrigin (23), the flame update (2); 3 = the own test, the flame
+#         fitness test and its select.
+ROT_OPS = {"de": (58, 12), "shade": (63, 128), "ga": (207, 150),
+           "mfo": (101, 3)}
+# SHADE's generations profiled for the device's busy share.
+SHADE_PROFILED = 16
 # Operations per element and step of the fused PSO kernels: two Philox
 # calls per four elements (10 rounds of 4 multiplies and 6 adds or xors),
 # the two uniforms from their bits, the update with its clamps, and
@@ -1168,6 +1215,310 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
                 bound_ms=bound, bound_by=bound_by, library_ms=None)
 
 
+def rot_modules():
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        de_fused, ga_fused, mfo_fused, shade_fused,
+    )
+    return {"de": de_fused, "shade": shade_fused, "ga": ga_fused,
+            "mfo": mfo_fused}
+
+
+def rot_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    a rotational-donor family on numpy-drawn inputs on the card."""
+    from distributed_swarm_algorithm_tpu_torch.ops.objectives import (
+        get_objective,
+    )
+    _, hw = get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = pf.OBJECTIVES_T[name](pos)
+    n_tiles = n // tile_n
+    lanes = lambda m: [int(v) for v in g.integers(0, 3 * tile_n, m)]  # noqa
+    tiles = lambda m: [int(v) for v in g.integers(1, n_tiles, m)]  # noqa
+    kw = dict(objective_name=name, half_width=hw, rng=rng, tile_n=tile_n)
+    if fam == "de":
+        args = [i32(seed + 7, 1, 2, 3, *lanes(3)), pos, fit]
+        draws = [to(g.uniform(size=(d, n)))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)))
+    elif fam == "shade":
+        args = [i32(seed + 7, *tiles(3), *lanes(3), int(g.integers(0, 128)),
+                    int(g.integers(0, 65537))),
+                pos, fit, to(g.uniform(0.01, 1.0, (1, n))),
+                to(g.uniform(size=(1, n))), to(g.uniform(-hw, hw, (d, n))),
+                to(g.uniform(-hw, hw, (d, 128)))]
+        draws = [to(g.uniform(size=(d, n))), to(g.uniform(size=(1, n)))]
+        kw.update(step=int(g.integers(0, 1000)))
+    elif fam == "ga":
+        args = [i32(seed + 7, *tiles(2), *lanes(3)), pos, fit]
+        draws = [to(g.uniform(size=s)) for s in ((d, n), (1, n), (d, n),
+                                                 (d, n))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)),
+                  p_mut=max(1.0 / d, 0.1))
+    else:
+        flames = to(g.uniform(-hw, hw, (d, n)))
+        ffit = pf.OBJECTIVES_T[name](flames)
+        ffit[0, ::9] = float("inf")
+        n_flames = int(g.integers(1, n + 1))
+        args = [i32(seed + 7, n_flames, int(g.integers(-131072, -65535))),
+                flames[:, n_flames - 1:n_flames].contiguous(), pos, flames,
+                ffit]
+        draws = [to(g.uniform(size=(d, n)))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)))
+    if rng == "host":
+        args += draws
+    return (getattr(mods[fam], f"fused_{fam}_step_cuda"),
+            getattr(mods[fam], f"fused_{fam}_step_plain"), args, kw)
+
+
+def rot_small_shapes(mods, pf, dev):
+    """Phase 3's part for DE, SHADE, GA and MFO: each kernel against its
+    plain version at ragged shapes, with 4 or more tiles, 1 and k steps,
+    both rng modes; GA at every k from 1 to 8 (the tile kept in step)."""
+    cases = [
+        ("de", "rastrigin", 512, 8, 1, "host", 128),
+        ("de", "sphere", 480, 30, 32, "device", 96),
+        ("de", "michalewicz", 640, 1, 8, "device", 160),
+        ("de", "ackley", 4096, 30, 32, "device", 1024),
+        ("shade", "rastrigin", 512, 8, 1, "host", 128),
+        ("shade", "griewank", 1280, 30, 1, "device", 256),
+        ("shade", "levy", 512, 1, 1, "device", 128),
+        ("shade", "schwefel", 768, 100, 1, "device", 128),
+        ("ga", "rastrigin", 512, 8, 1, "host", 128),
+        ("ga", "zakharov", 500, 3, 8, "device", 100),
+        ("ga", "ackley", 16384, 30, 8, "device", 4096),
+        *(("ga", "rastrigin", 16384, 30, k, "device", 4096)
+          for k in range(1, 9)),
+        ("mfo", "rastrigin", 512, 8, 1, "host", 128),
+        ("mfo", "styblinski_tang", 1000, 30, 8, "device", 200),
+        ("mfo", "rosenbrock", 77, 1, 32, "device", 77),
+        ("mfo", "ackley", 640, 30, 8, "device", 128),
+    ]
+    for fam, name, n, d, k, rng, tile_n in cases:
+        kernel, plain, args, kw = rot_case(mods, pf, fam, name, n, d, k, rng,
+                                           dev, tile_n)
+        before = mods[fam].LAUNCHES
+        got = kernel(*args, **kw)
+        check(mods[fam].LAUNCHES == before + 1, "launch not counted")
+        compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
+                       f"tile_n={tile_n}", got, plain(*args, **kw), k)
+
+
+def rot_cpu_vs_gpu(mods, dev):
+    """Three launches of each rotational family from one state, one step
+    each with the draws handed in, on the CPU (plain version) and on the
+    card (kernel), at 4,096 x 30 in 4 tiles of 1,024.  DE, GA and MFO are
+    equal bit for bit; SHADE's success memory sums over N in another order
+    on each device, so its floats carry ``ZOO_CPU_BAND``, its counters
+    exact."""
+    from distributed_swarm_algorithm_tpu_torch.ops import (
+        de, ga, mfo, objectives, shade,
+    )
+    n, d, calls, tile = 4096, 30, 3, 1024
+    fn, hw = objectives.get_objective("rastrigin")
+    g = torch.Generator().manual_seed(6)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    i32 = lambda rows: torch.tensor(rows, dtype=torch.int32)  # noqa: E731
+    cases = {
+        "de": (de, dict(uniforms=[u(d, n) for _ in range(calls)],
+                        shifts=i32([[1, 2, 3, 5, 1000, 7], [3, 2, 1, 0, 1, 2],
+                                    [2, 1, 3, 9, 9, 1023]]))),
+        "shade": (shade, dict(draws=[
+            mods["shade"].generation_draws(g, n, d, n // tile, tile, True,
+                                           "cpu") for _ in range(calls)])),
+        "ga": (ga, dict(uniforms=[(u(d, n), u(1, n), u(d, n), u(d, n))
+                                  for _ in range(calls)],
+                        shifts=i32([[1, 2, 5, 1000, 7], [3, 3, 0, 1, 2],
+                                    [2, 1, 9, 9, 1023]]))),
+        "mfo": (mfo, dict(uniforms=[u(d, n) for _ in range(calls)], t_max=5,
+                          sort_blocks=2)),
+    }
+
+    def to_dev(v):
+        if isinstance(v, dict):
+            return {key: to_dev(x) for key, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(to_dev(x) for x in v)
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    for fam, (ops, kw) in cases.items():
+        run = getattr(mods[fam], f"fused_{fam}_run")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        cpu = getattr(ops, f"{fam}_init")(fn, n, d, hw, seed=3, device="cpu")
+        gpu = getattr(ops, f"{fam}_state_from_numpy")(to_np(cpu), device=dev)
+        a = to_np(run(cpu, "rastrigin", calls, rng="host", tile_n=tile, **kw))
+        before = mods[fam].LAUNCHES
+        b = to_np(run(gpu, "rastrigin", calls, rng="host", tile_n=tile,
+                      **to_dev(kw)))
+        check(mods[fam].LAUNCHES == before + calls, "launches not counted")
+        devs = {f: float(np.abs(a[f].astype(np.float64)
+                                - b[f].astype(np.float64)).max())
+                for f in a}
+        exact = ({"mem_k", "archive_n", "iteration"} if fam == "shade"
+                 else set(a))
+        close = all(np.allclose(b[f], a[f], **(ZOO_CPU_BAND["fit"]
+                                               if "fit" in f else
+                                               ZOO_CPU_BAND["pos"]))
+                    for f in a)
+        record(phase="cpu_vs_gpu", path=f"fused_{fam}_run", particles=n,
+               dim=d, launches=calls,
+               band=("0 (bit for bit)" if exact == set(a) else
+                     f"{ZOO_CPU_BAND} for all but {sorted(exact)}, exact"),
+               max_abs_dev=devs)
+        check(all(devs[f] == 0.0 for f in exact) and close,
+              f"fused {fam} run differs CPU vs GPU: {devs}")
+
+
+def rot_bound_ms(fam, n, d, k_steps):
+    """Least time for one launch of a rotational family's kernel on this
+    card: its operations (``ROT_OPS``) over the f32 peak, against the bytes
+    it must move (each input read once, each output written once) over the
+    memory rate."""
+    per_elem, per_particle = ROT_OPS[fam]
+    ops = k_steps * n * (d * per_elem + per_particle)
+    nbytes = {"de": 4 * (2 * d + 2) * n,
+              "shade": 4 * (3 * d + 4) * n + 4 * 128 * d,
+              "ga": 4 * (2 * d + 2) * n,
+              "mfo": 4 * (4 * d + 3) * n + 4 * d}[fam]
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def rot_incumbent(fam, state):
+    """The family's incumbent best as a tensor: MFO's best flame."""
+    return (state.flame_fit[0] if fam == "mfo" else state.best_fit).clone()
+
+
+def rot_launch_args(mods, fam, state, seed, dev):
+    """One full-width launch's (args, keywords) at a family state, with the
+    tile of the run (4,096 lanes) and fixed shifts."""
+    pos_t = state.pos.T.contiguous()
+    fit_t = state.fit[None, :].contiguous()
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    steps, k, t_max = ROT[fam]
+    kw = dict(tile_n=4096)
+    if fam == "de":
+        return ([torch.cat([seed, i32(1, 2, 3, 37, 1000, 4000)]), pos_t,
+                 fit_t], dict(kw, k_steps=k, step0=steps))
+    if fam == "shade":
+        g = torch.Generator(device=dev).manual_seed(11)
+        rows = torch.rand((2, 1, ZOO_N), generator=g, device=dev)
+        elite = mods["shade"].tile_champion_elite(pos_t, fit_t[0],
+                                                  ZOO_N // 4096, 4096)
+        return ([torch.cat([seed, i32(1, 2, 3, 37, 1000, 4000, 77, 32768)]),
+                 pos_t, fit_t, (0.01 + 0.99 * rows[0]).contiguous(),
+                 rows[1].contiguous(), state.archive.T.contiguous(), elite],
+                dict(kw, step=steps))
+    if fam == "ga":
+        return ([torch.cat([seed, i32(1, 2, 37, 1000, 4000)]), pos_t, fit_t],
+                dict(kw, k_steps=k, step0=steps, p_mut=1.0 / ZOO_DIM))
+    from distributed_swarm_algorithm_tpu_torch.ops.mfo import schedule
+    frac, n_flames = schedule(state.iteration, ZOO_N, t_max, torch.float32)
+    r_lo = torch.round((-1.0 - frac) * 65536.0).to(torch.int32)
+    flames_t = state.flame_pos.T.contiguous()
+    last = flames_t.index_select(1, (n_flames - 1).long().reshape(1))
+    return ([torch.cat([seed, n_flames.reshape(1), r_lo.reshape(1)]), last,
+             pos_t, flames_t, state.flame_fit[None, :].contiguous()],
+            dict(kw, k_steps=k, step0=steps))
+
+
+def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
+    """Phase 12 for one family: the model's run at its bench's width after
+    a warm-up launch, counted and checked (SHADE's device busy share from a
+    trace of more generations); then one launch at the final state against
+    its plain version, timed beside it and its bound."""
+    steps, k, t_max = ROT[fam]
+    mod = mods[fam]
+    model = {"de": dsa.DE, "shade": dsa.SHADE, "ga": dsa.GA,
+             "mfo": dsa.MFO}[fam]
+    kw = dict(seed=0)
+    if fam != "shade":
+        kw["steps_per_kernel"] = k
+    if t_max is not None:
+        kw["t_max"] = t_max
+    opt = model("rastrigin", n=ZOO_N, dim=ZOO_DIM, **kw)
+    check(opt.use_pallas, f"{fam}: the model did not take the fused kernel")
+    hw32 = float(np.float32(opt.half_width))
+    bests = [rot_incumbent(fam, opt.state)]
+    opt.run(k)                                       # warm-up: one launch
+    bests.append(rot_incumbent(fam, opt.state))
+    reset_launches(kernels)
+    _, run_ms = timed(lambda: opt.run(steps))
+    launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = opt.state
+    bests.append(rot_incumbent(fam, state))
+    n_launches = steps // k
+    max_pos = float(state.pos.abs().max())
+    if fam == "mfo":
+        max_pos = max(max_pos, float(state.flame_pos.abs().max()))
+    rec = dict(
+        phase="full_width", model=type(opt).__name__, objective="rastrigin",
+        particles=ZOO_N, dim=ZOO_DIM, steps=steps, steps_per_kernel=k,
+        t_max=t_max, launches=launches, run_ms=run_ms,
+        ms_per_launch_in_run=run_ms / n_launches,
+        particle_steps_per_sec=ZOO_N * steps / (run_ms / 1e3),
+        best_initial_warm_final=[float(b) for b in bests],
+        max_abs_pos=max_pos, iteration=int(state.iteration),
+        peak_mem_gib=peak, smi=smi)
+    record(**rec)
+    hashgrid_launch_check(launches, f"{fam}_fused", n_launches)
+    check(bool(bests[0] >= bests[1] and bests[1] >= bests[2]
+               and torch.isfinite(bests[2])),
+          f"{fam}: the incumbent rose or is not finite: {rec}")
+    check(max_pos <= hw32, f"{fam}: a position left the domain")
+    check(tuple(state.pos.shape) == (ZOO_N, ZOO_DIM)
+          and rec["iteration"] == k + steps, f"{fam}: wrong state")
+    if fam == "mfo":
+        check(bool((state.flame_fit[1:] >= state.flame_fit[:-1]).all()),
+              "mfo: the flames are not in rank order")
+    if fam == "shade":
+        busy, ops, top = device_time(lambda: opt.run(SHADE_PROFILED),
+                                     SHADE_PROFILED)
+        ms_per_gen = run_ms / steps
+        record(phase="shade_generation_breakdown", particles=ZOO_N,
+               profiled_generations=SHADE_PROFILED,
+               ms_per_generation=ms_per_gen,
+               device_busy_ms_per_generation=busy,
+               device_busy_share=(None if busy is None
+                                  else busy / ms_per_gen),
+               device_idle_share=(None if busy is None
+                                  else 1.0 - busy / ms_per_gen),
+               device_ops_per_generation=ops, top_device_ops=top, smi=smi)
+        state = opt.state
+
+    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
+    args, extra = rot_launch_args(mods, fam, state, seed, dev)
+    step_kw = dict(objective_name="rastrigin", half_width=opt.half_width,
+                   **extra)
+    kernel = getattr(mod, f"fused_{fam}_step_cuda")
+    got = kernel(*args, **step_kw)
+    want, plain_ms = timed(
+        lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
+    cmp = compare_family(fam, "rastrigin", "main path, final state", got,
+                         want, k)
+    del got, want
+    ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
+    bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k)
+    record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
+           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+           bound_by=bound_by, operations=ops, bytes=nbytes,
+           kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
+           smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    return dict(name=f"{fam}_fused", route="cuda",
+                source=f"distributed_swarm_algorithm_tpu_torch/csrc/"
+                       f"{fam}_fused.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                         + ROT_TPU_KERNELS[fam],
+                launches=launches[f"{fam}_fused"],
+                max_abs_err=cmp["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1200,13 +1551,16 @@ def main():
 
     # Launch counters by kernel; the two PSO kernels share one source.
     zoo = zoo_modules()
+    rot = rot_modules()
     kernels = {"separation": sep, "window_separation": win,
                "grid_separation": grid, "candidate_sweep": cand,
                "pso_fused": pf, "islands_fused": isl,
-               **{f"{fam}_fused": mod for fam, mod in zoo.items()}}
+               **{f"{fam}_fused": mod for fam, mod in zoo.items()},
+               **{f"{fam}_fused": mod for fam, mod in rot.items()}}
     sources = ["separation", "window_separation", "grid_separation",
                "candidate_sweep", "pso_fused",
-               *(f"{fam}_fused" for fam in zoo)]
+               *(f"{fam}_fused" for fam in zoo),
+               *(f"{fam}_fused" for fam in rot)]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1265,6 +1619,7 @@ def main():
     hashgrid_small_shapes(hp, grid, cand, dev)
     pso_small_shapes(pf, isl, dev)
     zoo_small_shapes(zoo, pf, dev)
+    rot_small_shapes(rot, pf, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -1292,6 +1647,7 @@ def main():
 
     pso_cpu_vs_gpu(dsa, pf, dev)
     zoo_cpu_vs_gpu(dsa, zoo, dev)
+    rot_cpu_vs_gpu(rot, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -1649,6 +2005,10 @@ def main():
     zoo_rows = [zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev)
                 for fam, mod in zoo.items()]
 
+    # 12. DE, SHADE, GA and moth-flame optimization at full width ----------
+    rot_rows = [rot_full_width(dsa, fam, rot, kernels, smi, t_start, dev)
+                for fam in rot]
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -1741,6 +2101,7 @@ def main():
             "library_ms": None,
         },
         *zoo_rows,
+        *rot_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -18,7 +18,11 @@ separation, and greedy allocation.  The kernels are hand-written CUDA C++
 step kernels of ``csrc/pso_fused.cu`` for one swarm and for islands, and
 the bat, grey wolf, salp and whale optimizers (``Bat``, ``GWO``, ``Salp``,
 ``WOA``) with their fused kernels (``csrc/bat_fused.cu``,
-``csrc/gwo_fused.cu``, ``csrc/salp_fused.cu``, ``csrc/woa_fused.cu``).
+``csrc/gwo_fused.cu``, ``csrc/salp_fused.cu``, ``csrc/woa_fused.cu``), and
+differential evolution, SHADE, the genetic algorithm and moth-flame
+optimization (``DE``, ``SHADE``, ``GA``, ``MFO``) with theirs
+(``csrc/de_fused.cu``, ``csrc/shade_fused.cu``, ``csrc/ga_fused.cu``,
+``csrc/mfo_fused.cu``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -56,6 +60,10 @@ from .models.bat import Bat
 from .models.gwo import GWO
 from .models.salp import Salp
 from .models.woa import WOA
+from .models.de import DE
+from .models.shade import SHADE
+from .models.ga import GA
+from .models.mfo import MFO
 from .ops.bat import (
     BatState,
     bat_init,
@@ -88,10 +96,46 @@ from .ops.woa import (
     woa_state_to_numpy,
     woa_step,
 )
+from .ops.de import (
+    DEState,
+    de_init,
+    de_run,
+    de_state_from_numpy,
+    de_state_to_numpy,
+    de_step,
+)
+from .ops.shade import (
+    SHADEState,
+    shade_init,
+    shade_run,
+    shade_state_from_numpy,
+    shade_state_to_numpy,
+    shade_step,
+)
+from .ops.ga import (
+    GAState,
+    ga_init,
+    ga_run,
+    ga_state_from_numpy,
+    ga_state_to_numpy,
+    ga_step,
+)
+from .ops.mfo import (
+    MFOState,
+    mfo_init,
+    mfo_run,
+    mfo_state_from_numpy,
+    mfo_state_to_numpy,
+    mfo_step,
+)
 from .ops.cuda.bat_fused import fused_bat_run
 from .ops.cuda.gwo_fused import fused_gwo_run
 from .ops.cuda.salp_fused import fused_salp_run
 from .ops.cuda.woa_fused import fused_woa_run
+from .ops.cuda.de_fused import fused_de_run
+from .ops.cuda.shade_fused import fused_shade_run
+from .ops.cuda.ga_fused import fused_ga_run
+from .ops.cuda.mfo_fused import fused_mfo_run
 from .ops import objectives
 from .ops.cuda.pso_fused import fused_pso_run
 from .ops.memetic import gd_refine, memetic_run, refine_pbest
@@ -158,6 +202,14 @@ __all__ = [
     "fused_salp_run", "salp_state_from_numpy", "salp_state_to_numpy",
     "WOA", "WOAState", "woa_init", "woa_step", "woa_run", "fused_woa_run",
     "woa_state_from_numpy", "woa_state_to_numpy",
+    "DE", "DEState", "de_init", "de_step", "de_run", "fused_de_run",
+    "de_state_from_numpy", "de_state_to_numpy",
+    "SHADE", "SHADEState", "shade_init", "shade_step", "shade_run",
+    "fused_shade_run", "shade_state_from_numpy", "shade_state_to_numpy",
+    "GA", "GAState", "ga_init", "ga_step", "ga_run", "fused_ga_run",
+    "ga_state_from_numpy", "ga_state_to_numpy",
+    "MFO", "MFOState", "mfo_init", "mfo_step", "mfo_run", "fused_mfo_run",
+    "mfo_state_from_numpy", "mfo_state_to_numpy",
     "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",

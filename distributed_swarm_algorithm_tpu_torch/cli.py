@@ -169,8 +169,9 @@ def _path(opt) -> str:
     return "cuda-fused" if opt.device.type == "cuda" else "plain-fused"
 
 
-def _run_report(opt, args, count_key: str) -> int:
-    """The optimizer subcommands' tail: a timed run and one JSON line."""
+def _run_report(opt, args, count_key: str, extra=None) -> int:
+    """The optimizer subcommands' tail: a timed run and one JSON line
+    (with ``extra``'s keys added)."""
     start = time.perf_counter()
     opt.run(args.steps)
     # run() does not wait for the card; reading the best does, so the
@@ -186,6 +187,7 @@ def _run_report(opt, args, count_key: str) -> int:
         "backend": f"torch-{opt.device.type}",
         "best": best,
         "steps_per_sec": round(args.steps / elapsed, 1),
+        **(extra or {}),
     }))
     return 0
 
@@ -196,6 +198,31 @@ def _cmd_bat(args) -> int:
     opt = Bat(args.objective, n=args.n, dim=args.dim, seed=args.seed,
               device=args.device)
     return _run_report(opt, args, "bats")
+
+
+def _cmd_de(args) -> int:
+    from .models.de import DE
+
+    opt = DE(args.objective, n=args.n, dim=args.dim, f=args.f, cr=args.cr,
+             variant=args.variant, seed=args.seed, device=args.device)
+    return _run_report(opt, args, "population",
+                       extra={"variant": args.variant})
+
+
+def _cmd_shade(args) -> int:
+    from .models.shade import SHADE
+
+    opt = SHADE(args.objective, n=args.n, dim=args.dim, seed=args.seed,
+                device=args.device)
+    return _run_report(opt, args, "individuals")
+
+
+def _cmd_ga(args) -> int:
+    from .models.ga import GA
+
+    opt = GA(args.objective, n=args.n, dim=args.dim, seed=args.seed,
+             device=args.device)
+    return _run_report(opt, args, "individuals")
 
 
 def _scheduled_cmd(module: str, cls: str, noun: str):
@@ -220,6 +247,7 @@ _SCHEDULED_FAMILIES = (
     ("gwo", "gwo", "GWO", "wolves", "grey wolf optimizer"),
     ("woa", "woa", "WOA", "whales", "whale optimization"),
     ("salp", "salp", "Salp", "salps", "salp swarm algorithm"),
+    ("mfo", "mfo", "MFO", "moths", "moth-flame optimization"),
 )
 
 
@@ -288,10 +316,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p_pso)
     p_pso.set_defaults(fn=_cmd_pso)
 
-    def optimizer_parser(name, helptext):
+    def optimizer_parser(name, helptext, n=128):
         p = sub.add_parser(name, help=helptext)
         p.add_argument("--objective", default="rastrigin")
-        p.add_argument("--n", type=int, default=128)
+        p.add_argument("--n", type=int, default=n)
         p.add_argument("--dim", type=int, default=30)
         p.add_argument("--steps", type=int, default=500)
         p.add_argument("--seed", type=int, default=0)
@@ -304,6 +332,18 @@ def build_parser() -> argparse.ArgumentParser:
                            help="schedule horizon (default --steps)")
         p_fam.set_defaults(fn=_scheduled_cmd(module, cls, noun))
     optimizer_parser("bat", "bat algorithm").set_defaults(fn=_cmd_bat)
+    p_de = optimizer_parser("de", "differential evolution", n=256)
+    p_de.add_argument("--f", type=float, default=0.5,
+                      help="differential weight F")
+    p_de.add_argument("--cr", type=float, default=0.9,
+                      help="crossover rate CR")
+    p_de.add_argument("--variant", default="rand1bin",
+                      choices=["rand1bin", "best1bin"])
+    p_de.set_defaults(fn=_cmd_de)
+    optimizer_parser("ga", "real-coded genetic algorithm").set_defaults(
+        fn=_cmd_ga)
+    optimizer_parser("shade", "success-history adaptive DE",
+                     n=256).set_defaults(fn=_cmd_shade)
     return parser
 
 

@@ -65,6 +65,7 @@
 
 #include <cstdint>
 
+#include "fast_math.cuh"
 #include "philox.cuh"
 #include "swarm_objectives.cuh"
 
@@ -112,30 +113,7 @@ __device__ __forceinline__ float clip(float v, float hw) {
   return fminf(fmaxf(v, -hw), hw);
 }
 
-// 2^f for f in [-0.5, 0.5]: degree-5 Horner, each step a product and a sum.
-__device__ __forceinline__ float exp2_poly(float f) {
-  float p = mul(f, static_cast<float>(0.001339527949));
-  p = mul(f, add(static_cast<float>(0.009670762865), p));
-  p = mul(f, add(static_cast<float>(0.055503406814), p));
-  p = mul(f, add(static_cast<float>(0.240222117415), p));
-  p = mul(f, add(static_cast<float>(0.693147200062), p));
-  return add(static_cast<float>(1.000000052277), p);
-}
-
-// 2^t: t = n + f with n = rint(t), 2^n built in the exponent field, times
-// the polynomial; exactly 0 below the normal range.
-__device__ __forceinline__ float exp2_fast(float t) {
-  const float nr = rintf(t);
-  const float f = sub(t, nr);
-  const int ni = static_cast<int>(fminf(fmaxf(nr, -126.0f), 126.0f));
-  const float two_n = __int_as_float((ni + 127) << 23);
-  const float val = mul(two_n, exp2_poly(f));
-  return t < -126.0f ? 0.0f : val;
-}
-
-__device__ __forceinline__ float exp_fast(float x) {
-  return exp2_fast(mul(x, static_cast<float>(1.4426950408889634)));
-}
+using dsa::fast::exp_fast;
 
 __device__ __forceinline__ bool better(float fit, long long lane,
                                        float other_fit, long long other) {

@@ -66,7 +66,7 @@ namespace {
 
 constexpr size_t kMaxSharedBytes = 227 * 1024;
 
-// The per-step lane rotations (ops/cuda/woa_fused.py: LANE_SHIFTS, first
+// The per-step lane rotations (ops/cuda/family.py: LANE_SHIFTS, first
 // column): the peer's roll is lshift + kLaneShift[step % 8].
 __constant__ int kLaneShift[8] = {1, 3, 7, 11, 17, 23, 29, 37};
 

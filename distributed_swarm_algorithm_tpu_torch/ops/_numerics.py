@@ -39,6 +39,25 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).to(a.dtype)
 
 
+def monotone(bits: torch.Tensor, mask: int) -> torch.Tensor:
+    """Signed integers ordered as the floats whose bits they hold, in the
+    total order ``lax.top_k`` compares by (``-0`` below ``+0``)."""
+    return torch.where(bits < 0, bits ^ mask, bits)
+
+
+def top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 [k]: the indices ``lax.top_k(x, k)`` returns for a float32 or
+    float64 vector ``x``: the k largest entries, largest first, in the
+    floats' total order (``-0`` below ``+0``), equal entries in index
+    order.  One stable sort of the monotone bits, on the device."""
+    if x.dtype == torch.float64:
+        mono = monotone(x.contiguous().view(torch.int64), 0x7FFFFFFFFFFFFFFF)
+    else:
+        mono = monotone(x.to(torch.float32).contiguous().view(torch.int32),
+                        0x7FFFFFFF)
+    return torch.sort(mono, descending=True, stable=True).indices[:k]
+
+
 def sq_norm2(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """``dx^2 + dy^2`` as XLA on the CPU rounds ``sum(d * d, -1)`` and
     ``jnp.linalg.norm`` over a last axis of two: ``fma(dy, dy, dx * dx)``."""

@@ -1,8 +1,9 @@
-"""What the fused bat, grey-wolf, salp and whale modules share beyond
-``pso_fused.py``'s registry, generator and block loop: the JAX package's
-lane tiling (the salp and whale kernels compute with their tile), Hopper's
-shared-memory envelope, the operand checks of the kernel wrappers and the
-device scalars each launch reads.
+"""What the fused optimizer families share beyond ``pso_fused.py``'s
+registry, generator and block loop: the JAX package's lane tiling (the
+salp, whale, DE, SHADE and GA kernels compute with their tile), the
+rotational donors' lane schedule and tile shifts, Hopper's shared-memory
+envelope, the operand checks of the kernel wrappers and the device scalars
+each launch reads.
 """
 
 from __future__ import annotations
@@ -24,6 +25,15 @@ from .pso_fused import (
 # The JAX package's lane tile bound (ops/pallas/pso_fused.py: MAX_TILE_N).
 MAX_TILE_N = 8192
 
+# The per-step lane rotations of the rotational donors: the port's copy of
+# the JAX package's ops/pallas/de_fused.py:_LANE_SHIFTS.  Step s of a
+# launch rolls donor k by a per-launch offset plus LANE_SHIFTS[s % 8][k].
+# The whale reads the first column; DE and GA take all three.
+LANE_SHIFTS = (
+    (1, 45, 89), (3, 51, 101), (7, 57, 113), (11, 63, 5),
+    (17, 71, 19), (23, 77, 31), (29, 83, 43), (37, 95, 59),
+)
+
 
 def auto_tile(d_pad: int) -> int:
     """The JAX package's lane tile for a padded depth (``_auto_tile`` of
@@ -42,6 +52,62 @@ def lane_tiling(n: int, tile_n: Optional[int], depth: int) -> Tuple[int, int]:
         tile_n = auto_tile(ceil_to(max(depth, 8), 8))
     tile_n = min(tile_n, ceil_to(n, 128))
     return tile_n, ceil_to(n, tile_n)
+
+
+def shrink_tile_for_donors(n: int, tile_n: int) -> Tuple[int, int, int]:
+    """``(tile_n, n_pad, n_tiles)`` with at least 4 tiles, so that three
+    donor tile shifts can be distinct and nonzero: the tile halves in
+    128-lane steps (the JAX package's ``shrink_tile_for_donors`` of
+    ``ops/pallas/de_fused.py``, one device).  Raises where even 128-lane
+    tiles give fewer than 4."""
+    n_pad = ceil_to(n, tile_n)
+    n_tiles = n_pad // tile_n
+    while n_tiles < 4 and tile_n > 128:
+        tile_n = max(128, (tile_n // 2) // 128 * 128)
+        n_pad = ceil_to(n, tile_n)
+        n_tiles = n_pad // tile_n
+    if n_tiles < 4:
+        raise ValueError(
+            f"population n={n} too small for rotational donors (need >= 4 "
+            "lane tiles of 128); use the portable path")
+    return tile_n, n_pad, n_tiles
+
+
+def distinct_tile_shifts(gen: torch.Generator, n_tiles: int,
+                         device) -> torch.Tensor:
+    """[3] int32: three distinct nonzero tile shifts mod ``n_tiles`` (>= 4),
+    drawn on the device with the incremental-shift trick of the JAX
+    package's ``de_fused._distinct_tile_shifts``: each draw comes from a
+    shrunken range and is bumped past the shifts already taken."""
+    def draw(high):
+        return torch.randint(1, high, (), generator=gen, dtype=torch.int64,
+                             device=device)
+    a = draw(n_tiles)
+    b = draw(n_tiles - 1)
+    b = b + (b >= a).long()
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    c = draw(n_tiles - 2)
+    c = c + (c >= lo).long()
+    c = c + (c >= hi).long()
+    return torch.stack([a, b, c]).to(torch.int32)
+
+
+def donor_tiles(pos: torch.Tensor, tile_n: int, tile_shift) -> torch.Tensor:
+    """[D, n_tiles, tile_n]: tile ``(i + tile_shift) mod n_tiles`` of
+    ``pos`` in place of tile i (``tile_shift`` a device scalar)."""
+    d, n = pos.shape
+    n_tiles = n // tile_n
+    tiles = (torch.arange(n_tiles, device=pos.device)
+             + tile_shift.long()) % n_tiles
+    return pos.reshape(d, n_tiles, tile_n).index_select(1, tiles)
+
+
+def roll_lanes(tiles: torch.Tensor, shift) -> torch.Tensor:
+    """``jnp.roll(tiles, shift, axis=-1)`` for a device scalar ``shift``:
+    lane j reads lane ``(j - shift) mod tile_n``.  Returns [D, N]."""
+    d, n_tiles, tile_n = tiles.shape
+    lanes = torch.arange(tile_n, device=tiles.device)
+    return tiles.index_select(2, (lanes - shift) % tile_n).reshape(d, -1)
 
 
 def pick_block(shared_bytes: Callable[[int], int]) -> int:

@@ -35,6 +35,7 @@ from .._numerics import div
 from ..woa import SPIRAL_B, WOAState
 from . import family
 from .common import cyclic_pad_rows
+from .family import LANE_SHIFTS
 from .pso_fused import (
     OBJECTIVE_IDS,
     OBJECTIVES_T,
@@ -52,14 +53,6 @@ from .pso_fused import (
 LAUNCHES = 0
 
 _fn = None   # the C entry, bound at the first launch
-
-# The per-step lane rotations of the rotational donors: the port's copy of
-# the JAX package's ops/pallas/de_fused.py:_LANE_SHIFTS.  The whale kernel
-# reads the first column; the DE family takes all three.
-LANE_SHIFTS = (
-    (1, 45, 89), (3, 51, 101), (7, 57, 113), (11, 63, 5),
-    (17, 71, 19), (23, 77, 31), (29, 83, 43), (37, 95, 59),
-)
 
 # The JAX package's cap on steps_per_kernel for this family.
 MAX_STEPS_PER_KERNEL = 32

@@ -21,7 +21,7 @@ import torch
 
 from ..utils.platform import DeviceLike
 from . import _family
-from ._numerics import div
+from ._numerics import div, monotone
 
 _INT64_MAX = 2**63 - 1
 
@@ -39,17 +39,11 @@ class GWOState(_family.FamilyState):
 GWO_TENSOR_FIELDS = _family.tensor_fields(GWOState)
 
 
-def _monotone(bits: torch.Tensor, mask: int) -> torch.Tensor:
-    """Signed integers ordered as the floats whose bits they hold, in the
-    total order ``lax.top_k`` compares by (``-0`` below ``+0``)."""
-    return torch.where(bits < 0, bits ^ mask, bits)
-
-
 def _order_key(fit: torch.Tensor) -> torch.Tensor:
     """int64 keys whose order is (fitness, index) lexicographically: the
     f32 fitness's bits made monotone in the high word, the index in the low
     word.  Every key is distinct, so no tie is left to break."""
-    mono = _monotone(fit.view(torch.int32), 0x7FFFFFFF).to(torch.int64)
+    mono = monotone(fit.view(torch.int32), 0x7FFFFFFF).to(torch.int64)
     idx = torch.arange(fit.shape[0], dtype=torch.int64, device=fit.device)
     return mono * 2**32 + idx
 
@@ -61,7 +55,7 @@ def stable_top3(fit: torch.Tensor) -> torch.Tensor:
     winner masked out; no sort, no read from the device.  (A float64
     pack, which the keys cannot hold, takes a stable sort of its bits.)"""
     if fit.dtype == torch.float64:
-        mono = _monotone(fit.view(torch.int64), 0x7FFFFFFFFFFFFFFF)
+        mono = monotone(fit.view(torch.int64), 0x7FFFFFFFFFFFFFFF)
         return torch.sort(mono, stable=True).indices[:3]
     key = _order_key(fit.to(torch.float32).contiguous())
     picks = []

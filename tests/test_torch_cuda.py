@@ -959,3 +959,288 @@ def test_family_models_take_the_kernel_and_match_the_cpu(cuda):
                 tol = 2e-5 if "fit" in f else 1e-5
                 np.testing.assert_allclose(on_card[f], a, rtol=tol,
                                            atol=tol, err_msg=f"{fam} {f}")
+
+
+# --------------------------------------------------------------------------
+# The fused DE, SHADE, GA and moth-flame kernels (csrc/de_fused.cu,
+# shade_fused.cu, ga_fused.cu, mfo_fused.cu) against their plain versions.
+#
+# Each kernel repeats its plain version op for op (IEEE intrinsics, sums
+# over d in order, the same Philox draws, the bit-field log2 and 2^x
+# polynomials and the cosine polynomial), so every output is equal bit for
+# bit over a whole launch, except with ackley (the objective's expf): there
+# at least 99% of the lanes are equal.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    de_fused as port_de,
+    ga_fused as port_ga,
+    mfo_fused as port_mfo,
+    shade_fused as port_shade,
+)
+
+ROTATIONAL = {"de": port_de, "shade": port_shade, "ga": port_ga,
+              "mfo": port_mfo}
+
+
+def _rot_case(fam, name, n, d, k, rng, device, tile_n, seed=0):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    family ``fam`` on numpy-drawn inputs on ``device``."""
+    _, hw = port_obj.get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = port_pf.OBJECTIVES_T[name](pos)
+    n_tiles = n // tile_n
+    lanes = lambda m: [int(v) for v in g.integers(0, 3 * tile_n, m)]  # noqa
+    tiles = lambda m: [int(v) for v in g.integers(1, n_tiles, m)]  # noqa
+    kw = dict(objective_name=name, half_width=hw, rng=rng, tile_n=tile_n)
+    if fam == "de":
+        args = [i32(seed + 7, 1, 2, 3, *lanes(3)), pos, fit]
+        draws = [to(g.uniform(size=(d, n)))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)))
+    elif fam == "shade":
+        args = [i32(seed + 7, *tiles(3), *lanes(3),
+                    int(g.integers(0, 128)), int(g.integers(0, 65537))),
+                pos, fit, to(g.uniform(0.01, 1.0, (1, n))),
+                to(g.uniform(size=(1, n))), to(g.uniform(-hw, hw, (d, n))),
+                to(g.uniform(-hw, hw, (d, 128)))]
+        draws = [to(g.uniform(size=(d, n))), to(g.uniform(size=(1, n)))]
+        kw.update(step=int(g.integers(0, 1000)))
+    elif fam == "ga":
+        args = [i32(seed + 7, *tiles(2), *lanes(3)), pos, fit]
+        draws = [to(g.uniform(size=s)) for s in ((d, n), (1, n), (d, n),
+                                                 (d, n))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)),
+                  p_mut=max(1.0 / d, 0.1))
+    else:
+        flames = to(g.uniform(-hw, hw, (d, n)))
+        ffit = port_pf.OBJECTIVES_T[name](flames)
+        ffit[0, ::9] = float("inf")
+        n_flames = int(g.integers(1, n + 1))
+        args = [i32(seed + 7, n_flames, int(g.integers(-131072, -65535))),
+                flames[:, n_flames - 1:n_flames].contiguous(), pos, flames,
+                ffit]
+        draws = [to(g.uniform(size=(d, n)))]
+        kw.update(k_steps=k, step0=int(g.integers(0, 1000)))
+    if rng == "host":
+        args += draws
+    mod = ROTATIONAL[fam]
+    return (getattr(mod, f"fused_{fam}_step_cuda"),
+            getattr(mod, f"fused_{fam}_step_plain"), args, kw)
+
+
+ROT_CASES = [
+    # fam, objective, n, d, k, rng, tile_n
+    ("de", "rastrigin", 512, 8, 1, "host", 128),
+    ("de", "sphere", 480, 30, 32, "device", 96),
+    ("de", "michalewicz", 640, 1, 8, "device", 160),
+    ("de", "ackley", 4096, 30, 32, "device", 1024),
+    ("shade", "rastrigin", 512, 8, 1, "host", 128),
+    ("shade", "griewank", 1280, 30, 1, "device", 256),
+    ("shade", "levy", 512, 1, 1, "device", 128),
+    ("shade", "schwefel", 768, 100, 1, "device", 128),
+    ("ga", "rastrigin", 512, 8, 1, "host", 128),
+    ("ga", "sphere", 4096, 30, 8, "device", 1024),
+    ("ga", "zakharov", 500, 3, 8, "device", 100),
+    ("ga", "ackley", 16384, 30, 8, "device", 4096),
+    ("mfo", "rastrigin", 512, 8, 1, "host", 128),
+    ("mfo", "styblinski_tang", 1000, 30, 8, "device", 200),
+    ("mfo", "rosenbrock", 77, 1, 32, "device", 77),
+    ("mfo", "ackley", 640, 30, 8, "device", 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "fam,name,n,d,k,rng,tile_n", ROT_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}x{c[3]}-k{c[4]}-{c[5]}" for c in ROT_CASES])
+def test_rotational_kernel_equals_plain(cuda, fam, name, n, d, k, rng,
+                                        tile_n):
+    _, plain, args, kw = _rot_case(fam, name, n, d, k, rng, cuda, tile_n)
+    mod = ROTATIONAL[fam]
+    before = mod.LAUNCHES
+    # The entry sends CUDA tensors to the kernel, never to the plain version.
+    got = getattr(mod, f"fused_{fam}_step_t")(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    want = plain(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    _assert_family_equal(name, got, want)
+    assert float(got[0].abs().max()) <= np.float32(kw["half_width"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+def test_ga_kernel_keeps_each_tile_in_step(cuda, k):
+    # Parent A reads the tile's current generation and the elitism its
+    # argmin and argmax at every step: k generations in one launch equal
+    # the plain version's k, at 4 tiles of 4,096 lanes (512 threads of 8
+    # lanes each) and at a tile of 1,000 lanes.
+    for n, tile_n in ((16384, 4096), (4000, 1000)):
+        kernel, plain, args, kw = _rot_case("ga", "rastrigin", n, 30, k,
+                                            "device", cuda, tile_n)
+        _assert_family_equal("rastrigin", kernel(*args, **kw),
+                             plain(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_rotational_kernels_read_their_draws_and_reject_bad_operands(cuda):
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    for fam, mod in ROTATIONAL.items():
+        kernel, plain, args, kw = _rot_case(fam, "sphere", 512, 4, 1,
+                                            "device", cuda, 128)
+        before = mod.LAUNCHES
+        with pytest.raises(TypeError, match="float32"):
+            kernel(*args[:-1], args[-1].double(), **kw)
+        strided = torch.stack([args[-1], args[-1]], -1)[..., 0]
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(*args[:-1], strided, **kw)
+        with pytest.raises(ValueError, match="scalars"):
+            kernel(args[0].cpu(), *args[1:], **kw)
+        assert mod.LAUNCHES == before
+        # Another seed draws other numbers.
+        a = kernel(*args, **kw)
+        b = kernel(args[0] + 1, *args[1:], **kw)
+        assert not torch.equal(a[0], b[0]), fam
+        if fam != "ga":
+            pick = getattr(_build.load(f"{fam}_fused"),
+                           f"dsa_{fam}_fused_block")
+            pick.argtypes, pick.restype = [ctypes.c_int], ctypes.c_int
+            for d in (1, 30, 100, 129, 180, 181, 300, 363, 364, 908, 909):
+                assert pick(d) == mod.kernel_block(d), (fam, d)
+    threads = _build.load("ga_fused").dsa_ga_fused_threads
+    threads.argtypes, threads.restype = [ctypes.c_int], ctypes.c_int
+    for tile_n in (77, 128, 1000, 4096, 8192):
+        assert threads(tile_n) == port_ga.tile_threads(tile_n)
+    with pytest.raises(ValueError, match="multiple"):
+        _, _, args, kw = _rot_case("shade", "sphere", 480, 4, 1, "device",
+                                   cuda, 96)
+        port_shade.fused_shade_step_cuda(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_rotational_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build([f"{fam}_fused" for fam in ROTATIONAL])
+    for fam in ROTATIONAL:
+        log = _build.build_log(f"{fam}_fused")
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert spills, (fam, log[:400])
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (fam, spills)
+
+
+@pytest.mark.cuda
+def test_rotational_runs_never_wait_for_the_device(cuda):
+    # SHADE's included: its per-generation draws, elite pool, success
+    # memory, archive window and best tracking all stay on the device.
+    import warnings
+
+    from distributed_swarm_algorithm_tpu_torch.ops import de, ga, mfo, shade
+    fn, hw = port_obj.get_objective("rastrigin")
+    states = {
+        "de": de.de_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "shade": shade.shade_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "ga": ga.ga_init(fn, 3000, 30, hw, seed=0, device=cuda),
+        "mfo": mfo.mfo_init(fn, 3000, 30, hw, seed=0, device=cuda),
+    }
+    runs = {
+        "de": lambda: port_de.fused_de_run(states["de"], "rastrigin", 48,
+                                           half_width=hw,
+                                           steps_per_kernel=16),
+        "shade": lambda: port_shade.fused_shade_run(
+            states["shade"], "rastrigin", 3, half_width=hw),
+        "ga": lambda: port_ga.fused_ga_run(states["ga"], "rastrigin", 24,
+                                           half_width=hw),
+        "mfo": lambda: port_mfo.fused_mfo_run(states["mfo"], "rastrigin",
+                                              24, half_width=hw,
+                                              sort_blocks=2),
+    }
+    for fam, run in runs.items():
+        run()                                   # builds and warms up
+        torch.cuda.synchronize()
+        before = ROTATIONAL[fam].LAUNCHES
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (fam, [str(w.message)[:120] for w in waits])
+        assert ROTATIONAL[fam].LAUNCHES == before + 3, fam
+        best = out.flame_fit[0] if fam == "mfo" else out.best_fit
+        assert bool(torch.isfinite(best))
+
+
+@pytest.mark.cuda
+def test_rotational_models_take_the_kernel_and_match_the_cpu(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import de, ga, mfo, shade
+    models = {"de": tdsa.DE("rastrigin", n=5000, dim=30, seed=0),
+              "shade": tdsa.SHADE("rastrigin", n=5000, dim=30, seed=0),
+              "ga": tdsa.GA("rastrigin", n=5000, dim=30, seed=0),
+              "mfo": tdsa.MFO("rastrigin", n=5000, dim=30, seed=0)}
+    for fam, opt in models.items():
+        assert opt.use_pallas and opt.device.type == "cuda", fam
+        first, before = opt.best, ROTATIONAL[fam].LAUNCHES
+        opt.run(32)
+        launches = {"shade": 32}.get(fam, 4)
+        assert ROTATIONAL[fam].LAUNCHES == before + launches, fam
+        assert opt.best <= first and int(opt.state.iteration) == 32, fam
+    # Three launches on the card and on the CPU from one state with the same
+    # draws handed in.  DE, GA and MFO are held bit for bit.  SHADE's
+    # success memory sums over N in another order on each device, so its
+    # floats carry rtol = atol = 1e-5 (fitness 2e-5); its counters exact.
+    n, d = 768, 30
+    g = torch.Generator().manual_seed(3)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    shade_draws = [port_shade.generation_draws(g, n, d, 6, 128, True, "cpu")
+                   for _ in range(3)]
+    cases = {
+        "de": (de, port_de.fused_de_run,
+               dict(uniforms=[u(d, n) for _ in range(3)], tile_n=128,
+                    shifts=torch.tensor([[1, 2, 3, 5, 600, 7],
+                                         [5, 4, 3, 0, 1, 2],
+                                         [2, 1, 5, 9, 9, 127]],
+                                        dtype=torch.int32))),
+        "shade": (shade, port_shade.fused_shade_run,
+                  dict(draws=shade_draws, tile_n=128)),
+        "ga": (ga, port_ga.fused_ga_run,
+               dict(uniforms=[(u(d, n), u(1, n), u(d, n), u(d, n))
+                              for _ in range(3)], tile_n=128,
+                    shifts=torch.tensor([[1, 2, 5, 600, 7],
+                                         [5, 5, 0, 1, 2],
+                                         [2, 1, 9, 9, 127]],
+                                        dtype=torch.int32))),
+        "mfo": (mfo, port_mfo.fused_mfo_run,
+                dict(uniforms=[u(d, n) for _ in range(3)], tile_n=128,
+                     t_max=5, sort_blocks=2)),
+    }
+    fn, hw = port_obj.get_objective("rastrigin")
+    for fam, (ops, run, kw) in cases.items():
+        init = getattr(ops, f"{fam}_init")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        from_np = getattr(ops, f"{fam}_state_from_numpy")
+        cpu = init(fn, n, d, hw, seed=2, device="cpu")
+        gpu = from_np(to_np(cpu), device=cuda)
+        on_cpu = run(cpu, "rastrigin", 3, rng="host", **kw)
+        to_dev = lambda v: (v.to(cuda) if torch.is_tensor(v)  # noqa: E731
+                            else v)
+        kw_gpu = {k: ([tuple(to_dev(t) for t in c) if isinstance(c, tuple)
+                       else to_dev(c) for c in v]
+                      if isinstance(v, list) else to_dev(v))
+                  for k, v in kw.items()}
+        on_card = to_np(run(gpu, "rastrigin", 3, rng="host", **kw_gpu))
+        for f, a in to_np(on_cpu).items():
+            if fam != "shade" or f in ("mem_k", "archive_n", "iteration"):
+                np.testing.assert_array_equal(on_card[f], a,
+                                              err_msg=f"{fam} {f}")
+            else:
+                tol = 2e-5 if "fit" in f else 1e-5
+                np.testing.assert_allclose(on_card[f], a, rtol=tol,
+                                           atol=tol, err_msg=f"{fam} {f}")

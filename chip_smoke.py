@@ -101,7 +101,25 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    bound.  Phase 3 holds the four kernels at small ragged shapes (4 tiles or
    more, 1 and k steps, GA at every k from 1 to 8, draws handed in and made
    in the kernel) and phase 4 three launches of each on the CPU and on the
-   card.
+   card;
+13. full width, cuckoo search, Harris hawks, the artificial bee colony and
+   parallel tempering, each at its JAX bench's configuration, Rastrigin-30D
+   at 1,048,576 in 256 tiles of 4,096 lanes (benchmarks/bench_cuckoo_1m.py:
+   16-24, bench_hho_1m.py:15-23 with t_max = 256, bench_abc_1m.py:16-24
+   with limit = n * dim, bench_pt_1m.py:18-26): ``Cuckoo``, ``HarrisHawks``
+   and ``ABC`` for 256 steps in launches of 8, ``ParallelTempering`` for
+   512 in launches of 16, each after a warm-up launch, timed with CUDA
+   events: the launch count, the incumbent never rising (PT: its best
+   visited), every position inside the domain, ABC's trial counters not
+   below 0; the device's busy share from a trace of one more launch; then
+   one launch of the kernel at the final state against its plain version,
+   timed beside it and its bound (the data-dependent work, abandoned,
+   exploring, diving, probed and exhausted lanes, tallied by the plain
+   version on the same inputs).  Phase 3 holds the four kernels at small
+   ragged shapes (4 tiles or more, an explicit tile, every k from 1 to the
+   family's cap, draws handed in and made in the kernel, ABC at a small
+   limit so that its scouts fire, PT with padded lanes and with the widest
+   halo) and phase 4 three launches of each on the CPU and on the card.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -207,6 +225,58 @@ ROT_OPS = {"de": (58, 12), "shade": (63, 128), "ga": (207, 150),
            "mfo": (101, 3)}
 # SHADE's generations profiled for the device's busy share.
 SHADE_PROFILED = 16
+# The Levy-flight and multi-evaluation families, each at its JAX bench's
+# configuration (bench_cuckoo_1m.py:16-24, bench_hho_1m.py:15-23 with t_max
+# 256, bench_abc_1m.py:16-24 with limit n * dim, bench_pt_1m.py:18-26):
+# family -> (steps, steps per launch, t_max).
+LEVY = {"cuckoo": (256, 8, None), "hho": (256, 8, 256),
+        "abc": (256, 8, None), "pt": (512, 16, None)}
+LEVY_TPU_KERNELS = {"cuckoo": "cuckoo_fused.py:189",
+                    "hho": "hho_fused.py:175", "abc": "abc_fused.py:189",
+                    "pt": "tempering_fused.py:210"}
+LEVY_SOURCES = {"cuckoo": "cuckoo_fused", "hho": "hho_fused",
+                "abc": "abc_fused", "pt": "tempering_fused"}
+# Their operations, counted as ZOO_OPS from csrc/*_fused.cu, with the fast
+# math of csrc/fast_math.cuh at: log2 18 (the bit fields 5, 6 Horner steps,
+# the sum), 2^x 20, cos 2 pi x 17 (sin 18), a Box-Muller pair 58 (1 - u,
+# log2, the product, the root, cos and sin, two products; its cosine half
+# alone 39), the Levy power |n|^(-1/beta) 41; a NaN-keeping clip 3.  Per
+# element and step unless said otherwise; "lane" is per particle and step.
+#   cuckoo  elem 188 = the pair's two quarter calls and uniforms (56), the
+#           pair (58), the Levy step (43), the flight and its clip (7),
+#           rastrigin (23), the egg's select (1); lane 110 = the abandonment
+#           call and uniform (103), the egg's lane and test (6), rastrigin's
+#           offset; per abandoned element 57 = the walk's draw (28), the walk
+#           and its clip (6), rastrigin (23), and 1 per abandoned lane;
+#   hho     elem 26 = the final clip (3) and rastrigin (23); lane 126 = the
+#           row call and four uniforms (112), t and frac (4), E, |E| and J
+#           (7), rastrigin's offset, the branch tests (2); per exploring
+#           element 63 = two quarter calls and uniforms (56) and the perch
+#           (7); per besieging element 6; per diving element 248 = three
+#           quarter calls and uniforms (84), the pair (58), y (5), the Levy
+#           step (43), z (2), two clips (6), two rastrigins (46), the pick
+#           (4), and 4 per diving lane;
+#   abc     elem 31 = the employed candidate (the mask, phi (b - p), the sum
+#           and the clip: 8) and rastrigin (23); lane 236 = the two row calls
+#           and five uniforms (215), the two dimensions and phis (8), the
+#           quality and its share of the tile maximum (7), the gate (2), the
+#           trial updates (3), rastrigin's offset; per probed element 31 and
+#           1 per probed lane; per exhausted element 54 = the draw (28), the
+#           fresh coordinate (3), rastrigin (23), and 1 per exhausted lane;
+#   pt      elem 123 = two quarter calls and uniforms (56), the cosine half
+#           (39), the move and its clip (5), rastrigin (23); lane 133 = the
+#           row call and two uniforms (106), the acceptance (sub, product,
+#           min, exp_fast: 24), the running best's test, rastrigin's offset,
+#           the select; per lane and exchange round 30 (the validity, the
+#           pair's product, min and exp_fast, the test).
+FAM_OPS = {
+    "cuckoo": dict(elem=188, lane=110, abandoned=57, abandoned_lane=1),
+    "hho": dict(elem=26, lane=126, explore=63, besiege=6, dive=248,
+                dive_lane=4),
+    "abc": dict(elem=31, lane=236, probed=31, probed_lane=1, exhausted=54,
+                exhausted_lane=1),
+    "pt": dict(elem=123, lane=133, round_lane=30),
+}
 # Operations per element and step of the fused PSO kernels: two Philox
 # calls per four elements (10 rounds of 4 multiplies and 6 adds or xors),
 # the two uniforms from their bits, the update with its clamps, and
@@ -1519,6 +1589,335 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
                 bound_ms=bound, bound_by=bound_by, library_ms=None)
 
 
+def levy_modules():
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        abc_fused, cuckoo_fused, hho_fused, tempering_fused,
+    )
+    return {"cuckoo": cuckoo_fused, "hho": hho_fused, "abc": abc_fused,
+            "pt": tempering_fused}
+
+
+def levy_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0,
+              limit=20, swap_every=5, n_real=None):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    the cuckoo, HHO, ABC or PT kernel on numpy-drawn inputs on the card."""
+    from distributed_swarm_algorithm_tpu_torch.ops.objectives import (
+        get_objective,
+    )
+    _, hw = get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    u = lambda *sh: to(g.uniform(size=sh))  # noqa: E731
+    normal = lambda *sh: to(g.standard_normal(sh))  # noqa: E731
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = pf.OBJECTIVES_T[name](pos)
+    best = pos[:, int(fit.argmin())][:, None].contiguous()
+    n_tiles = n // tile_n
+    lanes = lambda m: [int(v) for v in g.integers(0, 3 * tile_n, m)]  # noqa
+    tiles = lambda m: [int(v) for v in g.integers(1, n_tiles, m)]  # noqa
+    kw = dict(objective_name=name, half_width=hw, rng=rng, tile_n=tile_n,
+              k_steps=k, step0=int(g.integers(0, 1000)))
+    if fam == "cuckoo":
+        args = [i32(seed + 7, *tiles(2), *lanes(3)), best, pos, fit]
+        draws = [normal(d, n), normal(d, n), u(1, n), u(d, n)]
+    elif fam == "hho":
+        args = [i32(seed + 7, *tiles(1), int(g.integers(0, 60)), *lanes(1)),
+                best, pos.mean(dim=1, keepdim=True), pos, fit]
+        draws = [tuple([u(1, n) for _ in range(4)]
+                       + [u(d, n) for _ in range(5)]
+                       + [normal(d, n), normal(d, n)])]
+        kw.update(t_max=60)
+    elif fam == "abc":
+        trials = torch.from_numpy(
+            g.integers(0, limit + 2, (1, n)).astype(np.int32)).to(dev)
+        args = [i32(seed + 7, *tiles(1), *lanes(2)), pos, fit, trials]
+        draws = [tuple([u(1, n) for _ in range(5)] + [u(d, n)])]
+        kw.update(limit=limit)
+    else:
+        temps = to(0.01 * 1000.0 ** (np.arange(n) / (n - 1)))[None, :]
+        args = [i32(seed + 7, int(g.integers(0, 40)), n_real or n), pos,
+                fit, (0.1 * hw) * torch.sqrt(temps), 1.0 / temps]
+        draws = [normal(d, n), u(1, n), u(1, n)]
+        kw.update(swap_every=swap_every)
+    if rng == "host":
+        args += draws
+    return (getattr(mods[fam], f"fused_{fam}_step_cuda"),
+            getattr(mods[fam], f"fused_{fam}_step_plain"), args, kw)
+
+
+def levy_small_shapes(mods, pf, dev):
+    """Phase 3's part for cuckoo, HHO, ABC and PT: each kernel against its
+    plain version at ragged shapes with 4 tiles or more and an explicit
+    tile, both rng modes, the objectives, and every k from 1 to the
+    family's cap; ABC at a small limit (its scouts fire), PT with padded
+    lanes (n_real < n) and with the widest halo (swap_every = 1)."""
+    cases = [
+        ("cuckoo", "rastrigin", 512, 8, 1, "host", 128, {}),
+        ("cuckoo", "sphere", 480, 30, 8, "device", 96, {}),
+        ("cuckoo", "michalewicz", 640, 1, 8, "device", 160, {}),
+        ("cuckoo", "ackley", 4096, 30, 8, "device", 1024, {}),
+        ("hho", "rastrigin", 512, 8, 1, "host", 128, {}),
+        ("hho", "griewank", 1000, 30, 8, "device", 200, {}),
+        ("hho", "levy", 640, 1, 8, "device", 160, {}),
+        ("hho", "schwefel", 768, 100, 3, "device", 128, {}),
+        ("abc", "rastrigin", 512, 8, 1, "host", 128, dict(limit=2)),
+        ("abc", "zakharov", 500, 3, 8, "device", 100, dict(limit=2)),
+        ("abc", "ackley", 16384, 30, 8, "device", 4096,
+         dict(limit=491520)),
+        ("pt", "rastrigin", 512, 8, 1, "host", 128, dict(n_real=500)),
+        ("pt", "styblinski_tang", 1000, 30, 16, "device", 200,
+         dict(n_real=987)),
+        ("pt", "rosenbrock", 640, 3, 16, "device", 320, dict(swap_every=1)),
+        ("pt", "ackley", 4096, 30, 16, "device", 4096, {}),
+        *(("cuckoo", "rastrigin", 4000, 30, k, "device", 1000, {})
+          for k in range(1, 9)),
+        *(("hho", "rastrigin", 4000, 30, k, "device", 1000, {})
+          for k in range(1, 9)),
+        *(("abc", "rastrigin", 4000, 30, k, "device", 1000, dict(limit=2))
+          for k in range(1, 9)),
+        *(("pt", "rastrigin", 4000, 30, k, "device", 1000,
+           dict(n_real=3990)) for k in range(1, 17)),
+    ]
+    scouts = swaps = 0
+    for fam, name, n, d, k, rng, tile_n, extra in cases:
+        kernel, plain, args, kw = levy_case(mods, pf, fam, name, n, d, k,
+                                            rng, dev, tile_n, **extra)
+        before = mods[fam].LAUNCHES
+        got = kernel(*args, **kw)
+        check(mods[fam].LAUNCHES == before + 1, "launch not counted")
+        counts = {}
+        want = plain(*args, **kw, counts=counts)
+        scouts += int(sum(counts.get("exhausted", [0])))
+        swaps += int(sum(counts.get("swapped", [0])))
+        compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
+                       f"tile_n={tile_n} {extra}", got, want, k)
+    record(phase="levy_small_shapes", cases=len(cases),
+           abc_scouts_fired=scouts, pt_swaps=swaps)
+    check(scouts > 0 and swaps > 0, "no scout fired or no chain swapped")
+
+
+def levy_cpu_vs_gpu(mods, dev):
+    """Three launches of each family from one state, one step each with
+    the draws handed in, on the CPU (plain version) and on the card
+    (kernel), at 4,096 x 30 in 4 tiles of 1,024.  Cuckoo and ABC (at limit
+    1, so scouts fire) are equal bit for bit.  HHO's mean over the hawks is
+    a sum each device adds in its own order, and PT's proposal scales take
+    ``torch.sqrt``, which the card rounds its own way: their floats carry
+    ``ZOO_CPU_BAND``, the ladder and the iteration exact."""
+    from distributed_swarm_algorithm_tpu_torch.ops import (
+        abc, cuckoo, hho, objectives, tempering,
+    )
+    n, d, calls, tile = 4096, 30, 3, 1024
+    fn, hw = objectives.get_objective("rastrigin")
+    g = torch.Generator().manual_seed(7)
+    u = lambda *sh: torch.rand(sh, generator=g)  # noqa: E731
+    nz = lambda *sh: torch.randn(sh, generator=g)  # noqa: E731
+    i32 = lambda rows: torch.tensor(rows, dtype=torch.int32)  # noqa: E731
+    cases = {
+        "cuckoo": (cuckoo, dict(
+            uniforms=[(nz(d, n), nz(d, n), u(1, n), u(d, n))
+                      for _ in range(calls)],
+            shifts=i32([[1, 1, 5, 1000, 7], [3, 2, 0, 1, 2],
+                        [2, 3, 9, 9, 1023]]))),
+        "hho": (hho, dict(
+            uniforms=[tuple([u(1, n) for _ in range(4)]
+                            + [u(d, n) for _ in range(5)]
+                            + [nz(d, n), nz(d, n)]) for _ in range(calls)],
+            shifts=i32([[1, 5], [3, 1000], [2, 1023]]), t_max=4)),
+        "abc": (abc, dict(
+            uniforms=[tuple([u(1, n) for _ in range(5)] + [u(d, n)])
+                      for _ in range(calls)],
+            shifts=i32([[1, 5, 1000], [3, 0, 1], [2, 9, 1023]]), limit=1)),
+        "pt": (tempering, dict(
+            uniforms=[(nz(d, n), u(1, n), u(1, n)) for _ in range(calls)],
+            swap_every=1)),
+    }
+
+    def to_dev(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(to_dev(x) for x in v)
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    for fam, (ops, kw) in cases.items():
+        run = getattr(mods[fam], f"fused_{fam}_run")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        cpu = getattr(ops, f"{fam}_init")(fn, n, d, hw, seed=3, device="cpu")
+        gpu = getattr(ops, f"{fam}_state_from_numpy")(to_np(cpu), device=dev)
+        a = to_np(run(cpu, "rastrigin", calls, rng="host", tile_n=tile, **kw))
+        before = mods[fam].LAUNCHES
+        b = to_np(run(gpu, "rastrigin", calls, rng="host", tile_n=tile,
+                      **{key: to_dev(v) for key, v in kw.items()}))
+        check(mods[fam].LAUNCHES == before + calls, "launches not counted")
+        devs = {f: float(np.abs(a[f].astype(np.float64)
+                                - b[f].astype(np.float64)).max())
+                for f in a}
+        exact = {"hho": {"iteration"},
+                 "pt": {"temps", "iteration"}}.get(fam, set(a))
+        close = all(np.allclose(b[f], a[f], **(ZOO_CPU_BAND["fit"]
+                                               if "fit" in f else
+                                               ZOO_CPU_BAND["pos"]))
+                    for f in a)
+        record(phase="cpu_vs_gpu", path=f"fused_{fam}_run", particles=n,
+               dim=d, launches=calls,
+               band=("0 (bit for bit)" if exact == set(a) else
+                     f"{ZOO_CPU_BAND} for all but {sorted(exact)}, exact"),
+               max_abs_dev=devs)
+        check(all(devs[f] == 0.0 for f in exact) and close,
+              f"fused {fam} run differs CPU vs GPU: {devs}")
+
+
+def levy_bound_ms(fam, n, d, k_steps, counts, rounds=0):
+    """Least time for one launch of the family's kernel on this card: the
+    operations of ``FAM_OPS`` (the data-dependent ones from ``counts``, the
+    plain version's tally of the same launch: abandoned, exploring and
+    diving, probed and exhausted lanes) over the f32 peak, against the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate."""
+    c = FAM_OPS[fam]
+    total = lambda key: int(sum(int(v) for v in counts.get(key, [])))  # noqa
+    ops = k_steps * n * (d * c["elem"] + c["lane"])
+    if fam == "cuckoo":
+        ops += total("abandoned") * (d * c["abandoned"] + c["abandoned_lane"])
+    elif fam == "hho":
+        explore, dive = total("explore"), total("dive")
+        ops += (explore * d * c["explore"]
+                + (k_steps * n - explore - dive) * d * c["besiege"]
+                + dive * (d * c["dive"] + c["dive_lane"]))
+    elif fam == "abc":
+        ops += (total("probed") * (d * c["probed"] + c["probed_lane"])
+                + total("exhausted") * (d * c["exhausted"]
+                                        + c["exhausted_lane"]))
+    else:
+        ops += rounds * n * c["round_lane"]
+    nbytes = {"cuckoo": 4 * (2 * d + 2) * n + 4 * d,
+              "hho": 4 * (2 * d + 2) * n + 8 * d,
+              "abc": 4 * (2 * d + 4) * n,
+              "pt": 4 * (2 * d + 4) * n}[fam]
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def levy_launch_args(fam, opt, seed, dev):
+    """One full-width launch's (args, keywords) at a model's state, with the
+    run's tile (4,096 lanes) and fixed shifts."""
+    state = opt.state
+    pos_t = state.pos.T.contiguous()
+    fit_t = state.fit[None, :].contiguous()
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    steps, k, t_max = LEVY[fam]
+    kw = dict(tile_n=4096, k_steps=k, step0=steps)
+    it = state.iteration.reshape(1).to(torch.int32)
+    if fam == "cuckoo":
+        return ([torch.cat([seed, i32(1, 2, 37, 1000, 4000)]),
+                 state.best_pos[:, None].contiguous(), pos_t, fit_t], kw)
+    if fam == "hho":
+        return ([torch.cat([seed, i32(1), it, i32(37)]),
+                 state.best_pos[:, None].contiguous(),
+                 pos_t.mean(dim=1, keepdim=True), pos_t, fit_t],
+                dict(kw, t_max=t_max))
+    if fam == "abc":
+        return ([torch.cat([seed, i32(1, 37, 1000)]), pos_t, fit_t,
+                 state.trials[None, :].to(torch.int32).contiguous()],
+                dict(kw, limit=opt.limit))
+    temps = state.temps[None, :].contiguous()
+    return ([torch.cat([seed, it, i32(ZOO_N)]), pos_t, fit_t,
+             (opt.sigma0 * opt.half_width) * torch.sqrt(temps),
+             1.0 / temps], dict(kw, swap_every=opt.swap_every))
+
+
+def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
+    """Phase 13 for one family: the model's run at its bench's width after
+    a warm-up launch, counted and checked, the device's busy share from a
+    trace of one more launch; then one launch at the final state against
+    its plain version, timed beside it and its bound."""
+    steps, k, t_max = LEVY[fam]
+    mod = mods[fam]
+    model = {"cuckoo": dsa.Cuckoo, "hho": dsa.HarrisHawks, "abc": dsa.ABC,
+             "pt": dsa.ParallelTempering}[fam]
+    kw = dict(seed=0, steps_per_kernel=k)
+    if t_max is not None:
+        kw["t_max"] = t_max
+    opt = model("rastrigin", n=ZOO_N, dim=ZOO_DIM, **kw)
+    check(opt.use_pallas, f"{fam}: the model did not take the fused kernel")
+    hw32 = float(np.float32(opt.half_width))
+    bests = [opt.state.best_fit.clone()]
+    opt.run(k)                                       # warm-up: one launch
+    bests.append(opt.state.best_fit.clone())
+    reset_launches(kernels)
+    _, run_ms = timed(lambda: opt.run(steps))
+    launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = opt.state
+    bests.append(state.best_fit.clone())
+    n_launches = steps // k
+    rec = dict(
+        phase="full_width", model=type(opt).__name__, objective="rastrigin",
+        particles=ZOO_N, dim=ZOO_DIM, steps=steps, steps_per_kernel=k,
+        t_max=t_max, launches=launches, run_ms=run_ms,
+        ms_per_launch_in_run=run_ms / n_launches,
+        particle_steps_per_sec=ZOO_N * steps / (run_ms / 1e3),
+        best_initial_warm_final=[float(b) for b in bests],
+        max_abs_pos=float(state.pos.abs().max()),
+        iteration=int(state.iteration), peak_mem_gib=peak, smi=smi)
+    if fam == "abc":
+        rec.update(limit=opt.limit, trials_min_max=[
+            int(state.trials.min()), int(state.trials.max())])
+    record(**rec)
+    hashgrid_launch_check(launches, f"{fam}_fused", n_launches)
+    check(bool(bests[0] >= bests[1] and bests[1] >= bests[2]
+               and torch.isfinite(bests[2])),
+          f"{fam}: the incumbent rose or is not finite: {rec}")
+    check(rec["max_abs_pos"] <= hw32, f"{fam}: a position left the domain")
+    check(tuple(state.pos.shape) == (ZOO_N, ZOO_DIM)
+          and rec["iteration"] == k + steps, f"{fam}: wrong state")
+    if fam == "abc":
+        check(rec["trials_min_max"][0] >= 0, "abc: a trial counter fell")
+    busy, ops_per, top = device_time(lambda: opt.run(k), 1)
+    ms_launch = run_ms / n_launches
+    record(phase=f"{fam}_launch_breakdown", particles=ZOO_N, steps=k,
+           ms_per_launch=ms_launch, device_busy_ms_per_launch=busy,
+           device_idle_share=None if busy is None else 1.0 - busy / ms_launch,
+           device_ops_per_launch=ops_per, top_device_ops=top, smi=smi)
+
+    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
+    args, extra = levy_launch_args(fam, opt, seed, dev)
+    step_kw = dict(objective_name="rastrigin", half_width=opt.half_width,
+                   **extra)
+    kernel = getattr(mod, f"fused_{fam}_step_cuda")
+    got = kernel(*args, **step_kw)
+    counts = {}
+    want, plain_ms = timed(lambda: getattr(mod, f"fused_{fam}_step_plain")(
+        *args, **step_kw, counts=counts))
+    cmp = compare_family(fam, "rastrigin", "main path, final state", got,
+                         want, k)
+    del got, want
+    ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
+    rounds = 0
+    if fam == "pt":
+        it0 = int(opt.state.iteration)
+        rounds = sum((it0 + s + 1) % opt.swap_every == 0 for s in range(k))
+    bound, bound_by, ops, nbytes = levy_bound_ms(fam, ZOO_N, ZOO_DIM, k,
+                                                 counts, rounds)
+    record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
+           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+           bound_by=bound_by, operations=ops, bytes=nbytes,
+           data_dependent_lanes={key: int(sum(int(v) for v in vals))
+                                 for key, vals in counts.items()},
+           kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
+           smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    return dict(name=f"{fam}_fused", route="cuda",
+                source=f"distributed_swarm_algorithm_tpu_torch/csrc/"
+                       f"{LEVY_SOURCES[fam]}.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                         + LEVY_TPU_KERNELS[fam],
+                launches=launches[f"{fam}_fused"],
+                max_abs_err=cmp["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1552,15 +1951,18 @@ def main():
     # Launch counters by kernel; the two PSO kernels share one source.
     zoo = zoo_modules()
     rot = rot_modules()
+    levy = levy_modules()
     kernels = {"separation": sep, "window_separation": win,
                "grid_separation": grid, "candidate_sweep": cand,
                "pso_fused": pf, "islands_fused": isl,
                **{f"{fam}_fused": mod for fam, mod in zoo.items()},
-               **{f"{fam}_fused": mod for fam, mod in rot.items()}}
+               **{f"{fam}_fused": mod for fam, mod in rot.items()},
+               **{f"{fam}_fused": mod for fam, mod in levy.items()}}
     sources = ["separation", "window_separation", "grid_separation",
                "candidate_sweep", "pso_fused",
                *(f"{fam}_fused" for fam in zoo),
-               *(f"{fam}_fused" for fam in rot)]
+               *(f"{fam}_fused" for fam in rot),
+               *LEVY_SOURCES.values()]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1620,6 +2022,7 @@ def main():
     pso_small_shapes(pf, isl, dev)
     zoo_small_shapes(zoo, pf, dev)
     rot_small_shapes(rot, pf, dev)
+    levy_small_shapes(levy, pf, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -1648,6 +2051,7 @@ def main():
     pso_cpu_vs_gpu(dsa, pf, dev)
     zoo_cpu_vs_gpu(dsa, zoo, dev)
     rot_cpu_vs_gpu(rot, dev)
+    levy_cpu_vs_gpu(levy, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -2009,6 +2413,10 @@ def main():
     rot_rows = [rot_full_width(dsa, fam, rot, kernels, smi, t_start, dev)
                 for fam in rot]
 
+    # 13. cuckoo, Harris hawks, ABC and parallel tempering at full width ----
+    levy_rows = [levy_full_width(dsa, fam, levy, kernels, smi, t_start, dev)
+                 for fam in levy]
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -2102,6 +2510,7 @@ def main():
         },
         *zoo_rows,
         *rot_rows,
+        *levy_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -22,7 +22,11 @@ the bat, grey wolf, salp and whale optimizers (``Bat``, ``GWO``, ``Salp``,
 differential evolution, SHADE, the genetic algorithm and moth-flame
 optimization (``DE``, ``SHADE``, ``GA``, ``MFO``) with theirs
 (``csrc/de_fused.cu``, ``csrc/shade_fused.cu``, ``csrc/ga_fused.cu``,
-``csrc/mfo_fused.cu``).
+``csrc/mfo_fused.cu``), and cuckoo search, Harris hawks, the artificial bee
+colony and parallel tempering (``Cuckoo``, ``HarrisHawks``, ``ABC``,
+``ParallelTempering``) with theirs (``csrc/cuckoo_fused.cu``,
+``csrc/hho_fused.cu``, ``csrc/abc_fused.cu``,
+``csrc/tempering_fused.cu``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -64,6 +68,10 @@ from .models.de import DE
 from .models.shade import SHADE
 from .models.ga import GA
 from .models.mfo import MFO
+from .models.cuckoo import Cuckoo
+from .models.hho import HarrisHawks
+from .models.abc_bees import ABC
+from .models.tempering import ParallelTempering
 from .ops.bat import (
     BatState,
     bat_init,
@@ -128,6 +136,38 @@ from .ops.mfo import (
     mfo_state_to_numpy,
     mfo_step,
 )
+from .ops.cuckoo import (
+    CuckooState,
+    cuckoo_init,
+    cuckoo_run,
+    cuckoo_state_from_numpy,
+    cuckoo_state_to_numpy,
+    cuckoo_step,
+)
+from .ops.hho import (
+    HHOState,
+    hho_init,
+    hho_run,
+    hho_state_from_numpy,
+    hho_state_to_numpy,
+    hho_step,
+)
+from .ops.abc import (
+    ABCState,
+    abc_init,
+    abc_run,
+    abc_state_from_numpy,
+    abc_state_to_numpy,
+    abc_step,
+)
+from .ops.tempering import (
+    PTState,
+    pt_init,
+    pt_run,
+    pt_state_from_numpy,
+    pt_state_to_numpy,
+    pt_step,
+)
 from .ops.cuda.bat_fused import fused_bat_run
 from .ops.cuda.gwo_fused import fused_gwo_run
 from .ops.cuda.salp_fused import fused_salp_run
@@ -136,6 +176,10 @@ from .ops.cuda.de_fused import fused_de_run
 from .ops.cuda.shade_fused import fused_shade_run
 from .ops.cuda.ga_fused import fused_ga_run
 from .ops.cuda.mfo_fused import fused_mfo_run
+from .ops.cuda.cuckoo_fused import fused_cuckoo_run
+from .ops.cuda.hho_fused import fused_hho_run
+from .ops.cuda.abc_fused import fused_abc_run
+from .ops.cuda.tempering_fused import fused_pt_run
 from .ops import objectives
 from .ops.cuda.pso_fused import fused_pso_run
 from .ops.memetic import gd_refine, memetic_run, refine_pbest
@@ -210,6 +254,14 @@ __all__ = [
     "ga_state_from_numpy", "ga_state_to_numpy",
     "MFO", "MFOState", "mfo_init", "mfo_step", "mfo_run", "fused_mfo_run",
     "mfo_state_from_numpy", "mfo_state_to_numpy",
+    "Cuckoo", "CuckooState", "cuckoo_init", "cuckoo_step", "cuckoo_run",
+    "fused_cuckoo_run", "cuckoo_state_from_numpy", "cuckoo_state_to_numpy",
+    "HarrisHawks", "HHOState", "hho_init", "hho_step", "hho_run",
+    "fused_hho_run", "hho_state_from_numpy", "hho_state_to_numpy",
+    "ABC", "ABCState", "abc_init", "abc_step", "abc_run", "fused_abc_run",
+    "abc_state_from_numpy", "abc_state_to_numpy",
+    "ParallelTempering", "PTState", "pt_init", "pt_step", "pt_run",
+    "fused_pt_run", "pt_state_from_numpy", "pt_state_to_numpy",
     "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",

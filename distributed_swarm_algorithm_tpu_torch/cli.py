@@ -4,9 +4,11 @@
           CPU with ``--device cpu``
   pso     particle swarm optimization (PSO, MemeticPSO, or the island
           model with ``--islands``), on the card or with ``--device cpu``
-  bat, gwo, salp, woa
-          the bat algorithm, grey wolf, salp swarm and whale optimizers,
-          on the card or with ``--device cpu``
+  bat, gwo, salp, woa, de, shade, ga, mfo, cuckoo, hho, abc, pt
+          the optimizer zoo (bat algorithm, grey wolf, salp swarm, whale,
+          differential evolution, SHADE, genetic algorithm, moth-flame,
+          cuckoo search, Harris hawks, artificial bee colony, parallel
+          tempering), on the card or with ``--device cpu``
 
 The other subcommands of the JAX package's CLI are ported with their
 slices (ROADMAP Queue A).
@@ -225,6 +227,31 @@ def _cmd_ga(args) -> int:
     return _run_report(opt, args, "individuals")
 
 
+def _cmd_cuckoo(args) -> int:
+    from .models.cuckoo import Cuckoo
+
+    opt = Cuckoo(args.objective, n=args.n, dim=args.dim, pa=args.pa,
+                 seed=args.seed, device=args.device)
+    return _run_report(opt, args, "nests")
+
+
+def _cmd_abc(args) -> int:
+    from .models.abc_bees import ABC
+
+    opt = ABC(args.objective, n=args.n, dim=args.dim, limit=args.limit,
+              seed=args.seed, device=args.device)
+    return _run_report(opt, args, "sources")
+
+
+def _cmd_pt(args) -> int:
+    from .models.tempering import ParallelTempering
+
+    opt = ParallelTempering(args.objective, n=args.n, dim=args.dim,
+                            swap_every=args.swap_every, seed=args.seed,
+                            device=args.device)
+    return _run_report(opt, args, "chains")
+
+
 def _scheduled_cmd(module: str, cls: str, noun: str):
     """Handler of a family whose one extra knob is the schedule horizon
     ``--t-max`` (0 means ``--steps``)."""
@@ -248,6 +275,7 @@ _SCHEDULED_FAMILIES = (
     ("woa", "woa", "WOA", "whales", "whale optimization"),
     ("salp", "salp", "Salp", "salps", "salp swarm algorithm"),
     ("mfo", "mfo", "MFO", "moths", "moth-flame optimization"),
+    ("hho", "hho", "HarrisHawks", "hawks", "Harris hawks optimization"),
 )
 
 
@@ -344,6 +372,18 @@ def build_parser() -> argparse.ArgumentParser:
         fn=_cmd_ga)
     optimizer_parser("shade", "success-history adaptive DE",
                      n=256).set_defaults(fn=_cmd_shade)
+    p_cs = optimizer_parser("cuckoo", "cuckoo search")
+    p_cs.add_argument("--pa", type=float, default=0.25,
+                      help="nest abandonment probability")
+    p_cs.set_defaults(fn=_cmd_cuckoo)
+    p_abc = optimizer_parser("abc", "artificial bee colony")
+    p_abc.add_argument("--limit", type=int, default=None,
+                       help="scout abandonment limit (default n*dim)")
+    p_abc.set_defaults(fn=_cmd_abc)
+    p_pt = optimizer_parser("pt", "parallel tempering", n=32)
+    p_pt.set_defaults(steps=2000)
+    p_pt.add_argument("--swap-every", type=int, default=5)
+    p_pt.set_defaults(fn=_cmd_pt)
     return parser
 
 

@@ -134,15 +134,18 @@ def family_supported(objective_name: str, dtype, dim, block_of) -> bool:
 
 
 def require_family_supported(family: str, objective_name: str, dtype,
-                             dim: int, block_of, dim_max: int) -> None:
+                             dim: int, block_of,
+                             dim_max: Optional[int] = None) -> None:
     """Raise unless the family's kernel covers this configuration: the
-    fused runs do not fall back to the portable path."""
+    fused runs do not fall back to the portable path.  ``dim_max=None``:
+    the kernel takes any D."""
     if not family_supported(objective_name, dtype, dim, block_of):
+        bound = "" if dim_max is None else f"D <= {dim_max} "
         raise ValueError(
             f"the fused {family} kernel does not cover objective "
             f"{objective_name!r} with {dtype} state at D = {dim}: it takes "
             f"a named objective of {sorted(OBJECTIVES_T)}, float32 state, "
-            f"D <= {dim_max} (michalewicz: D <= {MICHALEWICZ_DIM_MAX})"
+            f"{bound}(michalewicz: D <= {MICHALEWICZ_DIM_MAX})"
         )
 
 

@@ -41,6 +41,7 @@ from ..ga import GAState
 from ..nsga2 import ETA_C, ETA_M, P_CROSS
 from . import family
 from .common import cyclic_pad_rows
+from .fast_math import LOG2_C, exp2_fast, log2_fast  # noqa: F401
 from .family import LANE_SHIFTS, donor_tiles, roll_lanes
 from .pso_fused import (
     OBJECTIVE_IDS,
@@ -52,7 +53,6 @@ from .pso_fused import (
     run_blocks,
     seed_base,
 )
-from .salp_fused import exp2_fast
 
 # Launches of the CUDA kernel through fused_ga_step_cuda since the count
 # was last set to 0, one per launch.
@@ -65,30 +65,6 @@ _fn = None   # the C entry, bound at the first launch
 MAX_STEPS_PER_KERNEL = 8
 # Threads of the block that runs one tile (each holds tile_n / 512 lanes).
 TILE_THREADS = 512
-
-# --------------------------------------------------------------------------
-# The port's copy of the JAX package's fast log2
-# (ops/pallas/cuckoo_fused.py:66-86: _LOG2_C, _log2_fast).
-# --------------------------------------------------------------------------
-
-# log2(m) on m in [1, 2): degree-6 polynomial (descending), max abs err
-# 6.0e-6 through f32 Horner.
-LOG2_C = (
-    -0.024825585616, 0.266858603621, -1.234262243474, 3.218830782097,
-    -5.264107973620, 6.065828547204, -3.028317064600,
-)
-
-
-def log2_fast(x: torch.Tensor) -> torch.Tensor:
-    """log2(x) for x > 0: the exponent bit field plus the mantissa
-    polynomial, Horner from the highest coefficient."""
-    bits = x.contiguous().view(torch.int32)
-    e = ((bits >> 23) & 0xFF) - 127
-    mant = ((bits & 0x7FFFFF) | 0x3F800000).view(torch.float32)
-    p = torch.full_like(x, LOG2_C[0])
-    for c in LOG2_C[1:]:
-        p = p * mant + c
-    return e.to(torch.float32) + p
 
 
 def pow_fast(x: torch.Tensor, inv_eta: float) -> torch.Tensor:

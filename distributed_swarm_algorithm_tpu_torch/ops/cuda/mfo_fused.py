@@ -43,7 +43,7 @@ from .pso_fused import (
     run_blocks,
     seed_base,
 )
-from .salp_fused import _LOG2E, exp2_fast
+from .fast_math import LOG2E as _LOG2E, exp2_fast
 
 # Launches of the CUDA kernel through fused_mfo_step_cuda since the count
 # was last set to 0, one per launch.

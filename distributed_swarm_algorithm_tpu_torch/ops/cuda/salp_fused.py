@@ -34,6 +34,12 @@ from .._numerics import div
 from ..salp import T_MAX, SalpState
 from . import family
 from .common import cyclic_pad_rows
+from .fast_math import (  # noqa: F401  (the old names stay importable)
+    LOG2E as _LOG2E,
+    exp2_fast,
+    exp2_poly as _exp2_poly,
+    exp_fast as _exp_fast,
+)
 from .pso_fused import (
     OBJECTIVE_IDS,
     OBJECTIVES_T,
@@ -57,43 +63,6 @@ MAX_STEPS_PER_KERNEL = 16
 # Dynamic shared memory the kernel may take (it keeps 1 KB for its
 # candidate reduction).
 _MAX_DYNAMIC_SHARED = 226 * 1024
-
-# --------------------------------------------------------------------------
-# The port's copy of the JAX package's fast exponential
-# (ops/pallas/firefly_fused.py: _exp2_poly, exp2_fast, _exp_fast).
-# --------------------------------------------------------------------------
-
-_LOG2E = 1.4426950408889634
-
-
-def _exp2_poly(f):
-    """2^f for f in [-0.5, 0.5]: degree-5 polynomial (Horner), max rel
-    err 3.7e-7 through f32."""
-    c0 = 1.000000052277
-    c1 = 0.693147200062
-    c2 = 0.240222117415
-    c3 = 0.055503406814
-    c4 = 0.009670762865
-    c5 = 0.001339527949
-    return c0 + f * (c1 + f * (c2 + f * (c3 + f * (c4 + f * c5))))
-
-
-def exp2_fast(t):
-    """2^t: round to n + f (half to even), the exponent-field bit
-    construction of 2^n times the 2^f polynomial; exactly 0 below the f32
-    normal range."""
-    n = torch.round(t)
-    f = t - n
-    ni = torch.clamp(n, -126.0, 126.0).to(torch.int32)
-    two_n = ((ni + 127) << 23).view(torch.float32)
-    val = two_n * _exp2_poly(f)
-    return torch.where(t < -126.0, torch.zeros_like(val), val)
-
-
-def _exp_fast(x):
-    """exp(x) via 2^(x*log2e)."""
-    return exp2_fast(x * _LOG2E)
-
 
 # --------------------------------------------------------------------------
 # The step: plain version, kernel wrapper, entry

@@ -1244,3 +1244,351 @@ def test_rotational_models_take_the_kernel_and_match_the_cpu(cuda):
                 tol = 2e-5 if "fit" in f else 1e-5
                 np.testing.assert_allclose(on_card[f], a, rtol=tol,
                                            atol=tol, err_msg=f"{fam} {f}")
+
+
+# --------------------------------------------------------------------------
+# The fused cuckoo, Harris-hawks, ABC and parallel-tempering kernels
+# (csrc/cuckoo_fused.cu, hho_fused.cu, abc_fused.cu, tempering_fused.cu)
+# against their plain versions.
+#
+# Each kernel repeats its plain version op for op (IEEE intrinsics, sums
+# over d in order, the same Philox draws, the Box-Muller pair, the bit-field
+# log2 and 2^x polynomials), so every output is equal bit for bit over a
+# whole launch, except with ackley (the objective's expf): there at least
+# 99% of the lanes are equal.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    abc_fused as port_abc,
+    cuckoo_fused as port_cuckoo,
+    fast_math as port_fm,
+    hho_fused as port_hho,
+    tempering_fused as port_pt,
+)
+
+LEVY_FAMILIES = {"cuckoo": port_cuckoo, "hho": port_hho, "abc": port_abc,
+                 "pt": port_pt}
+
+
+def _levy_case(fam, name, n, d, k, rng, device, tile_n, seed=0, limit=20,
+               swap_every=5, n_real=None):
+    """(kernel step, plain step, positional args, keywords) of one launch of
+    family ``fam`` on numpy-drawn inputs on ``device``."""
+    _, hw = port_obj.get_objective(name)
+    g = np.random.default_rng(seed + n + d + k)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa
+    pos = to(g.uniform(-hw, hw, (d, n)))
+    fit = port_pf.OBJECTIVES_T[name](pos)
+    best = pos[:, int(fit.argmin())][:, None].contiguous()
+    n_tiles = n // tile_n
+    lanes = lambda m: [int(v) for v in g.integers(0, 3 * tile_n, m)]  # noqa
+    tiles = lambda m: [int(v) for v in g.integers(1, n_tiles, m)]  # noqa
+    kw = dict(objective_name=name, half_width=hw, rng=rng, tile_n=tile_n,
+              k_steps=k, step0=int(g.integers(0, 1000)))
+    u = lambda *s: to(g.uniform(size=s))  # noqa: E731
+    normal = lambda *s: to(g.standard_normal(s))  # noqa: E731
+    if fam == "cuckoo":
+        args = [i32(seed + 7, *tiles(2), *lanes(3)), best, pos, fit]
+        draws = [normal(d, n), normal(d, n), u(1, n), u(d, n)]
+    elif fam == "hho":
+        mean = pos.mean(dim=1, keepdim=True)
+        args = [i32(seed + 7, *tiles(1), int(g.integers(0, 60)), *lanes(1)),
+                best, mean, pos, fit]
+        draws = [tuple([u(1, n) for _ in range(4)] + [u(d, n)
+                                                      for _ in range(5)]
+                       + [normal(d, n), normal(d, n)])]
+        kw.update(t_max=60)
+    elif fam == "abc":
+        trials = torch.from_numpy(
+            g.integers(0, limit + 2, (1, n)).astype(np.int32)).to(device)
+        args = [i32(seed + 7, *tiles(1), *lanes(2)), pos, fit, trials]
+        draws = [tuple([u(1, n) for _ in range(5)] + [u(d, n)])]
+        kw.update(limit=limit)
+    else:
+        temps = to(0.01 * 1000.0 ** (np.arange(n) / (n - 1)))[None, :]
+        args = [i32(seed + 7, int(g.integers(0, 40)), n_real or n), pos, fit,
+                0.512 * torch.sqrt(temps), 1.0 / temps]
+        draws = [normal(d, n), u(1, n), u(1, n)]
+        kw.update(swap_every=swap_every)
+    if rng == "host":
+        args += draws
+    mod = LEVY_FAMILIES[fam]
+    return (getattr(mod, f"fused_{fam}_step_cuda"),
+            getattr(mod, f"fused_{fam}_step_plain"), args, kw)
+
+
+LEVY_CASES = [
+    # fam, objective, n, d, k, rng, tile_n, extra
+    ("cuckoo", "rastrigin", 512, 8, 1, "host", 128, {}),
+    ("cuckoo", "sphere", 480, 30, 8, "device", 96, {}),
+    ("cuckoo", "michalewicz", 640, 1, 8, "device", 160, {}),
+    ("cuckoo", "ackley", 4096, 30, 8, "device", 1024, {}),
+    ("hho", "rastrigin", 512, 8, 1, "host", 128, {}),
+    ("hho", "griewank", 1000, 30, 8, "device", 200, {}),
+    ("hho", "levy", 640, 1, 8, "device", 160, {}),
+    ("hho", "schwefel", 768, 100, 3, "device", 128, {}),
+    ("abc", "rastrigin", 512, 8, 1, "host", 128, {}),
+    ("abc", "zakharov", 500, 3, 8, "device", 100, dict(limit=2)),
+    ("abc", "sphere", 4096, 30, 8, "device", 1024, dict(limit=2)),
+    ("abc", "ackley", 16384, 30, 8, "device", 4096, dict(limit=491520)),
+    ("pt", "rastrigin", 512, 8, 1, "host", 128, dict(n_real=500)),
+    ("pt", "styblinski_tang", 1000, 30, 16, "device", 200,
+     dict(n_real=987)),
+    ("pt", "rosenbrock", 640, 3, 16, "device", 320, dict(swap_every=1)),
+    ("pt", "ackley", 4096, 30, 16, "device", 4096, {}),
+    ("pt", "sphere", 768, 100, 7, "device", 256, dict(swap_every=3)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "fam,name,n,d,k,rng,tile_n,extra", LEVY_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}x{c[3]}-k{c[4]}-{c[5]}" for c in LEVY_CASES])
+def test_levy_family_kernel_equals_plain(cuda, fam, name, n, d, k, rng,
+                                         tile_n, extra):
+    _, plain, args, kw = _levy_case(fam, name, n, d, k, rng, cuda, tile_n,
+                                    **extra)
+    mod = LEVY_FAMILIES[fam]
+    before = mod.LAUNCHES
+    # The entry sends CUDA tensors to the kernel, never to the plain version.
+    got = getattr(mod, f"fused_{fam}_step_t")(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    want = plain(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    _assert_family_equal(name, got, want)
+    assert float(got[0].abs().max()) <= np.float32(kw["half_width"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+def test_tile_in_step_kernels_keep_each_tile_in_step(cuda, k):
+    # Cuckoo's egg rolls the current generation's candidates and ABC's
+    # employed partner the current tile, its gate the tile's maximum: k
+    # steps in one launch equal the plain version's k at 4 tiles of 4,096
+    # lanes (512 threads of 8 lanes each) and at tiles of 1,000 lanes; ABC
+    # at a small limit, so scouts fire, and PT over two rounds.
+    for n, tile_n in ((16384, 4096), (4000, 1000)):
+        for fam, extra in (("cuckoo", {}), ("abc", dict(limit=2)),
+                           ("pt", dict(n_real=n - 3, swap_every=3))):
+            kernel, plain, args, kw = _levy_case(fam, "rastrigin", n, 30, k,
+                                                 "device", cuda, tile_n,
+                                                 **extra)
+            _assert_family_equal("rastrigin", kernel(*args, **kw),
+                                 plain(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_levy_kernels_scouts_and_exchanges_fire(cuda):
+    # The small-limit ABC launch re-randomizes sources, and the PT launch
+    # swaps chains, padded ones never: the paths the full-width runs seldom
+    # take are held bit for bit above, and here shown taken.
+    _, plain, args, kw = _levy_case("abc", "sphere", 4096, 30, 8, "device",
+                                    cuda, 1024, limit=2)
+    counts = {}
+    plain(*args, **kw, counts=counts)
+    assert int(sum(counts["exhausted"])) > 0
+    _, plain, args, kw = _levy_case("pt", "sphere", 1000, 30, 16, "device",
+                                    cuda, 200, n_real=987)
+    counts = {}
+    plain(*args, **kw, counts=counts)
+    assert int(sum(counts["swapped"])) > 0
+
+
+@pytest.mark.cuda
+def test_normal_pair_on_the_card_equals_its_plain_version(cuda):
+    # normal_pair's plain version on the card agrees with the CPU's within
+    # a few ulps (the card's elementwise operations round their own way)
+    # and gives standard normals; its device twin (csrc/fast_math.cuh) is
+    # held bit for bit against the plain version on the card through a
+    # cuckoo launch with no abandonment, whose candidates carry both halves
+    # of each pair.
+    g = torch.Generator(device=cuda).manual_seed(0)
+    # (u1 = 0 gives NaN in both, which torch.equal does not match.)
+    u1 = torch.rand((64, 4096), generator=g, device=cuda).clamp_min(1e-7)
+    u2 = torch.rand((64, 4096), generator=g, device=cuda)
+    n1, n2 = port_fm.normal_pair(u1, u2)
+    c1, c2 = port_fm.normal_pair(u1.cpu(), u2.cpu())
+    for a, b in ((n1, c1), (n2, c2)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    kernel, plain, args, kw = _levy_case("cuckoo", "sphere", 512, 8, 1,
+                                         "device", cuda, 128)
+    kw.update(pa=0.0, step_scale=1.0)
+    _assert_family_equal("sphere", kernel(*args, **kw), plain(*args, **kw))
+    stats = torch.cat([n1.flatten(), n2.flatten()])
+    assert abs(float(stats.mean())) < 0.01
+    assert abs(float(stats.var()) - 1.0) < 0.01
+
+
+@pytest.mark.cuda
+def test_levy_kernels_read_their_draws_and_reject_bad_operands(cuda):
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    for fam, mod in LEVY_FAMILIES.items():
+        kernel, plain, args, kw = _levy_case(fam, "sphere", 512, 4, 1,
+                                             "device", cuda, 128)
+        before = mod.LAUNCHES
+        with pytest.raises((TypeError, ValueError)):
+            kernel(*args[:-1], args[-1].double(), **kw)
+        strided = torch.stack([args[-1], args[-1]], -1)[..., 0]
+        with pytest.raises(ValueError):
+            kernel(*args[:-1], strided, **kw)
+        with pytest.raises(ValueError, match="scalars"):
+            kernel(args[0].cpu(), *args[1:], **kw)
+        assert mod.LAUNCHES == before
+        # Another seed draws other numbers.
+        a = kernel(*args, **kw)
+        b = kernel(args[0] + 1, *args[1:], **kw)
+        assert not torch.equal(a[0], b[0]), fam
+    for fam in ("cuckoo", "abc"):
+        threads = getattr(_build.load(f"{fam}_fused"),
+                          f"dsa_{fam}_fused_threads")
+        threads.argtypes, threads.restype = [ctypes.c_int], ctypes.c_int
+        for tile_n in (77, 128, 1000, 4096, 8192):
+            assert threads(tile_n) == port_ga.tile_threads(tile_n)
+    pick = _build.load("hho_fused").dsa_hho_fused_block
+    pick.argtypes, pick.restype = [ctypes.c_int], ctypes.c_int
+    for d in (1, 30, 151, 152, 302, 303, 605, 606):
+        assert pick(d) == port_hho.kernel_block(d), d
+    pick = _build.load("tempering_fused").dsa_pt_fused_block
+    pick.argtypes, pick.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for d in (1, 30, 100, 120, 200, 360, 361):
+        for h in (1, 4, 16):
+            assert pick(d, h) == port_pt.kernel_block(d, h), (d, h)
+    with pytest.raises(ValueError, match="even"):
+        _, _, args, kw = _levy_case("pt", "sphere", 515, 4, 1, "device",
+                                    cuda, 103)
+        port_pt.fused_pt_step_cuda(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_levy_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    names = ["cuckoo_fused", "hho_fused", "abc_fused", "tempering_fused"]
+    _build.build(names)
+    for name in names:
+        log = _build.build_log(name)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert spills, (name, log[:400])
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)
+
+
+def _levy_states(device, n=3000, d=30):
+    from distributed_swarm_algorithm_tpu_torch.ops import (
+        abc, cuckoo, hho, tempering,
+    )
+    fn, hw = port_obj.get_objective("rastrigin")
+    return fn, hw, {
+        "cuckoo": cuckoo.cuckoo_init(fn, n, d, hw, seed=0, device=device),
+        "hho": hho.hho_init(fn, n, d, hw, seed=0, device=device),
+        "abc": abc.abc_init(fn, n, d, hw, seed=0, device=device),
+        "pt": tempering.pt_init(fn, n, d, hw, seed=0, device=device),
+    }
+
+
+@pytest.mark.cuda
+def test_levy_runs_never_wait_for_the_device(cuda):
+    import warnings
+
+    _, hw, states = _levy_states(cuda)
+    runs = {
+        "cuckoo": lambda: port_cuckoo.fused_cuckoo_run(
+            states["cuckoo"], "rastrigin", 24, half_width=hw),
+        "hho": lambda: port_hho.fused_hho_run(states["hho"], "rastrigin", 24,
+                                              half_width=hw, t_max=24),
+        "abc": lambda: port_abc.fused_abc_run(states["abc"], "rastrigin", 24,
+                                              half_width=hw, limit=5),
+        "pt": lambda: port_pt.fused_pt_run(states["pt"], "rastrigin", 48,
+                                           half_width=hw),
+    }
+    for fam, run in runs.items():
+        run()                                   # builds and warms up
+        torch.cuda.synchronize()
+        before = LEVY_FAMILIES[fam].LAUNCHES
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (fam, [str(w.message)[:120] for w in waits])
+        assert LEVY_FAMILIES[fam].LAUNCHES == before + 3, fam
+        assert bool(torch.isfinite(out.best_fit))
+
+
+@pytest.mark.cuda
+def test_levy_models_take_the_kernel_and_match_the_cpu(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import (
+        abc, cuckoo, hho, tempering,
+    )
+    models = {"cuckoo": tdsa.Cuckoo("rastrigin", n=5000, dim=30, seed=0),
+              "hho": tdsa.HarrisHawks("rastrigin", n=5000, dim=30, seed=0),
+              "abc": tdsa.ABC("rastrigin", n=5000, dim=30, seed=0),
+              "pt": tdsa.ParallelTempering("rastrigin", n=5000, dim=30,
+                                           seed=0)}
+    for fam, opt in models.items():
+        assert opt.use_pallas and opt.device.type == "cuda", fam
+        first, before = opt.best, LEVY_FAMILIES[fam].LAUNCHES
+        opt.run(32)
+        launches = {"pt": 2}.get(fam, 4)
+        assert LEVY_FAMILIES[fam].LAUNCHES == before + launches, fam
+        assert opt.best <= first and int(opt.state.iteration) == 32, fam
+    # Three launches on the card and on the CPU from one state with the
+    # same draws handed in: cuckoo and ABC held bit for bit.  HHO's mean
+    # over the hawks is a sum each device adds in its own order, and PT's
+    # proposal scales take torch.sqrt, which the card rounds its own way:
+    # their floats carry rtol = atol = 1e-5 (fitness 2e-5), the ladder and
+    # the iteration exact.
+    n, d, tile = 768, 30, 128
+    g = torch.Generator().manual_seed(3)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    nz = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    i32 = lambda rows: torch.tensor(rows, dtype=torch.int32)  # noqa: E731
+    cases = {
+        "cuckoo": (cuckoo, port_cuckoo.fused_cuckoo_run, dict(
+            uniforms=[(nz(d, n), nz(d, n), u(1, n), u(d, n))
+                      for _ in range(3)],
+            shifts=i32([[1, 1, 5, 600, 7], [5, 2, 0, 1, 2],
+                        [2, 4, 9, 9, 127]]))),
+        "hho": (hho, port_hho.fused_hho_run, dict(
+            uniforms=[tuple([u(1, n) for _ in range(4)]
+                            + [u(d, n) for _ in range(5)]
+                            + [nz(d, n), nz(d, n)]) for _ in range(3)],
+            shifts=i32([[1, 5], [3, 600], [5, 127]]), t_max=4)),
+        "abc": (abc, port_abc.fused_abc_run, dict(
+            uniforms=[tuple([u(1, n) for _ in range(5)] + [u(d, n)])
+                      for _ in range(3)],
+            shifts=i32([[1, 5, 600], [3, 0, 1], [5, 9, 127]]), limit=1)),
+        "pt": (tempering, port_pt.fused_pt_run, dict(
+            uniforms=[(nz(d, n), u(1, n), u(1, n)) for _ in range(3)],
+            swap_every=1)),
+    }
+    fn, hw = port_obj.get_objective("rastrigin")
+    for fam, (ops, run, kw) in cases.items():
+        init = getattr(ops, f"{fam}_init")
+        to_np = getattr(ops, f"{fam}_state_to_numpy")
+        from_np = getattr(ops, f"{fam}_state_from_numpy")
+        cpu = init(fn, n, d, hw, seed=2, device="cpu")
+        gpu = from_np(to_np(cpu), device=cuda)
+        on_cpu = run(cpu, "rastrigin", 3, rng="host", tile_n=tile, **kw)
+        to_dev = lambda v: (v.to(cuda) if torch.is_tensor(v)  # noqa: E731
+                            else v)
+        kw_gpu = {k: ([tuple(to_dev(t) for t in c) for c in v]
+                      if k == "uniforms" else to_dev(v))
+                  for k, v in kw.items()}
+        on_card = to_np(run(gpu, "rastrigin", 3, rng="host", tile_n=tile,
+                            **kw_gpu))
+        for f, a in to_np(on_cpu).items():
+            if fam not in ("hho", "pt") or f in ("temps", "iteration"):
+                np.testing.assert_array_equal(on_card[f], a,
+                                              err_msg=f"{fam} {f}")
+            else:
+                tol = 2e-5 if "fit" in f else 1e-5
+                np.testing.assert_allclose(on_card[f], a, rtol=tol,
+                                           atol=tol, err_msg=f"{fam} {f}")

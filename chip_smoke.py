@@ -120,6 +120,29 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    family's cap, draws handed in and made in the kernel, ABC at a small
    limit so that its scouts fire, PT with padded lanes and with the widest
    halo) and phase 4 three launches of each on the CPU and on the card.
+14. full width, firefly and ACO at their JAX benches: ``Firefly("rastrigin",
+   n=65_536, dim=30)`` for 8 generations and ``n=16_384`` for 32
+   (benchmarks/bench_firefly_64k.py:17-24), each after a warm-up run: one
+   launch of B19 a generation and no other kernel, the best never rising,
+   every position inside the domain, then B19 at the 65,536 final state
+   against its plain version within its band, timed beside it and its
+   bound, and again on that swarm drawn 50 times closer, where about half
+   the pairs attract; ``ACO`` on 256 cities uniform in [0, 100)^2 with 1,024 ants for
+   400 iterations (benchmarks/bench_aco.py:28-36) after a warm-up: one
+   launch each of B20 and B21 an iteration and no other kernel, the best
+   never rising, every tour of the last iteration a permutation with its
+   in-kernel lengths the ordered sums, tau symmetric (within 4 ulps / rho)
+   and finite, the device's busy share from a trace of 16 more; B20 and B21
+   at the final pheromone equal to their plain versions, timed beside them,
+   their bounds and ``index_add_``; then C = 512 and 1,024 for 50
+   iterations and the circle of 1,024 for 100 (q0 = 0.1, elite = 4) with
+   its gap to the known optimum (benchmarks/bench_aco_sweep.py:35-86).
+   Phase 3 holds B19 at N = 1, 127, 300, 1,000 by D = 1, 5, 30, 100, in the
+   rectangular form and with equal fitness, and B20 and B21 at C = 2 to
+   1,024, A = 1 to 1,000, q0 = 0, 0.5 and 1, draws handed in and made in
+   the kernel, constant scores (every greedy step a tie) and tours that are
+   not permutations; phase 4 three firefly generations and three ACO
+   iterations on the CPU and on the card with the same draws.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -277,6 +300,34 @@ FAM_OPS = {
                 exhausted_lane=1),
     "pt": dict(elem=123, lane=133, round_lane=30),
 }
+# Firefly and ACO at their JAX benches (bench_firefly_64k.py:17-24: 65,536
+# x 30 for 8 generations, 16,384 x 30 for 32; bench_aco.py:28-36: C = 256
+# cities uniform in [0, 100)^2, A = 1,024 ants, 400 iterations;
+# bench_aco_sweep.py:35-86: C = 512 and 1,024 for 50 iterations, and the
+# circle of 1,024 for 100 with q0 = 0.1, elite = 4).
+FF_N, FF_N2, FF_DIM, FF_STEPS, FF_STEPS2 = 65_536, 16_384, 30, 8, 32
+ACO_C, ACO_A, ACO_ITERS, ACO_PROFILED = 256, 1024, 400, 16
+ACO_SWEEP = ((512, 50), (1024, 50))
+ACO_CIRCLE, ACO_CIRCLE_ITERS = 1024, 100
+# B19 against its plain version: attraction_band(N_j) * sum|terms| + this.
+FF_ABS_BAND = 1e-6
+# Operations of B19 and B20/B21, counted from csrc/firefly_fused.cu and
+# csrc/aco_fused.cu as FAM_OPS (a Philox call 100, a uniform 3, log2 18),
+# only where the function needs them:
+#   firefly  per pair 1 (the brightness test); per brighter pair 2 D + 27
+#            (the dot product, r^2 4, the exponent's product, exp_fast 21,
+#            beta0's product); per pair of nonzero weight 2 D + 1 (the
+#            accumulation and the weight sum); |x|^2 and the closing
+#            move 2 D a row;
+#   tours    (the sampling rule) per block of four cities that holds an open
+#            city, and step, 100 (its Philox call); per open city and step
+#            49 (its uniform 3; the Gumbel transform: 1 - u, the clip, two
+#            log2s, two products and negations; the score and its test);
+#            per ant and step 20 (the shuffle argmax, the visited bit, the
+#            length, the tour's write);
+#   deposit  per tour edge 2 (the match and the add).
+FF_OPS = dict(pair=1, brighter=27, weighted=1)
+ACO_OPS = dict(open_block=100, open_city=49, step=20, deposit_edge=2)
 # Operations per element and step of the fused PSO kernels: two Philox
 # calls per four elements (10 rounds of 4 multiplies and 6 adds or xors),
 # the two uniforms from their bits, the update with its clamps, and
@@ -1918,6 +1969,513 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
                 bound_ms=bound, bound_by=bound_by, library_ms=None)
 
 
+# --------------------------------------------------------------------------
+# Firefly (B19) and ACO (B20, B21)
+# --------------------------------------------------------------------------
+
+
+class LaunchCount:
+    """A kernel's launch count kept under another name in its module (the
+    ACO module counts its two kernels apart), read and reset as
+    ``LAUNCHES``."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def LAUNCHES(self):  # noqa: N802
+        return getattr(self.mod, self.attr)
+
+    @LAUNCHES.setter
+    def LAUNCHES(self, value):  # noqa: N802
+        setattr(self.mod, self.attr, value)
+
+
+def ff_inputs(n, d, seed, dev, scale, ties=False):
+    from distributed_swarm_algorithm_tpu_torch.ops import objectives
+    g = np.random.default_rng(seed)
+    pos = torch.from_numpy((g.uniform(-5.12, 5.12, (n, d)) * scale)
+                           .astype(np.float32)).to(dev)
+    fit = objectives.rastrigin(pos)
+    return pos, (torch.round(fit) if ties else fit).contiguous()
+
+
+def compare_firefly(ff, got, pos, fit, label, pos_j=None, fit_j=None,
+                    counts=None):
+    """B19 against its plain version within FF_BAND: the plain version's
+    move and time, the error's largest share of the band."""
+    want, plain_ms = timed(lambda: ff.firefly_attraction_plain(
+        pos, fit, pos_j=pos_j, fit_j=fit_j, counts=counts))
+    absum = ff.attraction_abs_sum(pos, fit, pos_j=pos_j, fit_j=fit_j)
+    nj = pos.shape[0] if pos_j is None else pos_j.shape[0]
+    err = (got.double() - want.double()).abs()
+    bound = ff.attraction_band(nj) * absum + FF_ABS_BAND
+    out = dict(phase="kernel_vs_plain", kernel="firefly_fused", shape=label,
+               max_abs_err=float(err.max()),
+               max_err_over_band=float((err / bound).max()),
+               band=f"attraction_band(N_j) * sum|terms| + {FF_ABS_BAND}")
+    record(**out)
+    check(bool((err <= bound).all()), f"firefly kernel off its band: {out}")
+    return out, plain_ms
+
+
+def ff_bound_ms(n, nj, d, counts):
+    """Least time for one B19 call: FF_OPS over the f32 peak (brighter and
+    weighted pairs from the plain version's tally of the same call) against
+    its bytes over the memory rate."""
+    total = lambda key: int(sum(int(v) for v in counts.get(key, [])))  # noqa
+    c = FF_OPS
+    ops = (n * nj * c["pair"] + total("brighter") * (2 * d + c["brighter"])
+           + total("weighted") * (2 * d + c["weighted"])
+           + (n + nj) * 2 * d + n * 2 * d)
+    nbytes = 4 * ((n + nj) * (d + 1) + n * d)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def aco_case(c, a, seed, dev, flat=False):
+    from distributed_swarm_algorithm_tpu_torch.ops import aco
+    g = np.random.default_rng(seed)
+    coords = torch.from_numpy(g.uniform(0, 100, (c, 2)).astype(np.float32))
+    dist = aco.coords_to_dist(coords).to(dev)
+    tau = torch.from_numpy(g.uniform(0.5, 2.0, (c, c)).astype(np.float32))
+    logits = (torch.zeros((c, c), device=dev) if flat
+              else aco.aco_logits(tau.to(dev), dist, 1.0, 2.0))
+    start = torch.from_numpy(g.integers(0, c, a).astype(np.int32)).to(dev)
+    seed_t = torch.tensor([seed + 11], dtype=torch.int32, device=dev)
+    return logits, dist, start, seed_t, g
+
+
+def compare_aco(af, c, a, q0, host, dev, seed, flat=False):
+    """B20 and B21 against their plain versions on one case: tours,
+    lengths and D equal (torch.equal), every tour a permutation, the
+    lengths the ordered sums."""
+    logits, dist, start, seed_t, g = aco_case(c, a, seed, dev, flat)
+    draws = (None, None)
+    if host:
+        draws = (torch.from_numpy(g.uniform(size=(c - 1, c, a))
+                                  .astype(np.float32)).to(dev),
+                 torch.from_numpy(g.uniform(size=(c - 1, a))
+                                  .astype(np.float32)).to(dev))
+    tours, lengths = af.construct_tours_cuda(logits, dist, start, seed_t, q0,
+                                             *draws)
+    want = af.construct_tours_plain(logits, dist, start, seed_t, q0, *draws)
+    ok = torch.equal(tours, want[0]) and torch.equal(lengths, want[1])
+    perm = bool((torch.sort(tours, 1).values
+                 == torch.arange(c, device=dev)).all())
+    ordered = torch.equal(lengths, af.tour_lengths_in_order(dist, tours))
+    amount = torch.full_like(lengths, 1.0) / lengths
+    d = af.deposit_matrix_cuda(tours, amount)
+    d_ok = torch.equal(d, af.deposit_matrix_plain(tours, amount))
+    check(ok and perm and ordered and d_ok,
+          f"ACO kernels differ from plain at C={c} A={a} q0={q0} "
+          f"host={host}: tours/lengths {ok}, permutations {perm}, ordered "
+          f"{ordered}, deposit {d_ok}")
+    return tours
+
+
+def ff_aco_small_shapes(ff, af, dev):
+    """Phase 3's part for B19, B20 and B21: each kernel against its plain
+    version at small and ragged shapes."""
+    worst = 0.0
+    for n in (1, 127, 300, 1000):
+        for d in (1, 5, 30, 100):
+            pos, fit = ff_inputs(n, d, n + d, dev, 0.2 / d ** 0.5)
+            got = ff.firefly_attraction_cuda(pos, fit)
+            worst = max(worst, compare_firefly(
+                ff, got, pos, fit, f"n={n} D={d}")[0]["max_err_over_band"])
+            if n == 1:
+                check(not bool(got.abs().any()), "a lone firefly moved")
+    pos, fit = ff_inputs(300, 30, 1, dev, 0.05, ties=True)
+    pos_j, fit_j = ff_inputs(1000, 30, 2, dev, 0.05, ties=True)
+    got = ff.firefly_attraction_cuda(pos, fit, pos_j=pos_j, fit_j=fit_j)
+    compare_firefly(ff, got, pos, fit, "rectangular 300 x 1000, D=30, ties",
+                    pos_j, fit_j)
+    flat = ff.firefly_attraction_cuda(pos, torch.full_like(fit, 2.0))
+    check(not bool(flat.abs().any()), "equal fitness attracted")
+
+    cases = 0
+    for c in (2, 3, 16, 129, 256, 1024):
+        for a in (1, 64, 1000):
+            for q0 in (0.0, 0.5, 1.0):
+                for host in (True, False):
+                    if c == 1024 and (a == 1000) == host or (
+                            c == 1024 and a == 64 and q0 == 1.0):
+                        continue
+                    compare_aco(af, c, a, q0, host, dev, c + a + cases)
+                    cases += 1
+    # Constant scores: every greedy step a tie, to the lowest open city.
+    tours = compare_aco(af, 129, 64, 1.0, False, dev, 5, flat=True)
+    start = tours[:, 0].tolist()
+    check(all(tours[k, 1:].tolist() == [x for x in range(129)
+                                        if x != start[k]]
+              for k in range(64)), "a greedy tie did not go to the lowest")
+    # B21 on tours that are not permutations, or all alike.
+    g = np.random.default_rng(1)
+    for tours in (torch.from_numpy(g.integers(-2, 40, (300, 37))
+                                   .astype(np.int32)),
+                  torch.arange(256, dtype=torch.int32).repeat(1024, 1)):
+        tours = tours.to(dev)
+        amount = torch.from_numpy(g.uniform(0.1, 2.0, tours.shape[0])
+                                  .astype(np.float32)).to(dev)
+        check(torch.equal(af.deposit_matrix_cuda(tours, amount),
+                          af.deposit_matrix_plain(tours, amount)),
+              "deposit kernel differs on odd tours")
+    record(phase="ff_aco_small_shapes", firefly_cases=18,
+           firefly_max_err_over_band=worst, aco_cases=cases + 1,
+           deposit_odd_cases=2)
+
+
+def ff_aco_cpu_vs_gpu(dsa, ff, af, dev):
+    """Phase 4's part: three firefly generations and three ACO iterations on
+    the CPU (plain versions) and on the card (kernels) with the same draws.
+    Firefly within ZOO_CPU_BAND (the attraction's sums over j differ).  ACO:
+    each iteration from the CPU's state on both, its tours equal wherever
+    the argmax margin exceeds twice the largest difference between the two
+    devices' scores (log on each), the ants inside it counted, and the state
+    equal where every tour is."""
+    from distributed_swarm_algorithm_tpu_torch.ops import aco, firefly
+    from distributed_swarm_algorithm_tpu_torch.ops import objectives
+    fn, hw = objectives.get_objective("sphere")
+    cpu = firefly.firefly_init(fn, 2048, 30, hw, seed=1, device="cpu")
+    cpu = cpu.replace(pos=cpu.pos * 0.02, fit=fn(cpu.pos * 0.02))
+    gpu = firefly.firefly_state_from_numpy(
+        firefly.firefly_state_to_numpy(cpu), device=dev)
+    noises = [torch.rand((2048, 30), generator=torch.Generator()
+                         .manual_seed(k)) for k in range(3)]
+    a = firefly.firefly_state_to_numpy(ff.fused_firefly_run(
+        cpu, fn, 3, hw, noises=noises))
+    before = ff.LAUNCHES
+    b = firefly.firefly_state_to_numpy(ff.fused_firefly_run(
+        gpu, fn, 3, hw, noises=[x.to(dev) for x in noises]))
+    check(ff.LAUNCHES == before + 3, "firefly launches not counted")
+    devs = {f: float(np.abs(a[f].astype(np.float64) - b[f]).max())
+            for f in a}
+    close = all(np.allclose(b[f], a[f], **ZOO_CPU_BAND[
+        "fit" if "fit" in f else "pos"]) for f in a)
+    record(phase="cpu_vs_gpu", path="fused_firefly_run", particles=2048,
+           dim=30, launches=3, band=str(ZOO_CPU_BAND), max_abs_dev=devs)
+    check(close and a["iteration"] == b["iteration"],
+          f"fused firefly run differs CPU vs GPU: {devs}")
+
+    c, n_ants = 128, 512
+    coords = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 100, (c, 2)).astype(np.float32))
+    state = aco.aco_init(aco.coords_to_dist(coords), seed=0)
+    flips = 0
+    for it in range(3):
+        draws = af.host_draws(torch.Generator().manual_seed(it), c, n_ants,
+                              "cpu")
+        on_gpu = aco.aco_state_from_numpy(aco.aco_state_to_numpy(state),
+                                          device=dev)
+        lg_cpu = aco.aco_logits(state.tau, state.dist, 1.0, 2.0)
+        lg_gpu = aco.aco_logits(on_gpu.tau, on_gpu.dist, 1.0, 2.0)
+        band = 2.0 * float((lg_gpu.cpu() - lg_cpu).abs().max())
+        t_cpu, _ = af.construct_tours_plain(lg_cpu, state.dist, *draws[:1],
+                                            None, 0.3, *draws[1:])
+        t_gpu = af.construct_tours_cuda(
+            lg_gpu, on_gpu.dist, draws[0].to(dev), None, 0.3,
+            *(x.to(dev) for x in draws[1:]))[0].cpu()
+        differ = (t_cpu != t_gpu).any(1).nonzero().flatten().tolist()
+        for k in differ:       # only inside the band may an ant differ
+            s = int((t_cpu[k] != t_gpu[k]).nonzero()[0]) - 1
+            cur = int(t_cpu[k, s])
+            u = draws[1][s, :, k]
+            greedy = float(draws[2][s, k]) < 0.3
+            row = lg_cpu[:, cur] + (0.0 if greedy else af.gumbel_fast(u))
+            gap = float(row[t_cpu[k, s + 1]] - row[t_gpu[k, s + 1]])
+            check(0.0 <= gap <= band + 1e-6 * abs(float(row.max())),
+                  f"ACO tour differs CPU vs GPU outside the band: {gap}")
+        flips += len(differ)
+        nxt_cpu = af.fused_aco_step(state, n_ants, q0=0.3, elite=2.0,
+                                    rng="host", draws=draws)
+        nxt_gpu = af.fused_aco_step(on_gpu, n_ants, q0=0.3, elite=2.0,
+                                    rng="host",
+                                    draws=tuple(x.to(dev) for x in draws))
+        if not differ:
+            x, y = (aco.aco_state_to_numpy(s) for s in (nxt_cpu, nxt_gpu))
+            check(all(np.array_equal(x[f], y[f]) for f in x),
+                  "ACO step differs CPU vs GPU with equal tours")
+        state = nxt_cpu
+    record(phase="cpu_vs_gpu", path="fused_aco_step", cities=c, ants=n_ants,
+           iterations=3, ants_inside_margin_band=flips,
+           band="twice the largest score difference between the devices")
+
+
+def aco_tours_bound_ms(tours):
+    """Least time for one B20 call of the sampling rule that made
+    ``tours`` [A, C] (ACO_OPS).  Step s leaves C - 1 - s cities open; a
+    block of four cities holds one until the step that visits its last, so
+    its Philox call is needed at that many steps, which the tours give."""
+    o = ACO_OPS
+    a, c = tours.shape
+    at = torch.zeros((a, -(-c // 4) * 4), dtype=torch.int64,
+                     device=tours.device)
+    at.scatter_(1, tours.long(), torch.arange(c, device=tours.device)
+                .expand(a, c))
+    block_steps = int(at.view(a, -1, 4).amax(2).sum())
+    ops = (a * (c - 1) * o["step"] + a * c * (c - 1) // 2 * o["open_city"]
+           + block_steps * o["open_block"])
+    nbytes = 4 * (2 * c * c + a + a * c + a)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def aco_deposit_bound_ms(c, a):
+    ops = a * c * ACO_OPS["deposit_edge"]
+    nbytes = 4 * (a * c + a + c * c)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(by_ops, by_bytes), (
+        "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def firefly_full_width(dsa, ff, kernels, smi, t_start, dev):
+    """Phase 14's firefly part: bench_firefly_64k.py's two rows through
+    ``Firefly`` after a warm-up run each, counted and checked; then B19 at
+    the 65,536 final state against its plain version, timed beside it and
+    its bound."""
+    runs = {}
+    for n, steps in ((FF_N, FF_STEPS), (FF_N2, FF_STEPS2)):
+        opt = dsa.Firefly("rastrigin", n=n, dim=FF_DIM, seed=0)
+        check(opt.use_pallas, "Firefly did not take the kernel on the card")
+        hw32 = float(np.float32(opt.half_width))
+        bests = [opt.state.best_fit.clone()]
+        opt.run(steps)                                    # warm-up run
+        bests.append(opt.state.best_fit.clone())
+        reset_launches(kernels)
+        _, run_ms = timed(lambda: opt.run(steps))
+        launches = {name: m.LAUNCHES for name, m in kernels.items()}
+        bests.append(opt.state.best_fit.clone())
+        state = opt.state
+        rec = dict(phase="full_width", model="Firefly", objective="rastrigin",
+                   particles=n, dim=FF_DIM, steps=steps, launches=launches,
+                   run_ms=run_ms, ms_per_generation=run_ms / steps,
+                   particle_steps_per_sec=n * steps / (run_ms / 1e3),
+                   best_initial_warm_final=[float(b) for b in bests],
+                   max_abs_pos=float(state.pos.abs().max()),
+                   iteration=int(state.iteration),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   smi=smi)
+        record(**rec)
+        hashgrid_launch_check(launches, "firefly_fused", steps)
+        check(bool(bests[0] >= bests[1] and bests[1] >= bests[2]
+                   and torch.isfinite(bests[2])),
+              f"firefly: the best rose or is not finite: {rec}")
+        check(rec["max_abs_pos"] <= hw32, "firefly: a position left the domain")
+        runs[n] = (opt, launches["firefly_fused"], run_ms)
+    opt, n_launches, run_ms = runs[FF_N]
+    pos, fit = opt.state.pos, opt.state.fit
+    got = ff.firefly_attraction_cuda(pos, fit)
+    counts = {}
+    cmp, plain_ms = compare_firefly(ff, got, pos, fit,
+                                    "main path, 65,536 final state",
+                                    counts=counts)
+    del got
+    ms = cuda_ms(lambda: ff.firefly_attraction_cuda(pos, fit), 5)
+    bound, bound_by, ops, nbytes = ff_bound_ms(FF_N, FF_N, FF_DIM, counts)
+    record(phase="firefly_fused_timing", shape=[FF_N, FF_DIM], kernel_ms=ms,
+           plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+           operations=ops, bytes=nbytes,
+           brighter_pairs=int(sum(int(v) for v in counts["brighter"])),
+           weighted_pairs=int(sum(int(v) for v in counts["weighted"])),
+           kernel_share_of_run=ms * n_launches / run_ms, smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    # At the bench's spread almost no pair attracts, so the sums over j stay
+    # empty: the same swarm drawn 50 times closer, where about half the
+    # pairs attract, holds the accumulation at full width.
+    pos = pos * 0.02
+    fit = opt.objective(pos).contiguous()
+    got = ff.firefly_attraction_cuda(pos, fit)
+    counts = {}
+    close, close_plain_ms = compare_firefly(
+        ff, got, pos, fit, "65,536 final state x 0.02", counts=counts)
+    del got
+    close_ms = cuda_ms(lambda: ff.firefly_attraction_cuda(pos, fit), 5)
+    c_bound, c_by, c_ops, _ = ff_bound_ms(FF_N, FF_N, FF_DIM, counts)
+    weighted = int(sum(int(v) for v in counts["weighted"]))
+    record(phase="firefly_fused_timing_attracting", shape=[FF_N, FF_DIM],
+           scale=0.02, kernel_ms=close_ms, plain_ms=close_plain_ms,
+           bound_ms=c_bound, bound_by=c_by, operations=c_ops,
+           brighter_pairs=int(sum(int(v) for v in counts["brighter"])),
+           weighted_pairs=weighted, max_abs_err=close["max_abs_err"],
+           max_err_over_band=close["max_err_over_band"], smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    check(weighted > FF_N * FF_N // 4,
+          f"the close swarm attracts too few pairs: {weighted}")
+    return dict(name="firefly_fused", route="cuda",
+                source="distributed_swarm_algorithm_tpu_torch/csrc/"
+                       "firefly_fused.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                         "firefly_fused.py:126",
+                launches=n_launches, max_abs_err=cmp["max_abs_err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None)
+
+
+def aco_run_checked(dsa, af, kernels, coords, iters, smi, label, warm=5,
+                    **kw):
+    """One ``ACO`` run on the card after ``warm`` iterations: timed, counted
+    (one launch of each kernel an iteration, no other kernel), the best
+    never rising, every tour of the last iteration a permutation with its
+    in-kernel lengths the ordered sums, tau symmetric and finite."""
+    colony = dsa.ACO(coords=coords, seed=0, **kw)
+    check(colony.use_pallas, "ACO did not take the kernels on the card")
+    bests = [colony.state.best_len.clone()]
+    colony.run(warm)
+    bests.append(colony.state.best_len.clone())
+    last = {}
+    reset_launches(kernels)
+    _, run_ms = timed(lambda: colony.run(iters, out=last))
+    launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    bests.append(colony.state.best_len.clone())
+    state = colony.state
+    c = coords.shape[0]
+    tours, lengths = last["tours"], last["lengths"]
+    perm = bool((torch.sort(tours, 1).values
+                 == torch.arange(c, device=tours.device)).all())
+    ordered = torch.equal(lengths, af.tour_lengths_in_order(state.dist,
+                                                            tours))
+    rec = dict(phase="full_width", model="ACO", instance=label, cities=c,
+               ants=colony.n_ants, iterations=iters, q0=colony.q0,
+               elite=colony.elite, launches=launches, run_ms=run_ms,
+               ms_per_iteration=run_ms / iters,
+               tours_per_sec=colony.n_ants * iters / (run_ms / 1e3),
+               best_initial_warm_final=[float(b) for b in bests],
+               last_tours_permutations=perm, lengths_in_kernel_order=ordered,
+               # (1 - rho) tau + D + D^T adds the two directions in turn,
+               # as does the elitist deposit, each rounding apart, and
+               # evaporation keeps 1 - rho of the earlier asymmetry:
+               # symmetric within 4 ulps / rho.
+               tau_max_asymmetry=float(((state.tau - state.tau.T).abs()
+                                        / state.tau.abs()).max()),
+               tau_finite=bool(torch.isfinite(state.tau).all()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               smi=smi)
+    want = {name: 0 for name in launches}
+    want.update(aco_tours=iters, aco_deposit=iters)
+    check(launches == want, f"unexpected launches {launches}")
+    check(bool(bests[1] >= bests[2] and torch.isfinite(bests[2])),
+          f"ACO: the best rose or is not finite: {rec}")
+    check(perm and ordered and rec["tau_max_asymmetry"] <= 2.0 ** -22 / colony.rho
+          and rec["tau_finite"],
+          f"ACO: a wrong tour, length or pheromone: {rec}")
+    return colony, rec, run_ms
+
+
+def aco_full_width(dsa, af, kernels, smi, t_start, dev):
+    """Phase 14's ACO part: bench_aco.py's instance (C = 256, A = 1,024, 400
+    iterations), the device's busy share from a trace of 16 more, B20 and
+    B21 at the final pheromone against their plain versions, timed beside
+    them, their bounds and index_add_; then bench_aco_sweep.py's C = 512
+    and 1,024 and its circle-1,024 known optimum."""
+    from distributed_swarm_algorithm_tpu_torch.ops import aco
+    coords = np.random.default_rng(0).uniform(0, 100, (ACO_C, 2)).astype(
+        np.float32)
+    colony, rec, run_ms = aco_run_checked(dsa, af, kernels, coords,
+                                          ACO_ITERS, smi, "uniform-256",
+                                          n_ants=ACO_A)
+    record(**rec)
+    launches = rec["launches"]
+    busy, ops_per, top = device_time(lambda: colony.run(ACO_PROFILED),
+                                     ACO_PROFILED)
+    ms_it = run_ms / ACO_ITERS
+    record(phase="aco_iteration_breakdown", cities=ACO_C, ants=ACO_A,
+           profiled_iterations=ACO_PROFILED, ms_per_iteration=ms_it,
+           device_busy_ms_per_iteration=busy,
+           device_busy_share=None if busy is None else busy / ms_it,
+           device_idle_share=None if busy is None else 1.0 - busy / ms_it,
+           device_ops_per_iteration=ops_per, top_device_ops=top, smi=smi)
+
+    state = colony.state
+    logits = aco.aco_logits(state.tau, state.dist, 1.0, 2.0)
+    start = torch.randint(0, ACO_C, (ACO_A,), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
+    tours, lengths = af.construct_tours_cuda(logits, state.dist, start, seed)
+    want, tours_plain_ms = timed(lambda: af.construct_tours_plain(
+        logits, state.dist, start, seed))
+    check(torch.equal(tours, want[0]) and torch.equal(lengths, want[1]),
+          "B20 differs from its plain version at the main path's state")
+    tours_err = float((lengths - want[1]).abs().max())
+    tours_ms = cuda_ms(lambda: af.construct_tours_cuda(
+        logits, state.dist, start, seed), 20)
+    t_bound, t_by, t_ops, t_bytes = aco_tours_bound_ms(tours)
+    record(phase="aco_tours_timing", shape=[ACO_A, ACO_C], kernel_ms=tours_ms,
+           plain_ms=tours_plain_ms, bound_ms=t_bound, bound_by=t_by,
+           operations=t_ops, bytes=t_bytes, chain_steps=ACO_C - 1,
+           kernel_share_of_run=tours_ms * launches["aco_tours"] / run_ms,
+           max_abs_err=tours_err, smi=smi)
+    amount = torch.full_like(lengths, 1.0) / lengths
+    d = af.deposit_matrix_cuda(tours, amount)
+    want_d, dep_plain_ms = timed(lambda: af.deposit_matrix_plain(tours,
+                                                                 amount))
+    check(torch.equal(d, want_d), "B21 differs from its plain version")
+    dep_err = float((d - want_d).abs().max())
+    dep_ms = cuda_ms(lambda: af.deposit_matrix_cuda(tours, amount), 50)
+    flat = (tours.long() * ACO_C + torch.roll(tours.long(), -1, 1)).flatten()
+    rep = amount[:, None].expand(tours.shape).flatten()
+    lib_ms = cuda_ms(lambda: torch.zeros(ACO_C * ACO_C, device=dev)
+                     .index_add_(0, flat, rep), 50)
+    lib = torch.zeros(ACO_C * ACO_C, device=dev).index_add_(0, flat, rep)
+    d_bound, d_by, d_ops, d_bytes = aco_deposit_bound_ms(ACO_C, ACO_A)
+    record(phase="aco_deposit_timing", shape=[ACO_A, ACO_C], kernel_ms=dep_ms,
+           plain_ms=dep_plain_ms, library_ms=lib_ms,
+           library="torch.Tensor.index_add_ (atomics; its sums change order)",
+           library_max_abs_dev=float((lib.view(ACO_C, ACO_C) - d).abs()
+                                     .max()),
+           bound_ms=d_bound, bound_by=d_by, operations=d_ops, bytes=d_bytes,
+           kernel_share_of_run=dep_ms * launches["aco_deposit"] / run_ms,
+           smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    rows = [
+        dict(name="aco_tours", route="cuda",
+             source="distributed_swarm_algorithm_tpu_torch/csrc/aco_fused.cu",
+             replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                      "aco_fused.py:217",
+             launches=launches["aco_tours"], max_abs_err=tours_err,
+             ms=tours_ms,
+             plain_ms=tours_plain_ms, bound_ms=t_bound, bound_by=t_by,
+             library_ms=None),
+        dict(name="aco_deposit", route="cuda",
+             source="distributed_swarm_algorithm_tpu_torch/csrc/aco_fused.cu",
+             replaces="distributed_swarm_algorithm_tpu/ops/pallas/"
+                      "aco_fused.py:371",
+             launches=launches["aco_deposit"], max_abs_err=dep_err,
+             ms=dep_ms,
+             plain_ms=dep_plain_ms, bound_ms=d_bound, bound_by=d_by,
+             library_ms=lib_ms),
+    ]
+    del colony, state, tours, lengths, want, d, want_d
+
+    for c, iters in ACO_SWEEP:
+        coords = np.random.default_rng(0).uniform(0, 100, (c, 2)).astype(
+            np.float32)
+        _, rec, _ = aco_run_checked(dsa, af, kernels, coords, iters, smi,
+                                    f"uniform-{c}", n_ants=ACO_A)
+        record(**rec, seconds_so_far=time.perf_counter() - t_start)
+    th = 2 * np.pi * np.arange(ACO_CIRCLE) / ACO_CIRCLE
+    coords = np.stack([100 * np.cos(th), 100 * np.sin(th)], 1).astype(
+        np.float32)
+    colony, rec, _ = aco_run_checked(dsa, af, kernels, coords,
+                                     ACO_CIRCLE_ITERS, smi, "circle-1024",
+                                     warm=1, n_ants=ACO_A, q0=0.1, elite=4.0)
+    # The circle order's length summed as the kernel sums a tour.  The
+    # colony's best may be the same cycle from another start or the other
+    # way round, summed in another order: it lies no more than C ulps
+    # below.
+    opt = float(af.tour_lengths_in_order(colony.state.dist, torch.arange(
+        ACO_CIRCLE, device=dev)[None, :])[0])
+    gap = colony.best_length / opt - 1.0
+    perm = sorted(colony.best_tour.tolist()) == list(range(ACO_CIRCLE))
+    record(**rec, known_optimum=opt, gap_pct=100.0 * gap,
+           best_tour_permutation=perm,
+           seconds_so_far=time.perf_counter() - t_start)
+    check(np.isfinite(gap) and gap >= -ACO_CIRCLE * 2.0 ** -24 and perm,
+          f"circle gap {gap}, best tour a permutation {perm}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1943,6 +2501,12 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
         islands_fused as isl,
     )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        aco_fused as af,
+    )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        firefly_fused as ff,
+    )
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
     from distributed_swarm_algorithm_tpu_torch.ops import objectives
     from distributed_swarm_algorithm_tpu_torch.parallel import islands
@@ -1957,12 +2521,15 @@ def main():
                "pso_fused": pf, "islands_fused": isl,
                **{f"{fam}_fused": mod for fam, mod in zoo.items()},
                **{f"{fam}_fused": mod for fam, mod in rot.items()},
-               **{f"{fam}_fused": mod for fam, mod in levy.items()}}
+               **{f"{fam}_fused": mod for fam, mod in levy.items()},
+               "firefly_fused": ff,
+               "aco_tours": LaunchCount(af, "TOURS_LAUNCHES"),
+               "aco_deposit": LaunchCount(af, "DEPOSIT_LAUNCHES")}
     sources = ["separation", "window_separation", "grid_separation",
                "candidate_sweep", "pso_fused",
                *(f"{fam}_fused" for fam in zoo),
                *(f"{fam}_fused" for fam in rot),
-               *LEVY_SOURCES.values()]
+               *LEVY_SOURCES.values(), "firefly_fused", "aco_fused"]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2023,6 +2590,7 @@ def main():
     zoo_small_shapes(zoo, pf, dev)
     rot_small_shapes(rot, pf, dev)
     levy_small_shapes(levy, pf, dev)
+    ff_aco_small_shapes(ff, af, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -2052,6 +2620,7 @@ def main():
     zoo_cpu_vs_gpu(dsa, zoo, dev)
     rot_cpu_vs_gpu(rot, dev)
     levy_cpu_vs_gpu(levy, dev)
+    ff_aco_cpu_vs_gpu(dsa, ff, af, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     sw, launches, leaders, spans = run_main_path(
@@ -2417,6 +2986,10 @@ def main():
     levy_rows = [levy_full_width(dsa, fam, levy, kernels, smi, t_start, dev)
                  for fam in levy]
 
+    # 14. firefly and ACO at full width ---------------------------------------
+    ff_row = firefly_full_width(dsa, ff, kernels, smi, t_start, dev)
+    aco_rows = aco_full_width(dsa, af, kernels, smi, t_start, dev)
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -2511,6 +3084,8 @@ def main():
         *zoo_rows,
         *rot_rows,
         *levy_rows,
+        ff_row,
+        *aco_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

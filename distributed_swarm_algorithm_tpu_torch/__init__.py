@@ -26,7 +26,9 @@ optimization (``DE``, ``SHADE``, ``GA``, ``MFO``) with theirs
 colony and parallel tempering (``Cuckoo``, ``HarrisHawks``, ``ABC``,
 ``ParallelTempering``) with theirs (``csrc/cuckoo_fused.cu``,
 ``csrc/hho_fused.cu``, ``csrc/abc_fused.cu``,
-``csrc/tempering_fused.cu``).
+``csrc/tempering_fused.cu``), and the firefly algorithm and ant-colony
+TSP (``Firefly``, ``ACO``) with theirs (``csrc/firefly_fused.cu``,
+``csrc/aco_fused.cu``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -72,6 +74,28 @@ from .models.cuckoo import Cuckoo
 from .models.hho import HarrisHawks
 from .models.abc_bees import ABC
 from .models.tempering import ParallelTempering
+from .models.firefly import Firefly
+from .models.aco import ACO
+from .ops.firefly import (
+    FireflyState,
+    firefly_init,
+    firefly_run,
+    firefly_state_from_numpy,
+    firefly_state_to_numpy,
+    firefly_step,
+)
+from .ops.aco import (
+    ACOState,
+    aco_init,
+    aco_run,
+    aco_state_from_numpy,
+    aco_state_to_numpy,
+    aco_step,
+    construct_tours,
+    coords_to_dist,
+    deposit,
+    tour_lengths,
+)
 from .ops.bat import (
     BatState,
     bat_init,
@@ -180,6 +204,8 @@ from .ops.cuda.cuckoo_fused import fused_cuckoo_run
 from .ops.cuda.hho_fused import fused_hho_run
 from .ops.cuda.abc_fused import fused_abc_run
 from .ops.cuda.tempering_fused import fused_pt_run
+from .ops.cuda.firefly_fused import fused_firefly_run
+from .ops.cuda.aco_fused import fused_aco_run
 from .ops import objectives
 from .ops.cuda.pso_fused import fused_pso_run
 from .ops.memetic import gd_refine, memetic_run, refine_pbest
@@ -262,6 +288,11 @@ __all__ = [
     "abc_state_from_numpy", "abc_state_to_numpy",
     "ParallelTempering", "PTState", "pt_init", "pt_step", "pt_run",
     "fused_pt_run", "pt_state_from_numpy", "pt_state_to_numpy",
+    "Firefly", "FireflyState", "firefly_init", "firefly_step", "firefly_run",
+    "fused_firefly_run", "firefly_state_from_numpy", "firefly_state_to_numpy",
+    "ACO", "ACOState", "aco_init", "aco_step", "aco_run", "fused_aco_run",
+    "construct_tours", "deposit", "tour_lengths", "coords_to_dist",
+    "aco_state_from_numpy", "aco_state_to_numpy",
     "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",

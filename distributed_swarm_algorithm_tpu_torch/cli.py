@@ -4,11 +4,13 @@
           CPU with ``--device cpu``
   pso     particle swarm optimization (PSO, MemeticPSO, or the island
           model with ``--islands``), on the card or with ``--device cpu``
-  bat, gwo, salp, woa, de, shade, ga, mfo, cuckoo, hho, abc, pt
+  bat, gwo, salp, woa, de, shade, ga, mfo, cuckoo, hho, abc, pt, firefly
           the optimizer zoo (bat algorithm, grey wolf, salp swarm, whale,
           differential evolution, SHADE, genetic algorithm, moth-flame,
           cuckoo search, Harris hawks, artificial bee colony, parallel
-          tempering), on the card or with ``--device cpu``
+          tempering, firefly algorithm), on the card or with
+          ``--device cpu``
+  aco     the ant-colony TSP solver, on the card or with ``--device cpu``
 
 The other subcommands of the JAX package's CLI are ported with their
 slices (ROADMAP Queue A).
@@ -252,6 +254,43 @@ def _cmd_pt(args) -> int:
     return _run_report(opt, args, "chains")
 
 
+def _cmd_firefly(args) -> int:
+    from .models.firefly import Firefly
+
+    opt = Firefly(args.objective, n=args.n, dim=args.dim, gamma=args.gamma,
+                  alpha0=args.alpha0, seed=args.seed, device=args.device)
+    return _run_report(opt, args, "fireflies")
+
+
+def _cmd_aco(args) -> int:
+    import numpy as np
+
+    from .models.aco import ACO
+
+    rng = np.random.default_rng(args.seed)
+    if args.cities_file:
+        coords = np.loadtxt(args.cities_file, delimiter=",")
+    else:
+        coords = rng.uniform(0.0, 100.0, size=(args.cities, 2))
+    colony = ACO(coords=coords, n_ants=args.ants, alpha=args.alpha,
+                 beta=args.beta, rho=args.rho, q0=args.q0, elite=args.elite,
+                 seed=args.seed, device=args.device)
+    start = time.perf_counter()
+    colony.run(args.steps)
+    best = colony.best_length      # waits for the card
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "cities": int(coords.shape[0]),
+        "ants": args.ants,
+        "iters": args.steps,
+        "path": _path(colony),
+        "backend": f"torch-{colony.device.type}",
+        "best_length": round(best, 4),
+        "steps_per_sec": round(args.steps / elapsed, 1),
+    }))
+    return 0
+
+
 def _scheduled_cmd(module: str, cls: str, noun: str):
     """Handler of a family whose one extra knob is the schedule horizon
     ``--t-max`` (0 means ``--steps``)."""
@@ -384,6 +423,30 @@ def build_parser() -> argparse.ArgumentParser:
     p_pt.set_defaults(steps=2000)
     p_pt.add_argument("--swap-every", type=int, default=5)
     p_pt.set_defaults(fn=_cmd_pt)
+    p_ff = optimizer_parser("firefly", "firefly algorithm")
+    p_ff.add_argument("--gamma", type=float, default=1.0,
+                      help="light absorption coefficient")
+    p_ff.add_argument("--alpha0", type=float, default=0.25,
+                      help="initial random-walk scale")
+    p_ff.set_defaults(fn=_cmd_firefly)
+
+    p_aco = sub.add_parser("aco", help="ant-colony TSP solver")
+    p_aco.add_argument("--cities", type=int, default=32,
+                       help="random-uniform instance size")
+    p_aco.add_argument("--cities-file", default=None,
+                       help="CSV of x,y coordinates (overrides --cities)")
+    p_aco.add_argument("--ants", type=int, default=64)
+    p_aco.add_argument("--steps", type=int, default=200)
+    p_aco.add_argument("--alpha", type=float, default=1.0)
+    p_aco.add_argument("--beta", type=float, default=2.0)
+    p_aco.add_argument("--rho", type=float, default=0.1)
+    p_aco.add_argument("--q0", type=float, default=0.0,
+                       help="ACS exploitation probability")
+    p_aco.add_argument("--elite", type=float, default=0.0,
+                       help="elitist deposit weight on best-so-far tour")
+    p_aco.add_argument("--seed", type=int, default=0)
+    _add_device(p_aco)
+    p_aco.set_defaults(fn=_cmd_aco)
     return parser
 
 

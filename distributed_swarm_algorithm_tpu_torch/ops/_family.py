@@ -77,8 +77,11 @@ def init_population(objective, n: int, dim: int, half_width: float,
 
 def track_best(fit, pos, best_fit, best_pos):
     """The incumbent after a step, selected on the device: the first of
-    the population's least fitnesses replaces it where strictly lower."""
-    b = torch.argmin(fit)
-    improved = fit[b] < best_fit
-    return (torch.where(improved, fit[b], best_fit),
-            torch.where(improved, pos[b], best_pos))
+    the population's least fitnesses replaces it where strictly lower.
+    The row is gathered by ``index_select``: indexing with a 0-dim tensor
+    would read it back to the host."""
+    b = torch.argmin(fit).reshape(1)
+    fb = fit.index_select(0, b)[0]
+    improved = fb < best_fit
+    return (torch.where(improved, fb, best_fit),
+            torch.where(improved, pos.index_select(0, b)[0], best_pos))

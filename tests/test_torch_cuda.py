@@ -1592,3 +1592,264 @@ def test_levy_models_take_the_kernel_and_match_the_cpu(cuda):
                 tol = 2e-5 if "fit" in f else 1e-5
                 np.testing.assert_allclose(on_card[f], a, rtol=tol,
                                            atol=tol, err_msg=f"{fam} {f}")
+
+
+# --------------------------------------------------------------------------
+# Firefly (B19) and ACO (B20, B21)
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops import aco as port_aco  # noqa
+from distributed_swarm_algorithm_tpu_torch.ops import (  # noqa: E402
+    firefly as port_firefly,
+)
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    aco_fused as port_af,
+    firefly_fused as port_ff,
+)
+
+# The firefly kernel against its plain version: |kernel - plain| <=
+# attraction_band(N_j) * (sum_j |W_ij x_j| + (sum_j W_ij) |x_i|) + 1e-6.
+# The weights agree bit for bit; the kernel sums over j in f32 tiles of 64,
+# the plain version in float64 (ops/cuda/firefly_fused.attraction_band).
+FF_ABS_BAND = 1e-6
+
+
+def _ff_inputs(n, d, seed, device, scale=0.05, ties=False):
+    g = np.random.default_rng(seed)
+    pos = torch.from_numpy((g.uniform(-5.12, 5.12, (n, d)) * scale)
+                           .astype(np.float32)).to(device)
+    fit = port_obj.rastrigin(pos)
+    if ties:
+        fit = torch.round(fit)
+    return pos, fit.contiguous()
+
+
+def _assert_ff_within_band(got, pos, fit, pos_j=None, fit_j=None):
+    want = port_ff.firefly_attraction_plain(pos, fit, pos_j=pos_j,
+                                            fit_j=fit_j)
+    absum = port_ff.attraction_abs_sum(pos, fit, pos_j=pos_j, fit_j=fit_j)
+    nj = pos.shape[0] if pos_j is None else pos_j.shape[0]
+    err = (got.double() - want.double()).abs()
+    bound = port_ff.attraction_band(nj) * absum + FF_ABS_BAND
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_firefly_and_aco_wrappers_reject_cpu_tensors():
+    pos, fit = _ff_inputs(8, 3, 0, "cpu")
+    before = port_ff.LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        port_ff.firefly_attraction_cuda(pos, fit)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_af.deposit_matrix_cuda(torch.zeros((2, 4), dtype=torch.int32),
+                                    torch.ones(2))
+    assert (port_ff.LAUNCHES, port_af.DEPOSIT_LAUNCHES) == before
+
+
+FF_CASES = [(n, d) for n in (1, 127, 300, 1000) for d in (1, 5, 30, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", FF_CASES,
+                         ids=[f"{n}x{d}" for n, d in FF_CASES])
+def test_firefly_kernel_matches_plain(cuda, n, d):
+    pos, fit = _ff_inputs(n, d, n + d, cuda, scale=0.2 / max(1, d) ** 0.5)
+    before = port_ff.LAUNCHES
+    got = port_ff.firefly_attraction(pos, fit)
+    assert port_ff.LAUNCHES == before + 1
+    _assert_ff_within_band(got, pos, fit)
+    if n == 1:
+        assert not bool(got.abs().any())
+
+
+@pytest.mark.cuda
+def test_firefly_kernel_rectangular_ties_and_checks(cuda):
+    pos, fit = _ff_inputs(300, 30, 1, cuda, ties=True)
+    pos_j, fit_j = _ff_inputs(1000, 30, 2, cuda, ties=True)
+    got = port_ff.firefly_attraction_cuda(pos, fit, pos_j=pos_j, fit_j=fit_j)
+    _assert_ff_within_band(got, pos, fit, pos_j, fit_j)
+    flat = torch.full_like(fit, 2.0)
+    assert not bool(port_ff.firefly_attraction_cuda(pos, flat).abs().any())
+    # The whole domain (few pairs attract) and D = 128, the envelope's edge.
+    for n, d, scale in ((2000, 30, 1.0), (257, 128, 0.01)):
+        pos, fit = _ff_inputs(n, d, 3, cuda, scale=scale)
+        _assert_ff_within_band(port_ff.firefly_attraction_cuda(pos, fit),
+                               pos, fit)
+    before = port_ff.LAUNCHES
+    with pytest.raises(ValueError, match="D <= 128"):
+        port_ff.firefly_attraction_cuda(*_ff_inputs(8, 129, 0, cuda))
+    with pytest.raises(TypeError):
+        port_ff.firefly_attraction_cuda(pos.double(), fit)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_ff.firefly_attraction_cuda(pos.T.contiguous().T, fit)
+    assert port_ff.LAUNCHES == before
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    lanes = _build.load("firefly_fused").dsa_firefly_lanes
+    lanes.argtypes, lanes.restype = [ctypes.c_int], ctypes.c_int
+    for d in (0, 1, 32, 33, 64, 65, 128, 129):
+        assert lanes(d) == port_ff.lanes_per_row(d), d
+
+
+ACO_CASES = [(c, a, q0, rng) for c, a in ((2, 1), (3, 64), (16, 1000),
+                                          (129, 64), (256, 1000), (1024, 64))
+             for q0 in (0.0, 0.5, 1.0) for rng in ("host", "device")
+             if not (rng == "host" and c * c * a > 2**26)]
+
+
+def _aco_inputs(c, a, seed, device):
+    g = np.random.default_rng(seed)
+    coords = torch.from_numpy(g.uniform(0, 100, (c, 2)).astype(np.float32))
+    dist = port_aco.coords_to_dist(coords).to(device)
+    tau = torch.from_numpy(g.uniform(0.5, 2.0, (c, c)).astype(np.float32))
+    logits = port_aco.aco_logits(tau.to(device), dist, 1.0, 2.0)
+    start = torch.from_numpy(g.integers(0, c, a).astype(np.int32)).to(device)
+    u = torch.from_numpy(g.uniform(size=(c - 1, c, a)).astype(np.float32))
+    uq = torch.from_numpy(g.uniform(size=(c - 1, a)).astype(np.float32))
+    seed_t = torch.tensor([seed + 11], dtype=torch.int32, device=device)
+    return logits, dist, start, seed_t, u.to(device), uq.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,a,q0,rng", ACO_CASES,
+                         ids=[f"C{c}-A{a}-q{q0}-{r}"
+                              for c, a, q0, r in ACO_CASES])
+def test_aco_kernels_equal_plain(cuda, c, a, q0, rng):
+    logits, dist, start, seed, u, uq = _aco_inputs(c, a, c + a, cuda)
+    draws = (u, uq) if rng == "host" else (None, None)
+    before = port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    tours, lengths = port_af.construct_tours_t(logits, dist, start, seed,
+                                               q0, *draws)
+    want = port_af.construct_tours_plain(logits, dist, start, seed, q0,
+                                         *draws)
+    assert torch.equal(tours, want[0]) and torch.equal(lengths, want[1])
+    assert (torch.sort(tours, 1).values
+            == torch.arange(c, device=cuda)).all()
+    assert torch.equal(lengths, port_af.tour_lengths_in_order(dist, tours))
+    amount = port_aco.rdiv(1.0, lengths)
+    d = port_af.deposit_matrix_t(tours, amount)
+    assert torch.equal(d, port_af.deposit_matrix_plain(tours, amount))
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_aco_kernels_ties_odd_tours_and_checks(cuda):
+    c, a = 129, 64
+    _, dist, start, seed, _, _ = _aco_inputs(c, a, 5, cuda)
+    flat = torch.zeros((c, c), device=cuda)
+    tours, _ = port_af.construct_tours_cuda(flat, dist, start, seed, 1.0)
+    assert torch.equal(tours, port_af.construct_tours_plain(
+        flat, dist, start, seed, 1.0)[0])
+    # Every greedy step is a tie: the lowest unvisited city wins.
+    for k in range(a):
+        rest = [x for x in range(c) if x != int(start[k])]
+        assert tours[k, 1:].tolist() == rest
+    # Any tours, in range or not, every ant on the same tour, many ants.
+    g = np.random.default_rng(1)
+    for tours in (torch.from_numpy(g.integers(-2, 40, (300, 37))
+                                   .astype(np.int32)),
+                  torch.arange(256, dtype=torch.int32).repeat(1024, 1),
+                  torch.from_numpy(g.integers(0, 3, (3000, 3))
+                                   .astype(np.int32))):
+        tours = tours.to(cuda)
+        amount = torch.from_numpy(
+            g.uniform(0.1, 2.0, tours.shape[0]).astype(np.float32)).to(cuda)
+        assert torch.equal(port_af.deposit_matrix_cuda(tours, amount),
+                           port_af.deposit_matrix_plain(tours, amount))
+    before = port_af.TOURS_LAUNCHES
+    with pytest.raises(ValueError, match="2048"):
+        port_af.construct_tours_cuda(torch.zeros((2049, 2049), device=cuda),
+                                     torch.zeros((2049, 2049), device=cuda),
+                                     start, seed)
+    with pytest.raises(TypeError):
+        port_af.construct_tours_cuda(flat, dist, start.long(), seed)
+    assert port_af.TOURS_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_firefly_aco_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    names = ["firefly_fused", "aco_fused"]
+    _build.build(names)
+    for name in names:
+        log = _build.build_log(name)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert spills, (name, log[:400])
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)
+
+
+@pytest.mark.cuda
+def test_firefly_aco_runs_never_wait_for_the_device(cuda):
+    import warnings
+
+    fn, hw = port_obj.get_objective("rastrigin")
+    ff = port_firefly.firefly_init(fn, 3000, 30, hw, seed=0, device=cuda)
+    coords = torch.rand((128, 2), generator=torch.Generator().manual_seed(0))
+    st = port_aco.aco_init(port_aco.coords_to_dist(coords).to(cuda))
+    runs = {
+        "firefly": lambda: port_ff.fused_firefly_run(ff, fn, 3,
+                                                     half_width=hw),
+        "aco": lambda: port_af.fused_aco_run(st, 3, 256, q0=0.2, elite=2.0),
+    }
+    for name, run in runs.items():
+        run()                                   # builds and warms up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (name, [str(w.message)[:120] for w in waits])
+        best = out.best_fit if name == "firefly" else out.best_len
+        assert bool(torch.isfinite(best))
+
+
+@pytest.mark.cuda
+def test_firefly_aco_models_take_the_kernel_and_match_the_cpu(cuda):
+    opt = tdsa.Firefly("rastrigin", n=4096, dim=30, seed=0)
+    assert opt.use_pallas and opt.device.type == "cuda"
+    first, before = opt.best, port_ff.LAUNCHES
+    opt.run(4)
+    assert port_ff.LAUNCHES == before + 4 and opt.best <= first
+    pts = np.random.default_rng(0).uniform(0, 100, (64, 2))
+    colony = tdsa.ACO(coords=pts, n_ants=256, seed=0, elite=2.0)
+    assert colony.use_pallas
+    before = port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    colony.run(5)
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == (
+        before[0] + 5, before[1] + 5)
+    assert sorted(colony.best_tour.tolist()) == list(range(64))
+    # Three steps on the card and on the CPU from one state with the same
+    # draws handed in.  Firefly: the attraction's sums over j differ (f32
+    # tiles against float64), rtol = atol = 1e-5; ACO: tours, best and
+    # pheromone equal bit for bit.
+    fn, hw = port_obj.get_objective("sphere")
+    cpu = port_firefly.firefly_init(fn, 512, 8, hw, seed=1, device="cpu")
+    cpu = cpu.replace(pos=cpu.pos * 0.05, fit=fn(cpu.pos * 0.05))
+    gpu = port_firefly.firefly_state_from_numpy(
+        port_firefly.firefly_state_to_numpy(cpu), device=cuda)
+    noises = [torch.rand((512, 8)) for _ in range(3)]
+    a = port_ff.fused_firefly_run(cpu, fn, 3, hw, noises=noises)
+    b = port_ff.fused_firefly_run(gpu, fn, 3, hw,
+                                  noises=[x.to(cuda) for x in noises])
+    np.testing.assert_allclose(b.pos.cpu().numpy(), a.pos.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    dist = port_aco.coords_to_dist(torch.from_numpy(pts.astype(np.float32)))
+    cpu = port_aco.aco_init(dist, seed=0)
+    gpu = port_aco.aco_state_from_numpy(port_aco.aco_state_to_numpy(cpu),
+                                        device=cuda)
+    draws = [port_af.host_draws(torch.Generator().manual_seed(k), 64, 128,
+                                "cpu") for k in range(3)]
+    a = port_af.fused_aco_run(cpu, 3, 128, q0=0.3, elite=2.0, rng="host",
+                              draws=draws)
+    b = port_af.fused_aco_run(gpu, 3, 128, q0=0.3, elite=2.0, rng="host",
+                              draws=[tuple(x.to(cuda) for x in dr)
+                                     for dr in draws])
+    for f, x in port_aco.aco_state_to_numpy(a).items():
+        np.testing.assert_array_equal(
+            port_aco.aco_state_to_numpy(b)[f], x, err_msg=f)

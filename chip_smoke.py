@@ -10,8 +10,10 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
 2. build: every CUDA kernel of the port, one nvcc per source, started
    together, into build/kernels/;
 3. kernel vs plain: the separation kernel against its plain PyTorch
-   version on the card at three shapes, the window-separation kernel
-   against its own at five (W = 600 and W = 3000 included), the hashgrid
+   version on the card at eight shapes (N below a warp, N one past a
+   block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
+   a co-located trio, a crowded swarm, N = 65,536), the window-separation
+   kernel against its own at five (W = 600 and W = 3000 included), the hashgrid
    slot kernel at four (R = 1, R = 2, past the cap, a stale skinned plan)
    and the candidate kernel at four (skin 0, stale, after partial
    refreshes, truncated tables); the fused PSO kernel at N not a multiple
@@ -27,9 +29,13 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    uniforms on the CPU (plain version) and on the card (kernel);
 5. full width, "pallas": the protocol bench scenario (65,536 agents in
    +-1000 m, 4 tasks, shared target [50, 0], V formation) through
-   ``VectorSwarm`` for 120 ticks, the leader killed at tick 60; the kernel
-   must launch once per tick, the leader go 65535 -> 65534; then the kernel
-   is timed beside its plain version at that shape;
+   ``VectorSwarm`` for 120 ticks after an 8-tick warm-up swarm, the leader
+   killed at tick 60; the kernel must launch once per tick, the leader go
+   65535 -> 65534; then the kernel
+   is timed beside its plain version at that shape, and on the same number
+   of agents inside +-5 m, where every warp takes the force branch; a
+   ``torch.profiler`` trace of 16 more ticks gives the device's busy time
+   per tick;
 6. full width, "window": the JAX package's 1M flagship row
    (benchmarks/bench_swarm_tpu.py:55, 1,048,576 agents, sort_every=8) in
    the same scenario through ``VectorSwarm`` for 800 ticks, the leader
@@ -134,15 +140,20 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    in-kernel lengths the ordered sums, tau symmetric (within 4 ulps / rho)
    and finite, the device's busy share from a trace of 16 more; B20 and B21
    at the final pheromone equal to their plain versions, timed beside them,
-   their bounds and ``index_add_``; then C = 512 and 1,024 for 50
-   iterations and the circle of 1,024 for 100 (q0 = 0.1, elite = 4) with
+   their bounds and ``index_add_`` (B21 and ``index_add_`` replayed from a
+   CUDA graph, the device's time alone, and back to back, where the host
+   paces them); then C = 512 and 1,024 for 50 iterations (B21 timed at
+   each) and the circle of 1,024 for 100 (q0 = 0.1, elite = 4) with
    its gap to the known optimum (benchmarks/bench_aco_sweep.py:35-86).
    Phase 3 holds B19 at N = 1, 127, 300, 1,000 by D = 1, 5, 30, 100, in the
    rectangular form and with equal fitness, and B20 and B21 at C = 2 to
    1,024, A = 1 to 1,000, q0 = 0, 0.5 and 1, draws handed in and made in
-   the kernel, constant scores (every greedy step a tie) and tours that are
-   not permutations; phase 4 three firefly generations and three ACO
-   iterations on the CPU and on the card with the same draws.
+   the kernel, constant scores (every greedy step a tie), and B21 alone at
+   C = 1, 2, 129 and 2,048, A = 1 to 20,000, on tours that are not
+   permutations, one tour for every ant, rows of ~10,000 edges and 313
+   bucketing chunks, each call twice and equal; phase 4 three firefly
+   generations and three ACO iterations on the CPU and on the card with the
+   same draws.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -370,6 +381,27 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device milliseconds of ``fn()`` with the host out of the way:
+    ``reps`` calls captured in one CUDA graph (after a warm-up call),
+    replayed and timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def near_pairs(pos, alive):
     """Ordered pairs (i, j), i != j, both alive, closer than R."""
     n = pos.shape[0]
@@ -422,6 +454,38 @@ def compare_separation(sep, pos, alive, label):
     check(ratio <= 1.0, f"{label}: kernel outside its band of plain")
     check(bool((got[~alive.bool()] == 0).all()), f"{label}: dead agent moved")
     return got, out
+
+
+# B1's shapes of phase 3: (label, n, dim, box, dead share, co-located trio,
+# one dead receiver among live ones).  A block holds 256 receivers, a warp
+# 32 senders a vote; "crowded" puts about 12% of all pairs inside R, so
+# every warp takes the force branch on every group.
+SEP_SHAPES = (
+    ("n=300 D=2, 20% dead, co-located trio", 300, 2, 5.0, 0.2, True, False),
+    ("n=5 (below a warp), co-located trio", 5, 2, 1.0, 0.0, True, False),
+    ("n=257 (a block and one), one dead receiver", 257, 2, 4.0, 0.0, False,
+     True),
+    ("n=1000, all dead", 1000, 2, 3.0, 1.01, False, False),
+    ("n=4096 D=3", 4096, 3, 10.0, 0.0, False, False),
+    ("n=1000 D=3, 20% dead, co-located trio", 1000, 3, 5.0, 0.2, True,
+     False),
+    ("n=8192 crowded in +-5 m", 8192, 2, 5.0, 0.0, False, False),
+    ("n=65536 D=2 spread 1000", BENCH_N, 2, BENCH_SPREAD, 0.0, False, False),
+)
+
+
+def separation_small_shapes(sep, dev):
+    """Phase 3's part for B1: the kernel against its plain version at its
+    design's edge cases; the co-located trio feels equal forces."""
+    for label, n, dim, box, dead, co, one_dead in SEP_SHAPES:
+        pos, alive = random_swarm(n, dim, n, box, dead, co, dev)
+        if one_dead:
+            alive[n // 2] = False
+        got, _ = compare_separation(sep, pos, alive, label)
+        if co:
+            check(torch.equal(got[1], got[0]) and torch.equal(got[2], got[0]),
+                  f"{label}: co-located trio feels different forces")
+    record(phase="separation_small_shapes", cases=len(SEP_SHAPES))
 
 
 def window_pair_counts(pos, alive):
@@ -2111,20 +2175,43 @@ def ff_aco_small_shapes(ff, af, dev):
     check(all(tours[k, 1:].tolist() == [x for x in range(129)
                                         if x != start[k]]
               for k in range(64)), "a greedy tie did not go to the lowest")
-    # B21 on tours that are not permutations, or all alike.
+    # B21 alone at the edges of its design, each call twice (D repeats bit
+    # for bit from run to run).
     g = np.random.default_rng(1)
-    for tours in (torch.from_numpy(g.integers(-2, 40, (300, 37))
-                                   .astype(np.int32)),
-                  torch.arange(256, dtype=torch.int32).repeat(1024, 1)):
+    odd = deposit_odd_tours(g)
+    for label, tours in odd:
         tours = tours.to(dev)
         amount = torch.from_numpy(g.uniform(0.1, 2.0, tours.shape[0])
                                   .astype(np.float32)).to(dev)
-        check(torch.equal(af.deposit_matrix_cuda(tours, amount),
-                          af.deposit_matrix_plain(tours, amount)),
-              "deposit kernel differs on odd tours")
+        got = af.deposit_matrix_cuda(tours, amount)
+        again = af.deposit_matrix_cuda(tours, amount)
+        check(torch.equal(got, af.deposit_matrix_plain(tours, amount))
+              and torch.equal(got, again),
+              f"deposit kernel differs from plain or itself: {label}")
     record(phase="ff_aco_small_shapes", firefly_cases=18,
            firefly_max_err_over_band=worst, aco_cases=cases + 1,
-           deposit_odd_cases=2)
+           deposit_odd_cases=[label for label, _ in odd])
+
+
+def deposit_odd_tours(g):
+    """B21's edge cases: (label, tours [A, C] int32 on the CPU)."""
+    def perms(c, a):
+        return torch.from_numpy(np.argsort(g.random((a, c)), 1)
+                                .astype(np.int32))
+    return [
+        ("C=1, A=7", torch.zeros((7, 1), dtype=torch.int32)),
+        ("C=2, A=5", perms(2, 5)),
+        ("C=129 (odd), A=1", perms(129, 1)),
+        ("C=2048, A=1", perms(2048, 1)),
+        ("C=2048, A=1000", perms(2048, 1000)),
+        ("repeated cities and entries outside [0, C)",
+         torch.from_numpy(g.integers(-2, 40, (300, 37)).astype(np.int32))),
+        ("every ant on one tour", torch.arange(256, dtype=torch.int32)
+         .repeat(1024, 1)),
+        ("rows of ~10,000 edges (C=5 over {0, 1})",
+         torch.from_numpy(g.integers(0, 2, (4000, 5)).astype(np.int32))),
+        ("313 chunks (C=16, A=20,000)", perms(16, 20_000)),
+    ]
 
 
 def ff_aco_cpu_vs_gpu(dsa, ff, af, dev):
@@ -2361,7 +2448,7 @@ def aco_run_checked(dsa, af, kernels, coords, iters, smi, label, warm=5,
     check(perm and ordered and rec["tau_max_asymmetry"] <= 2.0 ** -22 / colony.rho
           and rec["tau_finite"],
           f"ACO: a wrong tour, length or pheromone: {rec}")
-    return colony, rec, run_ms
+    return colony, rec, run_ms, last
 
 
 def aco_full_width(dsa, af, kernels, smi, t_start, dev):
@@ -2373,7 +2460,7 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev):
     from distributed_swarm_algorithm_tpu_torch.ops import aco
     coords = np.random.default_rng(0).uniform(0, 100, (ACO_C, 2)).astype(
         np.float32)
-    colony, rec, run_ms = aco_run_checked(dsa, af, kernels, coords,
+    colony, rec, run_ms, _ = aco_run_checked(dsa, af, kernels, coords,
                                           ACO_ITERS, smi, "uniform-256",
                                           n_ants=ACO_A)
     record(**rec)
@@ -2413,15 +2500,24 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev):
                                                                  amount))
     check(torch.equal(d, want_d), "B21 differs from its plain version")
     dep_err = float((d - want_d).abs().max())
-    dep_ms = cuda_ms(lambda: af.deposit_matrix_cuda(tours, amount), 50)
     flat = (tours.long() * ACO_C + torch.roll(tours.long(), -1, 1)).flatten()
     rep = amount[:, None].expand(tours.shape).flatten()
-    lib_ms = cuda_ms(lambda: torch.zeros(ACO_C * ACO_C, device=dev)
-                     .index_add_(0, flat, rep), 50)
     lib = torch.zeros(ACO_C * ACO_C, device=dev).index_add_(0, flat, rep)
     d_bound, d_by, d_ops, d_bytes = aco_deposit_bound_ms(ACO_C, ACO_A)
+    # B21 is two short kernels: called back to back, a call of it or of
+    # index_add_ is paced by the host (the wrapper's checks, allocations
+    # and ctypes, or PyTorch's dispatch), so both are timed replayed from a
+    # CUDA graph, the device's time alone, and back to back beside it.
+    dep_ms = graph_ms(lambda: af.deposit_matrix_cuda(tours, amount), 50)
+    lib_ms = graph_ms(lambda: torch.zeros(ACO_C * ACO_C, device=dev)
+                      .index_add_(0, flat, rep), 50)
+    dep_loop_ms = cuda_ms(lambda: af.deposit_matrix_cuda(tours, amount), 50)
+    lib_loop_ms = cuda_ms(lambda: torch.zeros(ACO_C * ACO_C, device=dev)
+                          .index_add_(0, flat, rep), 50)
     record(phase="aco_deposit_timing", shape=[ACO_A, ACO_C], kernel_ms=dep_ms,
            plain_ms=dep_plain_ms, library_ms=lib_ms,
+           kernel_back_to_back_ms=dep_loop_ms,
+           library_back_to_back_ms=lib_loop_ms,
            library="torch.Tensor.index_add_ (atomics; its sums change order)",
            library_max_abs_dev=float((lib.view(ACO_C, ACO_C) - d).abs()
                                      .max()),
@@ -2451,13 +2547,24 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev):
     for c, iters in ACO_SWEEP:
         coords = np.random.default_rng(0).uniform(0, 100, (c, 2)).astype(
             np.float32)
-        _, rec, _ = aco_run_checked(dsa, af, kernels, coords, iters, smi,
-                                    f"uniform-{c}", n_ants=ACO_A)
+        _, rec, run_ms, last = aco_run_checked(
+            dsa, af, kernels, coords, iters, smi, f"uniform-{c}", n_ants=ACO_A)
         record(**rec, seconds_so_far=time.perf_counter() - t_start)
+        tours, lengths = last["tours"], last["lengths"]
+        amount = torch.full_like(lengths, 1.0) / lengths
+        d = af.deposit_matrix_cuda(tours, amount)
+        check(torch.equal(d, af.deposit_matrix_plain(tours, amount)),
+              f"B21 differs from its plain version at C = {c}")
+        ms = graph_ms(lambda: af.deposit_matrix_cuda(tours, amount), 50)
+        record(phase="aco_deposit_timing", shape=[ACO_A, c], kernel_ms=ms,
+               kernel_back_to_back_ms=cuda_ms(
+                   lambda: af.deposit_matrix_cuda(tours, amount), 50),
+               bound_ms=aco_deposit_bound_ms(c, ACO_A)[0],
+               kernel_share_of_run=ms * iters / run_ms, smi=smi)
     th = 2 * np.pi * np.arange(ACO_CIRCLE) / ACO_CIRCLE
     coords = np.stack([100 * np.cos(th), 100 * np.sin(th)], 1).astype(
         np.float32)
-    colony, rec, _ = aco_run_checked(dsa, af, kernels, coords,
+    colony, rec, _, _ = aco_run_checked(dsa, af, kernels, coords,
                                      ACO_CIRCLE_ITERS, smi, "circle-1024",
                                      warm=1, n_ants=ACO_A, q0=0.1, elite=4.0)
     # The circle order's length summed as the kernel sums a tour.  The
@@ -2556,16 +2663,7 @@ def main():
            per_source=per_source, ptxas=ptxas)
 
     # 3. kernels vs plain on the card ---------------------------------------
-    for label, n, dim, box, dead, co in (
-        ("n=300 D=2, 20% dead, co-located trio", 300, 2, 5.0, 0.2, True),
-        ("n=4096 D=3", 4096, 3, 10.0, 0.0, False),
-        ("n=65536 D=2 spread 1000", BENCH_N, 2, BENCH_SPREAD, 0.0, False),
-    ):
-        pos, alive = random_swarm(n, dim, n, box, dead, co, dev)
-        got, _ = compare_separation(sep, pos, alive, label)
-        if co:
-            check(torch.equal(got[1], got[0]) and torch.equal(got[2], got[0]),
-                  "co-located trio feels different forces")
+    separation_small_shapes(sep, dev)
     for label, n, box, dead, co, window, presorted in (
         ("n=300, 20% dead, co-located trio", 300, 5.0, 0.2, True, 8, True),
         ("n=5000 unsorted", 5000, 40.0, 0.0, False, 16, False),
@@ -2623,6 +2721,14 @@ def main():
     ff_aco_cpu_vs_gpu(dsa, ff, af, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
+    # A warm-up swarm first: a process's first ticks at this size pay the
+    # allocator's growth and first-use costs on the host, which B1's first
+    # version (4.25 ms a tick on the device) hid and which the host-bound
+    # tick would now count.
+    warm = dsa.VectorSwarm(BENCH_N, spread=BENCH_SPREAD, config=cfg, seed=1)
+    warm.step(8)
+    torch.cuda.synchronize()
+    del warm
     sw, launches, leaders, spans = run_main_path(
         dsa, kernels, BENCH_N, cfg, BENCH_TICKS, KILL_AT)
     state = sw.state
@@ -2652,6 +2758,26 @@ def main():
            plain_ms=sep_plain_ms, bound_ms=sep_bound_ms, bound_by=sep_bound_by,
            near_pairs=near_pairs(pos, alive), smi=smi,
            seconds_so_far=time.perf_counter() - t_start)
+    # The design's worst case, reported and not gated: the same number of
+    # agents inside +-5 m, where about 12% of all pairs are near and every
+    # warp takes the force branch on every group of senders.
+    pos, alive = random_swarm(BENCH_N, 2, 7, 5.0, 0.0, False, dev)
+    _, crowd_cmp = compare_separation(sep, pos, alive, "65,536 in +-5 m")
+    crowd_ms = cuda_ms(
+        lambda: sep.separation_cuda(pos, alive, K_SEP, R, EPS), 10)
+    crowd_bound_ms, crowd_bound_by = separation_bound_ms(pos, alive)
+    record(phase="separation_timing_crowded", shape=[BENCH_N, 2], box_m=5.0,
+           kernel_ms=crowd_ms, bound_ms=crowd_bound_ms,
+           bound_by=crowd_bound_by, near_pairs=near_pairs(pos, alive),
+           worst_share_of_band=crowd_cmp["worst_share_of_band"], smi=smi)
+    # Where the tick's time goes now that B1 is short: the device's busy
+    # time per tick from a trace of 16 more ticks, against the tick.
+    busy, ops, top = device_breakdown(sw, 16)
+    ms_tick = total_ms / BENCH_TICKS
+    record(phase="pallas_tick_breakdown", agents=BENCH_N, ms_per_tick=ms_tick,
+           profiled_ticks=16, device_busy_ms_per_tick=busy,
+           device_idle_share=None if busy is None else 1.0 - busy / ms_tick,
+           device_ops_per_tick=ops, top_device_ops=top, smi=smi)
     del sw, state, pos, alive
 
     # 6. the main path at full width, "window" ------------------------------

@@ -29,7 +29,9 @@ sliced.
 The deposit ``D[i, j] = sum_a q / L_a #{t : tour_a[t] = i, tour_a[t + 1] =
 j}`` sums over the ants in ascending order (and t ascending), so it does not
 change from run to run; the step adds ``D + D^T`` to the evaporated
-pheromone.
+pheromone.  On the card it is two kernels a call, reading the tours where
+they lie: a stable bucketing of the edges by row, then one block a row
+adding its edges in order (``csrc/aco_fused.cu`` says why).
 
 The envelope is the kernel's (no VMEM fit model): C <= 2,048 cities (one
 64-bit visited mask a lane), any number of ants with A C < 2^31.
@@ -54,8 +56,9 @@ from . import _build
 from .fast_math import LN2, log2_fast
 from .pso_fused import philox_uniforms, seed_base
 
-# Launches of each kernel since its count was last set to 0, one per launch
-# of construct_tours_cuda (B20) and of deposit_matrix_cuda (B21).
+# Launches of each kernel since its count was last set to 0, one per call
+# of construct_tours_cuda (B20) and of deposit_matrix_cuda (B21; a call
+# launches its two kernels).
 TOURS_LAUNCHES = 0
 DEPOSIT_LAUNCHES = 0
 
@@ -282,11 +285,24 @@ def deposit_matrix_plain(tours: torch.Tensor,
     return d.reshape(c, c)
 
 
+def deposit_scratch_ints(n_cities: int, n_ants: int) -> int:
+    """The int32 scratch of one deposit call: each bucketing chunk's row
+    starts (``C + 1`` each, chunks of ``max(1024, 4 C)`` edges rounded up
+    to 32), then every edge as (next city, amount), 8-byte aligned; as the
+    kernel's ``dsa_aco_deposit_scratch_ints``."""
+    c, e = n_cities, n_ants * n_cities
+    chunk = max(1024, -(-4 * c // 32) * 32)
+    starts = -(-e // chunk) * (c + 1)
+    return starts + (starts & 1) + 2 * e
+
+
 def deposit_matrix_cuda(tours: torch.Tensor,
                         amount: torch.Tensor) -> torch.Tensor:
-    """Launch the deposit kernel on ``tours`` [A, C] int32 and ``amount``
-    [A] f32 on one CUDA device (C <= 2,048).  Returns D [C, C] f32 without
-    waiting for the kernel."""
+    """Launch the deposit on ``tours`` [A, C] int32, read where it lies,
+    and ``amount`` [A] f32 on one CUDA device (C <= 2,048).  One call is
+    two kernels (the edges bucketed by row, then an ordered sum a row) and
+    counts as one launch.  Returns D [C, C] f32 without waiting for the
+    kernels."""
     global DEPOSIT_LAUNCHES
     _check_cuda("deposit_matrix_cuda", [("tours", tours, torch.int32),
                                         ("amount", amount, torch.float32)])
@@ -296,13 +312,14 @@ def deposit_matrix_cuda(tours: torch.Tensor,
                          f"{tuple(amount.shape)}")
     a, c = tours.shape
     require_supported(c, a)
-    tours_t = tours.T.contiguous()
     d = torch.empty((c, c), dtype=torch.float32, device=tours.device)
+    n_scratch = deposit_scratch_ints(c, a)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=tours.device)
     p = ctypes.c_void_p
     fn = _bind("dsa_aco_deposit_f32",
-               [p] * 3 + [ctypes.c_int] * 3 + [p])
-    err = fn(tours_t.data_ptr(), amount.data_ptr(), d.data_ptr(), c, a,
-             tours.device.index,
+               [p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [p])
+    err = fn(tours.data_ptr(), amount.data_ptr(), d.data_ptr(),
+             scratch.data_ptr(), n_scratch, c, a, tours.device.index,
              torch.cuda.current_stream(tours.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ACO deposit kernel launch failed: CUDA error "

@@ -17,8 +17,11 @@ because users already pass it; on this port it means this module:
     near(i,j) = alive_i & alive_j & i != j & d2(i,j) < personal_space^2
     f_i       = sum_j near * k_sep * (p_i - p_j) * rsqrt(max(d2, eps^2))^3
 
-The kernel is bound by operations, not bytes; ``csrc/separation.cu`` says
-why and what its design does about it.
+The kernel is bound by operations, not bytes.  One call is one launch: a
+fast path pays each pair's squared distance and cut, a warp votes once per
+group of 32 senders, and only a group that holds a near pair (or the
+receiver itself) computes the force, in sender order; ``csrc/separation.cu``
+says why.
 """
 
 from __future__ import annotations
@@ -119,9 +122,9 @@ def separation_cuda(
     personal_space: float,
     eps: float,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on ``pos`` [N, D] f32 (D = 2 or 3) and
-    ``alive`` [N] bool or uint8, contiguous, on one CUDA device.  Returns
-    the force [N, D] f32 without waiting for the kernel."""
+    """Launch the CUDA kernel (one launch) on ``pos`` [N, D] f32 (D = 2 or
+    3) and ``alive`` [N] bool or uint8, contiguous, on one CUDA device.
+    Returns the force [N, D] f32 without waiting for the kernel."""
     global LAUNCHES
     if pos.device.type != "cuda":
         raise ValueError(f"separation_cuda needs a CUDA tensor, got {pos.device}")

@@ -1853,3 +1853,153 @@ def test_firefly_aco_models_take_the_kernel_and_match_the_cpu(cuda):
     for f, x in port_aco.aco_state_to_numpy(a).items():
         np.testing.assert_array_equal(
             port_aco.aco_state_to_numpy(b)[f], x, err_msg=f)
+
+
+# The redesigned separation kernel (one vote a warp per group of senders,
+# the force only in the rare branch) and deposit (a stable bucketing of the
+# edges by row, then an ordered sum a row) at the edges of their designs.
+# A block of the separation kernel holds 256 receivers; a bucketing chunk
+# holds max(1024, 4 C) edges, and the fold stages 2,048 edges a pass.
+SEP_EDGE_CASES = {
+    "below-a-warp-colocated": (5, 2, 1.0, 0.0, True, False),
+    "block-and-one-one-dead-receiver": (257, 2, 4.0, 0.0, False, True),
+    "all-dead": (1000, 2, 3.0, 1.01, False, False),
+    "3d-colocated-20pct-dead": (1000, 3, 5.0, 0.2, True, False),
+    "crowded-8192": (8192, 2, 5.0, 0.0, False, False),
+    "3d-crowded": (2000, 3, 2.0, 0.0, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SEP_EDGE_CASES))
+def test_separation_kernel_edge_cases(cuda, case):
+    n, d, box, dead, co_locate, one_dead = SEP_EDGE_CASES[case]
+    rng = np.random.default_rng(n)
+    pos = rng.uniform(-box, box, (n, d)).astype(np.float32)
+    alive = rng.random(n) >= dead
+    if co_locate:
+        pos[1] = pos[0]
+        pos[2] = pos[0]
+        alive[:3] = True
+    if one_dead:
+        alive[n // 2] = False
+    pos, alive = torch.from_numpy(pos).to(cuda), torch.from_numpy(alive).to(
+        cuda)
+    before = port_sep.LAUNCHES
+    got = port_sep.separation_cuda(pos, alive, K_SEP, R, EPS)
+    again = port_sep.separation_cuda(pos, alive, K_SEP, R, EPS)
+    torch.cuda.synchronize()
+    assert port_sep.LAUNCHES == before + 2
+    want = port_sep.separation_plain(pos, alive, K_SEP, R, EPS)
+    scale = port_sep.separation_abs_sum(pos, alive, K_SEP, R, EPS)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (got[~alive] == 0).all()
+    if co_locate:
+        assert torch.equal(got[1], got[0]) and torch.equal(got[2], got[0])
+
+
+def _perm_tours(c, a, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(np.argsort(g.random((a, c)), 1).astype(np.int32))
+
+
+DEPOSIT_EDGE_CASES = {
+    "C1": lambda: torch.zeros((7, 1), dtype=torch.int32),
+    "C2": lambda: _perm_tours(2, 5, 0),
+    "C129-A1": lambda: _perm_tours(129, 1, 1),
+    "C2048-A1": lambda: _perm_tours(2048, 1, 2),
+    "C2048-A1000": lambda: _perm_tours(2048, 1000, 3),
+    "repeated-and-outside": lambda: torch.from_numpy(
+        np.random.default_rng(4).integers(-2, 40, (300, 37))
+        .astype(np.int32)),
+    "one-tour-for-all": lambda: torch.arange(256, dtype=torch.int32)
+    .repeat(1024, 1),
+    "rows-longer-than-2048": lambda: torch.from_numpy(
+        np.random.default_rng(5).integers(0, 2, (4000, 5)).astype(np.int32)),
+    "313-chunks": lambda: _perm_tours(16, 20_000, 6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DEPOSIT_EDGE_CASES))
+def test_deposit_kernel_edge_cases(cuda, case):
+    tours = DEPOSIT_EDGE_CASES[case]().to(cuda)
+    amount = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.1, 2.0, tours.shape[0]).astype(np.float32)).to(cuda)
+    before = port_af.DEPOSIT_LAUNCHES
+    got = port_af.deposit_matrix_cuda(tours, amount)
+    again = port_af.deposit_matrix_cuda(tours, amount)
+    assert port_af.DEPOSIT_LAUNCHES == before + 2
+    assert torch.equal(got, port_af.deposit_matrix_plain(tours, amount))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_deposit_reads_the_tours_where_they_lie(cuda):
+    tours = _perm_tours(256, 1024, 8).to(cuda)
+    amount = torch.rand(1024, device=cuda)
+    port_af.deposit_matrix_cuda(tours, amount)       # builds and warms up
+    torch.cuda.synchronize()
+    before = port_af.DEPOSIT_LAUNCHES
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        d = port_af.deposit_matrix_cuda(tours, amount)
+    ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+    # D and the scratch, and no copy of the tours (no transpose).
+    assert ops <= {"aten::empty"}, ops
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 2
+    assert port_af.DEPOSIT_LAUNCHES == before + 1
+    assert torch.equal(d, port_af.deposit_matrix_plain(tours, amount))
+
+
+@pytest.mark.parametrize("c,a", [(1, 7), (2, 1), (129, 1000), (256, 1024),
+                                 (2048, 1000), (16, 20_000)])
+def test_deposit_scratch_holds_every_chunk_and_edge(c, a):
+    # The kernel's scratch: each chunk's C + 1 row starts, then every edge
+    # as two int32 at an 8-byte boundary.
+    chunk = max(1024, -(-4 * c // 32) * 32)
+    n_chunks = -(-a * c // chunk)
+    ints = port_af.deposit_scratch_ints(c, a)
+    starts = n_chunks * (c + 1)
+    assert ints - 2 * a * c in (starts, starts + 1)
+    assert (ints - 2 * a * c) % 2 == 0
+
+
+@pytest.mark.cuda
+def test_separation_build_spills_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["separation"])
+    log = _build.build_log("separation")
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert spills, log[:400]
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills
+
+
+@pytest.mark.cuda
+def test_separation_and_deposit_never_wait_for_the_device(cuda):
+    import warnings
+
+    pos = torch.rand((4096, 2), device=cuda) * 50.0
+    alive = torch.ones(4096, dtype=torch.bool, device=cuda)
+    tours = _perm_tours(256, 1024, 9).to(cuda)
+    amount = torch.rand(1024, device=cuda)
+    calls = {
+        "separation": lambda: port_sep.separation_cuda(pos, alive, K_SEP, R,
+                                                       EPS),
+        "deposit": lambda: port_af.deposit_matrix_cuda(tours, amount),
+    }
+    for name, call in calls.items():
+        call()                                  # builds and warms up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, (name, [str(w.message)[:120] for w in waits])

@@ -8,7 +8,9 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, one nvcc per source, started
-   together, into build/kernels/;
+   together, into build/kernels/; the registers and spills of every
+   kernel, those of the redesigned B19 and B8 apart, and the opcode census
+   of B8's D = 30 kernel (``cuobjdump -sass``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -131,9 +133,12 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    (benchmarks/bench_firefly_64k.py:17-24), each after a warm-up run: one
    launch of B19 a generation and no other kernel, the best never rising,
    every position inside the domain, then B19 at the 65,536 final state
-   against its plain version within its band, timed beside it and its
-   bound, and again on that swarm drawn 50 times closer, where about half
-   the pairs attract; ``ACO`` on 256 cities uniform in [0, 100)^2 with 1,024 ants for
+   against its plain version within its band, each call twice and equal,
+   timed beside it and its bound, with the row-tile visits of its
+   fitness-sorted schedule against N ceil(N / 64), and again on that swarm
+   drawn 50 times closer, where about half the pairs attract, and at the
+   16,384 final state, where the source range splits to fill the card;
+   ``ACO`` on 256 cities uniform in [0, 100)^2 with 1,024 ants for
    400 iterations (benchmarks/bench_aco.py:28-36) after a warm-up: one
    launch each of B20 and B21 an iteration and no other kernel, the best
    never rising, every tour of the last iteration a permutation with its
@@ -146,7 +151,9 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    each) and the circle of 1,024 for 100 (q0 = 0.1, elite = 4) with
    its gap to the known optimum (benchmarks/bench_aco_sweep.py:35-86).
    Phase 3 holds B19 at N = 1, 127, 300, 1,000 by D = 1, 5, 30, 100, in the
-   rectangular form and with equal fitness, and B20 and B21 at C = 2 to
+   rectangular form and with equal fitness, and its schedule's edges
+   (fitness sorted, reversed, shuffled, ties across tiles, NaN and +-inf,
+   signed zeros, each call twice and equal), and B20 and B21 at C = 2 to
    1,024, A = 1 to 1,000, q0 = 0, 0.5 and 1, draws handed in and made in
    the kernel, constant scores (every greedy step a tie), and B21 alone at
    C = 1, 2, 129 and 2,048, A = 1 to 20,000, on tours that are not
@@ -1090,6 +1097,41 @@ def pso_bound_ms(n, d, k_steps, gbest_cols):
     by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(by_ops, by_bytes), (
         "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
+
+
+def sass_census(build, name, function):
+    """Opcode counts of the SASS of the first function of ``name``'s library
+    whose mangled name holds ``function`` (``cuobjdump -sass``), with the
+    number of Philox draws it holds (a draw is 30 products of each
+    stream pair: 60 IMAD.HI/IMAD, or IMAD.WIDE), or why there are none."""
+    import os
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {"error": "cuobjdump not found"}
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return {"error": out.stderr[-300:]}
+    counts, inside = {}, False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = function in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            op = m.group(1)
+            key = next((k for k in ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV",
+                                    "IMAD.SHL", "IMAD")
+                        if op.startswith(k)), op.split(".")[0])
+            counts[key] = counts.get(key, 0) + 1
+    return dict(function=function, total=sum(counts.values()),
+                opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])))
 
 
 def reset_launches(kernels):
@@ -2158,6 +2200,32 @@ def ff_aco_small_shapes(ff, af, dev):
                     pos_j, fit_j)
     flat = ff.firefly_attraction_cuda(pos, torch.full_like(fit, 2.0))
     check(not bool(flat.abs().any()), "equal fitness attracted")
+    # The fitness-sorted schedule at its edges: rows in sorted, reverse and
+    # shuffled order of fitness, runs of equal fitness across the tiles of
+    # 64, NaN and +-inf, signed zeros; each call twice and equal.
+    g = np.random.default_rng(3)
+    pos, fit = ff_inputs(3000, 30, 4, dev, 0.05)
+    n = pos.shape[0]
+    edges = {
+        "sorted": fit.sort().values,
+        "reverse": fit.sort(descending=True).values,
+        "shuffled": fit,
+        "ties across tiles": torch.floor(torch.from_numpy(
+            g.permutation(n).astype(np.float32)).to(dev) / 50.0),
+        "NaN and +-inf": torch.from_numpy(np.where(
+            g.random(n) < 0.1, np.nan, np.where(
+                g.random(n) < 0.1, np.inf, np.where(
+                    g.random(n) < 0.1, -np.inf, g.standard_normal(n))))
+            .astype(np.float32)).to(dev),
+        "signed zeros": torch.from_numpy(g.choice(
+            [-0.0, 0.0, -1.0, 1.0], n).astype(np.float32)).to(dev),
+    }
+    for label, f in edges.items():
+        got = ff.firefly_attraction_cuda(pos, f)
+        check(torch.equal(got, ff.firefly_attraction_cuda(pos, f)),
+              f"firefly kernel repeats other bits: {label}")
+        worst = max(worst, compare_firefly(
+            ff, got, pos, f, f"n=3000 D=30, {label}")[0]["max_err_over_band"])
 
     cases = 0
     for c in (2, 3, 16, 129, 256, 1024):
@@ -2188,7 +2256,7 @@ def ff_aco_small_shapes(ff, af, dev):
         check(torch.equal(got, af.deposit_matrix_plain(tours, amount))
               and torch.equal(got, again),
               f"deposit kernel differs from plain or itself: {label}")
-    record(phase="ff_aco_small_shapes", firefly_cases=18,
+    record(phase="ff_aco_small_shapes", firefly_cases=18 + len(edges),
            firefly_max_err_over_band=worst, aco_cases=cases + 1,
            deposit_odd_cases=[label for label, _ in odd])
 
@@ -2354,43 +2422,27 @@ def firefly_full_width(dsa, ff, kernels, smi, t_start, dev):
         runs[n] = (opt, launches["firefly_fused"], run_ms)
     opt, n_launches, run_ms = runs[FF_N]
     pos, fit = opt.state.pos, opt.state.fit
-    got = ff.firefly_attraction_cuda(pos, fit)
-    counts = {}
-    cmp, plain_ms = compare_firefly(ff, got, pos, fit,
-                                    "main path, 65,536 final state",
-                                    counts=counts)
-    del got
-    ms = cuda_ms(lambda: ff.firefly_attraction_cuda(pos, fit), 5)
-    bound, bound_by, ops, nbytes = ff_bound_ms(FF_N, FF_N, FF_DIM, counts)
-    record(phase="firefly_fused_timing", shape=[FF_N, FF_DIM], kernel_ms=ms,
-           plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-           operations=ops, bytes=nbytes,
-           brighter_pairs=int(sum(int(v) for v in counts["brighter"])),
-           weighted_pairs=int(sum(int(v) for v in counts["weighted"])),
-           kernel_share_of_run=ms * n_launches / run_ms, smi=smi,
-           seconds_so_far=time.perf_counter() - t_start)
+    rec, cmp = ff_timed(ff, pos, fit, "main path, 65,536 final state", smi,
+                        t_start)
+    record(phase="firefly_fused_timing", **rec,
+           kernel_share_of_run=rec["kernel_ms"] * n_launches / run_ms)
+    ms, plain_ms = rec["kernel_ms"], rec["plain_ms"]
+    bound, bound_by = rec["bound_ms"], rec["bound_by"]
     # At the bench's spread almost no pair attracts, so the sums over j stay
     # empty: the same swarm drawn 50 times closer, where about half the
     # pairs attract, holds the accumulation at full width.
-    pos = pos * 0.02
-    fit = opt.objective(pos).contiguous()
-    got = ff.firefly_attraction_cuda(pos, fit)
-    counts = {}
-    close, close_plain_ms = compare_firefly(
-        ff, got, pos, fit, "65,536 final state x 0.02", counts=counts)
-    del got
-    close_ms = cuda_ms(lambda: ff.firefly_attraction_cuda(pos, fit), 5)
-    c_bound, c_by, c_ops, _ = ff_bound_ms(FF_N, FF_N, FF_DIM, counts)
-    weighted = int(sum(int(v) for v in counts["weighted"]))
-    record(phase="firefly_fused_timing_attracting", shape=[FF_N, FF_DIM],
-           scale=0.02, kernel_ms=close_ms, plain_ms=close_plain_ms,
-           bound_ms=c_bound, bound_by=c_by, operations=c_ops,
-           brighter_pairs=int(sum(int(v) for v in counts["brighter"])),
-           weighted_pairs=weighted, max_abs_err=close["max_abs_err"],
-           max_err_over_band=close["max_err_over_band"], smi=smi,
-           seconds_so_far=time.perf_counter() - t_start)
-    check(weighted > FF_N * FF_N // 4,
-          f"the close swarm attracts too few pairs: {weighted}")
+    close = pos * 0.02
+    rec, _ = ff_timed(ff, close, opt.objective(close).contiguous(),
+                      "65,536 final state x 0.02", smi, t_start)
+    record(phase="firefly_fused_timing_attracting", scale=0.02, **rec)
+    check(rec["weighted_pairs"] > FF_N * FF_N // 4,
+          f"the close swarm attracts too few pairs: {rec['weighted_pairs']}")
+    # The second row, where 256 row blocks alone would underfill the card.
+    opt2, n_launches2, run_ms2 = runs[FF_N2]
+    rec, _ = ff_timed(ff, opt2.state.pos, opt2.state.fit,
+                      "16,384 final state", smi, t_start)
+    record(phase="firefly_fused_timing_16384", **rec,
+           kernel_share_of_run=rec["kernel_ms"] * n_launches2 / run_ms2)
     return dict(name="firefly_fused", route="cuda",
                 source="distributed_swarm_algorithm_tpu_torch/csrc/"
                        "firefly_fused.cu",
@@ -2399,6 +2451,38 @@ def firefly_full_width(dsa, ff, kernels, smi, t_start, dev):
                 launches=n_launches, max_abs_err=cmp["max_abs_err"], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 library_ms=None)
+
+
+def ff_timed(ff, pos, fit, label, smi, t_start):
+    """B19 on one square state: twice and equal, against its plain version
+    within its band, timed beside it and its bound, with the row-tile
+    visits of its fitness-sorted schedule against all of them (N
+    ceil(N / 64), what the first version visited)."""
+    n = pos.shape[0]
+    got = ff.firefly_attraction_cuda(pos, fit)
+    again = ff.firefly_attraction_cuda(pos, fit)
+    check(torch.equal(got, again), f"firefly kernel repeats other bits: "
+                                   f"{label}")
+    counts = {}
+    cmp, plain_ms = compare_firefly(ff, got, pos, fit, label, counts=counts)
+    del got, again
+    ms = cuda_ms(lambda: ff.firefly_attraction_cuda(pos, fit), 5)
+    bound, bound_by, ops, nbytes = ff_bound_ms(n, n, FF_DIM, counts)
+    _, _, tiles = ff.attraction_schedule(fit, None, FF_DIM)
+    visits = int(tiles.sum()) * ff.rows_per_block(FF_DIM)
+    every = n * -(-n // ff.TILE_J)
+    splits, chunk = ff.split_plan(n, n, FF_DIM, ff._sm_count(0))
+    return dict(
+        shape=[n, FF_DIM], kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, operations=ops, bytes=nbytes,
+        brighter_pairs=int(sum(int(v) for v in counts["brighter"])),
+        weighted_pairs=int(sum(int(v) for v in counts["weighted"])),
+        row_tile_visits=visits, row_tiles_all=every,
+        visited_share=visits / every, splits=splits, chunk_tiles=chunk,
+        blocks_of_work=int((-(-tiles.long() // chunk)).sum()),
+        max_abs_err=cmp["max_abs_err"],
+        max_err_over_band=cmp["max_err_over_band"], smi=smi,
+        seconds_so_far=time.perf_counter() - t_start), cmp
 
 
 def aco_run_checked(dsa, af, kernels, coords, iters, smi, label, warm=5,
@@ -2661,6 +2745,9 @@ def main():
              for name in sources}
     record(phase="build", seconds=time.perf_counter() - t0,
            per_source=per_source, ptxas=ptxas)
+    record(phase="redesigned_builds", ptxas={
+        name: ptxas[name] for name in ("firefly_fused", "gwo_fused")},
+        gwo_sass=sass_census(_build, "gwo_fused", "gwo_fused_kernelILi2E"))
 
     # 3. kernels vs plain on the card ---------------------------------------
     separation_small_shapes(sep, dev)

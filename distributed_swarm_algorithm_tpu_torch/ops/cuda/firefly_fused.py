@@ -21,6 +21,13 @@ rectangular case (rows i attracted by another swarm), which the sharded
 driver needs.  The dimensions split into groups of 32, each summed in
 order, the groups combined as a pairwise tree: the kernel's order.
 
+The kernel visits only the tiles of sources that can hold a brighter one:
+:func:`attraction_schedule` sorts rows and sources by fitness on the device
+and gives each block of sorted rows its tile count (:func:`block_tiles`),
+and :func:`split_plan` splits the source range so that the grid fills the
+card; the kernel's sums over j then run in sorted order, within the same
+band.
+
 :func:`fused_firefly_run` is the JAX package's driver: the attraction by
 the entry, the O(N D) tail (alpha decay, walk, clip, objective, best) in
 PyTorch operations on the device, the same update rule as
@@ -30,6 +37,7 @@ PyTorch operations on the device, the same update rule as
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -50,11 +58,16 @@ from .fast_math import exp_fast
 # count was last set to 0, one per launch.
 LAUNCHES = 0
 
-# The kernel's envelope and shape (csrc/firefly_fused.cu): a lane holds 32
-# dimensions, a row at most 4 lanes; sources stream in tiles of 64.
+# The kernel's envelope and shape (csrc/firefly_fused.cu): the dimensions
+# sum in groups of 32, at most 4; sources stream in tiles of 64; a block
+# holds 64, 32 or 16 sorted rows at 1, 2 or 4 groups.
 GROUP = 32
 D_MAX = 128
 TILE_J = 64
+_ROWS_PER_BLOCK = {1: 64, 2: 32, 4: 16}
+# Blocks of work asked for per SM: the source range of a row block splits
+# until the grid holds this many (csrc/firefly_fused.cu, design point 4).
+BLOCKS_PER_SM = 8
 
 # Rows i per chunk of the plain version: rows * N_j stays near 2^24 pairs.
 _PLAIN_PAIRS_PER_CHUNK = 1 << 24
@@ -63,12 +76,18 @@ _fn = None   # the C entry, bound at the first launch
 
 
 def lanes_per_row(dim: int) -> int:
-    """Lanes of a warp that hold one row: the groups of 32 dimensions,
-    rounded up to a power of two (0 outside the envelope)."""
+    """Groups of 32 dimensions a row sums in, rounded up to a power of two
+    (0 outside the envelope): the kernel's template and the plain version's
+    pairwise tree."""
     if not 1 <= dim <= D_MAX:
         return 0
     groups = -(-dim // GROUP)
     return 1 << (groups - 1).bit_length()
+
+
+def rows_per_block(dim: int) -> int:
+    """Sorted rows a block of the kernel holds (0 outside the envelope)."""
+    return _ROWS_PER_BLOCK.get(lanes_per_row(dim), 0)
 
 
 def firefly_cuda_supported(dtype, dim: int) -> bool:
@@ -176,11 +195,84 @@ def attraction_abs_sum(pos: torch.Tensor, fit: torch.Tensor,
     return out
 
 
+def sorted_order(fit: torch.Tensor):
+    """``(order, key)``: the indices that sort ``fit`` ascending (stable)
+    and the sorted keys, NaN taken as +inf so that the keys are totally
+    ordered on every device.  A NaN row is never attracted and a NaN source
+    never attracts, whatever its place."""
+    key = torch.where(torch.isnan(fit), torch.full_like(fit, float("inf")),
+                      fit)
+    key, order = torch.sort(key, stable=True)
+    return order, key
+
+
+def block_tiles(fit_rows: torch.Tensor, key_src: torch.Tensor,
+                rows: int) -> torch.Tensor:
+    """[ceil(N / rows)] int32: the tiles of ``TILE_J`` sorted sources each
+    block of ``rows`` sorted rows visits.  ``fit_rows`` is the rows'
+    fitness in sorted order, ``key_src`` the sources' sorted keys
+    (:func:`sorted_order`).  Block k visits the tiles up to the last one
+    holding a source brighter than its dimmest non-NaN row: the sources
+    with ``key < max f_i`` are a prefix of the sorted order, and no pair
+    past it is brighter."""
+    n = fit_rows.shape[0]
+    pad = -n % rows
+    f = torch.where(torch.isnan(fit_rows),
+                    torch.full_like(fit_rows, float("-inf")), fit_rows)
+    f = torch.nn.functional.pad(f, (0, pad), value=float("-inf"))
+    fmax = f.view(-1, rows).amax(1)
+    count = torch.searchsorted(key_src, fmax)   # sources with key < fmax
+    return torch.div(count + (TILE_J - 1), TILE_J,
+                     rounding_mode="floor").to(torch.int32)
+
+
+def split_plan(n: int, n_j: int, dim: int, sm_count: int):
+    """``(splits, chunk)``: the source range of every row block splits into
+    chunks of ``chunk`` tiles, ``splits`` of them at most, so that the grid
+    holds ``BLOCKS_PER_SM`` blocks of work an SM (blocks past a row block's
+    last tile return at once)."""
+    blocks = -(-n // rows_per_block(dim))
+    tiles = -(-n_j // TILE_J)
+    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * sm_count // blocks)))
+    chunk = -(-tiles // splits)
+    return -(-tiles // chunk), chunk
+
+
+def workspace_floats(n: int, n_j: int, dim: int, splits: int,
+                     square: bool) -> int:
+    """Floats of the kernel's workspace (``dsa_firefly_workspace_floats``):
+    the sorted rows padded to ``TILE_J`` at ``GROUP`` floats a group, with
+    their norms and fitness; the sources' unless square; and each split's
+    partial sums and weight sums."""
+    width = GROUP * lanes_per_row(dim)
+    np_i, np_j = -(-n // TILE_J) * TILE_J, -(-n_j // TILE_J) * TILE_J
+    return (np_i * (width + 2) + (0 if square else np_j * (width + 2))
+            + splits * np_i * (width + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def attraction_schedule(fit: torch.Tensor, fit_j: Optional[torch.Tensor],
+                        dim: int):
+    """``(order_i, order_j, tiles)`` of one call, on the device with no read
+    back: the rows and the sources in ascending fitness (one sort in the
+    square case, ``fit_j is None``) and each row block's tile count."""
+    order_i, key_i = sorted_order(fit)
+    order_j, key_j = (order_i, key_i) if fit_j is None else sorted_order(
+        fit_j)
+    tiles = block_tiles(fit.index_select(0, order_i), key_j,
+                        rows_per_block(dim))
+    return order_i, order_j, tiles
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("firefly_fused").dsa_firefly_attraction_f32
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -229,11 +321,19 @@ def firefly_attraction_cuda(pos: torch.Tensor, fit: torch.Tensor,
     if not (0 < n and 0 < nj and max(n, nj) * dim < 2**31):
         raise ValueError(f"firefly_attraction_cuda: N = {n}, N_j = {nj}, "
                          f"D = {dim} is out of range")
+    square = fit_j is fit and pos_j is pos
+    order_i, order_j, tiles = attraction_schedule(
+        fit, None if square else fit_j, dim)
+    splits, chunk = split_plan(n, nj, dim, _sm_count(pos.device.index))
+    work = torch.empty(workspace_floats(n, nj, dim, splits, square),
+                       dtype=torch.float32, device=pos.device)
     out = torch.empty_like(pos)
     err = _kernel()(
-        pos.data_ptr(), fit.data_ptr(), pos_j.data_ptr(), fit_j.data_ptr(),
-        out.data_ptr(), n, nj, dim, float(beta0), float(-gamma),
-        pos.device.index, torch.cuda.current_stream(pos.device).cuda_stream,
+        pos.data_ptr(), fit.data_ptr(), order_i.data_ptr(), pos_j.data_ptr(),
+        fit_j.data_ptr(), order_j.data_ptr(), tiles.data_ptr(),
+        work.data_ptr(), out.data_ptr(), n, nj, dim, splits, chunk,
+        float(beta0), float(-gamma), pos.device.index,
+        torch.cuda.current_stream(pos.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"firefly kernel launch failed: CUDA error {err}")

@@ -2003,3 +2003,219 @@ def test_separation_and_deposit_never_wait_for_the_device(cuda):
             torch.cuda.set_sync_debug_mode("default")
         waits = [w for w in seen if "synchroniz" in str(w.message)]
         assert not waits, (name, [str(w.message)[:120] for w in waits])
+
+
+# --------------------------------------------------------------------------
+# The redesigned firefly kernel (B19): the fitness-sorted triangle schedule
+# and its edges, each call twice and the same bits; and the redesigned
+# grey-wolf kernel (B8): equal to its plain version bit for bit across the
+# width and group boundaries, and its hoisted Philox helper equal to
+# philox4x32_10.
+# --------------------------------------------------------------------------
+
+
+def _ff_ordered(n, d, seed, device, order, scale=0.05):
+    """(pos, fit) with the rows placed in sorted, reverse-sorted or shuffled
+    order of fitness."""
+    pos, fit = _ff_inputs(n, d, seed, device, scale=scale)
+    idx = torch.sort(fit, stable=True).indices
+    if order == "reverse":
+        idx = idx.flip(0)
+    elif order == "shuffled":
+        idx = torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(
+            device)
+    return pos[idx].contiguous(), fit[idx].contiguous()
+
+
+def _ff_twice(pos, fit, pos_j=None, fit_j=None):
+    before = port_ff.LAUNCHES
+    got = port_ff.firefly_attraction_cuda(pos, fit, pos_j=pos_j, fit_j=fit_j)
+    again = port_ff.firefly_attraction_cuda(pos, fit, pos_j=pos_j,
+                                            fit_j=fit_j)
+    torch.cuda.synchronize()
+    assert port_ff.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    _assert_ff_within_band(got, pos, fit, pos_j, fit_j)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "reverse", "shuffled"])
+@pytest.mark.parametrize("n,d", [(3000, 30), (1000, 40), (700, 100)])
+def test_firefly_redesign_within_band_on_any_order(cuda, order, n, d):
+    _ff_twice(*_ff_ordered(n, d, n + d, cuda, order,
+                           scale=0.2 / d ** 0.5))
+
+
+FF_EDGE_FITS = {
+    # all equal: no pair is brighter, every move is 0
+    "all-equal": lambda g, n: np.full(n, 3.0),
+    # runs of 50 equal values that straddle the tiles of 64
+    "ties-across-tiles": lambda g, n: np.floor(g.permutation(n) / 50.0),
+    "nan-and-inf": lambda g, n: np.where(
+        g.random(n) < 0.1, np.nan, np.where(
+            g.random(n) < 0.1, np.inf, np.where(g.random(n) < 0.1, -np.inf,
+                                                g.standard_normal(n)))),
+    "signed-zeros": lambda g, n: g.choice([-0.0, 0.0, -1.0, 1.0], n),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FF_EDGE_FITS))
+def test_firefly_redesign_edge_fitness(cuda, case):
+    g = np.random.default_rng(len(case))
+    n = 1000
+    pos, _ = _ff_inputs(n, 30, 5, cuda)
+    fit = torch.from_numpy(FF_EDGE_FITS[case](g, n).astype(np.float32)).to(
+        cuda)
+    got = _ff_twice(pos, fit)
+    if case == "all-equal":
+        assert not bool(got.abs().any())
+    finite = torch.isfinite(fit)
+    if case == "nan-and-inf":
+        # A NaN row is never attracted; a -inf row has nothing brighter.
+        assert not bool(got[torch.isnan(fit)].abs().any())
+        assert not bool(got[fit == -np.inf].abs().any())
+        assert bool(got[finite].abs().any())
+    if case == "signed-zeros":
+        # -0 and +0 are equal: the zero rows move only toward the -1s.
+        want = port_ff.firefly_attraction_plain(
+            pos, torch.where(fit == 0, torch.zeros_like(fit), fit))
+        assert bool(((got - want).abs()
+                     <= port_ff.attraction_band(n)
+                     * port_ff.attraction_abs_sum(pos, fit) + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_firefly_redesign_rectangular_sorted_apart(cuda):
+    # Rows and sources sorted separately, the sources' fitness on another
+    # scale and reversed, with ties on both sides.
+    pos, fit = _ff_ordered(700, 30, 11, cuda, "shuffled")
+    pos_j, fit_j = _ff_ordered(2500, 30, 12, cuda, "reverse")
+    fit = torch.round(fit * 4.0) / 4.0
+    fit_j = torch.round(fit_j * 2.0) / 2.0
+    _ff_twice(pos, fit, pos_j, fit_j)
+    # A source swarm of one: at most one tile per block.
+    _ff_twice(pos, fit, pos_j[:1].contiguous(), fit_j[:1].contiguous())
+
+
+@pytest.mark.cuda
+def test_firefly_redesign_16384_narrow(cuda):
+    # bench_firefly_64k.py's second row, drawn 50 times narrower than its
+    # domain so that the accumulation runs; the grid splits the sources.
+    pos, fit = _ff_inputs(16_384, 30, 7, cuda, scale=0.02)
+    splits, _ = port_ff.split_plan(16_384, 16_384, 30,
+                                   port_ff._sm_count(cuda.index or 0))
+    assert splits > 1
+    _ff_twice(pos, fit)
+
+
+@pytest.mark.cuda
+def test_firefly_redesign_exports_and_never_waits(cuda):
+    import ctypes
+    import warnings
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    lib = _build.load("firefly_fused")
+    rows = lib.dsa_firefly_rows_per_block
+    rows.argtypes, rows.restype = [ctypes.c_int], ctypes.c_int
+    work = lib.dsa_firefly_workspace_floats
+    work.argtypes = [ctypes.c_int] * 5
+    work.restype = ctypes.c_longlong
+    for d in (0, 1, 30, 32, 33, 64, 65, 128, 129):
+        assert rows(d) == port_ff.rows_per_block(d), d
+        if port_ff.rows_per_block(d):
+            for n, nj, s, sq in ((1, 1, 1, 1), (1000, 1000, 16, 1),
+                                 (300, 1000, 3, 0), (65_536, 65_536, 2, 1)):
+                assert work(n, nj, d, s, sq) == port_ff.workspace_floats(
+                    n, nj, d, s, bool(sq)), (d, n, nj, s, sq)
+    # Neither the sort nor the schedule nor the launch reads the device.
+    pos, fit = _ff_inputs(5000, 30, 3, cuda)
+    pos_j, fit_j = _ff_inputs(2000, 30, 4, cuda)
+    calls = [lambda: port_ff.firefly_attraction_cuda(pos, fit),
+             lambda: port_ff.firefly_attraction_cuda(pos, fit, pos_j=pos_j,
+                                                     fit_j=fit_j)]
+    for call in calls:
+        call()                                  # builds and warms up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in seen if "synchroniz" in str(w.message)]
+        assert not waits, [str(w.message)[:120] for w in waits]
+
+
+GWO_WIDTHS = [1, 3, 4, 5, 30, 31, 32, 33, 100, 908]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rng", [(1, "host"), (1, "device"), (8, "device")])
+@pytest.mark.parametrize("d", GWO_WIDTHS)
+def test_gwo_redesign_equals_plain_across_widths(cuda, d, k, rng):
+    n = 300 if d < 900 else 97
+    _, plain, args, kw = _family_case("gwo", "rastrigin", n, d, k, rng,
+                                      cuda, seed=d)
+    kw["step0"] += 12345            # a nonzero global step
+    before = port_gwo.LAUNCHES
+    got = port_gwo.fused_gwo_step_cuda(*args, **kw)
+    again = port_gwo.fused_gwo_step_cuda(*args, **kw)
+    assert port_gwo.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal("rastrigin", got, want)
+    _assert_family_equal("rastrigin", again, want)
+
+
+@pytest.mark.cuda
+def test_gwo_hoisted_philox_equals_philox4x32_10(cuda):
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    fn = _build.load("gwo_fused").dsa_gwo_philox_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = np.random.default_rng(0)
+    edges = [0, 1, 2, 3, 2**31 - 1, 2**31, 2**32 - 1]
+    grid = np.array(np.meshgrid(edges, [0, 1, 7, 2**32 - 1], [0, 1, 2**32 - 1],
+                                [0, 1, 2025, 2**32 - 1]),
+                    dtype=np.int64).reshape(4, -1)
+    grid = np.concatenate([grid, g.integers(0, 2**32, (4, 4096))], 1)
+    cols = [torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(cuda)
+            for c in grid]
+    m = grid.shape[1]
+    out = torch.empty((m, 16), dtype=torch.int32, device=cuda)
+    err = fn(*(c.data_ptr() for c in cols), m, out.data_ptr(), cuda.index or 0,
+             torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    words = out.cpu().numpy().view(np.uint32).astype(np.int64)
+    assert np.array_equal(words[:, :8], words[:, 8:])
+    # ...and both equal the plain version's words (ops/cuda/pso_fused.py).
+    lane, grp, ctr, seed = (torch.from_numpy(c) for c in grid)
+    for s in (0, 1):
+        want = torch.stack(port_pf.philox4x32_10(lane, grp, ctr, s, seed, 0),
+                           1).numpy()
+        assert np.array_equal(words[:, 4 * s:4 * s + 4], want), s
+
+
+@pytest.mark.cuda
+def test_redesigned_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    names = ["firefly_fused", "gwo_fused"]
+    _build.build(names)
+    for name, kernels in (("firefly_fused", ("attract_kernel", "prep_kernel",
+                                             "combine_kernel")),
+                          ("gwo_fused", ("gwo_fused_kernel",
+                                         "philox_check_kernel"))):
+        log = _build.build_log(name)
+        for kernel in kernels:
+            assert kernel in log, (name, kernel)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert len(spills) >= len(kernels), (name, spills)
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

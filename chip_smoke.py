@@ -10,7 +10,11 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
 2. build: every CUDA kernel of the port, one nvcc per source, started
    together, into build/kernels/; the registers and spills of every
    kernel, those of the redesigned B19 and B8 apart, and the opcode census
-   of B8's D = 30 kernel (``cuobjdump -sass``);
+   of B8's D = 30 kernel (``cuobjdump -sass``); the opcode and loop census
+   of the redesigned B20's main kernel (one block of four cities a lane,
+   sampling, device draws; and two blocks a lane, for C = 1,024) and of
+   B5's and B6's (D mod 4 = 2, rastrigin, device draws), whose step loops
+   give the issue floors of phases 8, 9 and 14;
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -72,12 +76,13 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    every position inside the domain; the kernel's uniforms of one step
    read back at full width (mean, variance, equal to the plain version's);
    then the kernel at the final state against its plain version over a
-   whole 64-step launch, timed beside it and its bound;
+   whole 64-step launch, timed beside it, its bound and its issue floor;
 9. full width, islands: 64 islands of 16,384 particles, Rastrigin-30D,
    1,280 steps, migration of 4 every 64 (benchmarks/bench_islands.py:18-39)
    through ``fused_island_run``: 20 launches of the island kernel, no
    island's gbest rising, the global best reported; then the island kernel
-   against its plain version, timed beside it;
+   against its plain version, timed beside it, its bound and its issue
+   floor;
 10. full width, memetic: ``MemeticPSO("rastrigin", n=1_048_576, dim=30)``
    for 100 steps (benchmarks/bench_memetic_1m.py:17-23, cut from 256
    steps): fused PSO blocks counted, no personal best worsening;
@@ -139,23 +144,29 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    drawn 50 times closer, where about half the pairs attract, and at the
    16,384 final state, where the source range splits to fill the card;
    ``ACO`` on 256 cities uniform in [0, 100)^2 with 1,024 ants for
-   400 iterations (benchmarks/bench_aco.py:28-36) after a warm-up: one
-   launch each of B20 and B21 an iteration and no other kernel, the best
-   never rising, every tour of the last iteration a permutation with its
-   in-kernel lengths the ordered sums, tau symmetric (within 4 ulps / rho)
-   and finite, the device's busy share from a trace of 16 more; B20 and B21
-   at the final pheromone equal to their plain versions, timed beside them,
-   their bounds and ``index_add_`` (B21 and ``index_add_`` replayed from a
-   CUDA graph, the device's time alone, and back to back, where the host
-   paces them); then C = 512 and 1,024 for 50 iterations (B21 timed at
-   each) and the circle of 1,024 for 100 (q0 = 0.1, elite = 4) with
-   its gap to the known optimum (benchmarks/bench_aco_sweep.py:35-86).
+   400 iterations (benchmarks/bench_aco.py:28-36) after a warm-up, the
+   iterations replayed from the CUDA graph the warm-up captured (a
+   colony's runs share one capture): one launch each of B20
+   and B21 an iteration and no other kernel, the best never rising, every
+   tour of the last iteration a permutation with its in-kernel lengths the
+   ordered sums, tau symmetric (within 4 ulps / rho) and finite, the
+   device's busy share from a trace of 16 more; runs of 1 and 5
+   iterations (the capture included, and replayed) against the eager loop
+   of as many steps; B20 and B21 at the final
+   pheromone equal to their plain versions, timed beside them, their
+   bounds, B20's issue floor and ``index_add_`` (B20, B21 and
+   ``index_add_`` replayed from a CUDA graph, the device's time alone, and
+   back to back, where the host paces them); then C = 512 and 1,024 for 50
+   iterations (B20 and B21 timed at each) and the circle of 1,024 for 100
+   (q0 = 0.1, elite = 4) with its gap to the known optimum
+   (benchmarks/bench_aco_sweep.py:35-86).
    Phase 3 holds B19 at N = 1, 127, 300, 1,000 by D = 1, 5, 30, 100, in the
    rectangular form and with equal fitness, and its schedule's edges
    (fitness sorted, reversed, shuffled, ties across tiles, NaN and +-inf,
    signed zeros, each call twice and equal), and B20 and B21 at C = 2 to
-   1,024, A = 1 to 1,000, q0 = 0, 0.5 and 1, draws handed in and made in
-   the kernel, constant scores (every greedy step a tie), and B21 alone at
+   2,048 (past every edge of B20's team), A = 1 to 1,000, q0 = 0, 0.5 and
+   1, draws handed in and made in the kernel, constant scores (every
+   greedy step a tie), and B21 alone at
    C = 1, 2, 129 and 2,048, A = 1 to 20,000, on tours that are not
    permutations, one tour for every ant, rows of ~10,000 edges and 313
    bucketing chunks, each call twice and equal; phase 4 three firefly
@@ -327,6 +338,8 @@ FF_N, FF_N2, FF_DIM, FF_STEPS, FF_STEPS2 = 65_536, 16_384, 30, 8, 32
 ACO_C, ACO_A, ACO_ITERS, ACO_PROFILED = 256, 1024, 400, 16
 ACO_SWEEP = ((512, 50), (1024, 50))
 ACO_CIRCLE, ACO_CIRCLE_ITERS = 1024, 100
+# Short ACO runs timed against the eager loop, each on REPS new colonies.
+ACO_SHORT, ACO_SHORT_REPS = (1, 5), 5
 # B19 against its plain version: attraction_band(N_j) * sum|terms| + this.
 FF_ABS_BAND = 1e-6
 # Operations of B19 and B20/B21, counted from csrc/firefly_fused.cu and
@@ -351,6 +364,15 @@ ACO_OPS = dict(open_block=100, open_city=49, step=20, deposit_edge=2)
 # the two uniforms from their bits, the update with its clamps, and
 # rastrigin (square, range reduction, 7 Horner steps, 3 more).
 PSO_OPS_PER_ELEMENT_STEP = 50 + 6 + 14 + 23
+# The main kernels of the redesigned B20 and B5/B6, by their template
+# arguments in the mangled name: the tours at one block of four cities a
+# lane (C <= 512), sampling only, device draws; the PSO step at D mod 4 = 2
+# (D = 30), rastrigin (objective 1), device draws.
+TOURS_MAIN = "tours_kernelILi1ELi0ELb0E"
+TOURS_MAIN_K2 = "tours_kernelILi2ELi0ELb0E"
+PSO_MAIN = "pso_fused_kernelILi2ELi1ELb0E"
+H100_SMS = 132
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -1101,9 +1123,10 @@ def pso_bound_ms(n, d, k_steps, gbest_cols):
 
 def sass_census(build, name, function):
     """Opcode counts of the SASS of the first function of ``name``'s library
-    whose mangled name holds ``function`` (``cuobjdump -sass``), with the
-    number of Philox draws it holds (a draw is 30 products of each
-    stream pair: 60 IMAD.HI/IMAD, or IMAD.WIDE), or why there are none."""
+    whose mangled name holds ``function`` (``cuobjdump -sass``), and its
+    loops: each backward branch's [target, branch] address range with the
+    number of instructions in it (16 bytes an instruction), outermost
+    first; or why there are none."""
     import os
     import re
     import shutil
@@ -1115,23 +1138,82 @@ def sass_census(build, name, function):
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         return {"error": out.stderr[-300:]}
-    counts, inside = {}, False
+    counts, inside, loops = {}, False, []
     for line in out.stdout.splitlines():
         if "Function :" in line:
             if inside:
                 break
             inside = function in line
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)", line)
         if inside and m:
-            op = m.group(1)
+            op = m.group(2)
             key = next((k for k in ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV",
                                     "IMAD.SHL", "IMAD")
                         if op.startswith(k)), op.split(".")[0])
             counts[key] = counts.get(key, 0) + 1
+            at = int(m.group(1), 16)
+            b = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", line)
+            if b and int(b.group(1), 16) < at:
+                start = int(b.group(1), 16)
+                loops.append([start, at, (at - start) // 16 + 1])
+    if not counts:
+        return {"error": f"no function {function} in {name}"}
+    loops.sort(key=lambda lp: (lp[0], -lp[1]))
     return dict(function=function, total=sum(counts.values()),
-                opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])))
+                opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])),
+                loops=loops)
+
+
+def step_loop(census):
+    """(instructions of the outermost loop, instructions of the largest
+    loop inside it, the other inner loops' instructions) of a census: a
+    step loop and its chunk loop."""
+    loops = census.get("loops") or []
+    if not loops:
+        return None, None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+    top = max(inner, key=lambda lp: lp[2]) if inner else None
+    rest = sum(lp[2] for lp in inner if lp is not top)
+    return outer[2], None if top is None else top[2], rest
+
+
+def issue_floor_ms(lane_instructions, clock_mhz):
+    """Least time to issue ``lane_instructions`` (a warp issues 32 lanes'
+    instruction at once; each of an SM's 4 schedulers one warp-instruction
+    a clock) on H100_SMS SMs at ``clock_mhz``."""
+    return 1e3 * lane_instructions / (H100_SMS * 128 * clock_mhz * 1e6)
+
+
+def tours_issue_floor(census, tours_shape, lanes, clock_mhz):
+    """B20's issue floor on one call: the step loop's instructions (the
+    main kernel's SASS, all of a step's work: the next step's draws, the
+    scores, the reductions, the exchange) a lane-step, times the team's
+    ``lanes``, the ants and the C - 1 steps."""
+    a, c = tours_shape
+    per_step, _, _ = step_loop(census)
+    if per_step is None:
+        return None, None
+    return per_step, issue_floor_ms(per_step * lanes * a * (c - 1),
+                                    clock_mhz)
+
+
+def pso_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B5's (and B6's) issue floor on one launch: the chunk loop's
+    instructions (four dimensions: the Philox pair, the uniforms, the
+    updates, the folded objective terms) D // 4 times a step, plus what
+    the step loop holds outside its inner loops (the last D mod 4
+    dimensions, the objective's close and the pbest test; the pbest copy,
+    taken only where a particle improves, left out), over N particles and
+    k steps."""
+    outer, chunk, rest = step_loop(census)
+    if chunk is None:
+        return None, None
+    per_step = (d // 4) * chunk + (outer - chunk - rest)
+    return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
 
 
 def reset_launches(kernels):
@@ -2237,6 +2319,13 @@ def ff_aco_small_shapes(ff, af, dev):
                         continue
                     compare_aco(af, c, a, q0, host, dev, c + a + cases)
                     cases += 1
+    # The redesigned B20 past the edges of its team: one warp an ant (127),
+    # two and four (257), two and four blocks of four cities a lane (1,025
+    # and 2,048), with ants that do not fill a block.
+    for c in (127, 257, 513, 1025, 2048):
+        for q0, host, a in ((0.0, False, 37), (0.5, True, 5)):
+            compare_aco(af, c, a, q0, host, dev, c + a)
+            cases += 1
     # Constant scores: every greedy step a tie, to the lowest open city.
     tours = compare_aco(af, 129, 64, 1.0, False, dev, 5, flat=True)
     start = tours[:, 0].tolist()
@@ -2535,13 +2624,79 @@ def aco_run_checked(dsa, af, kernels, coords, iters, smi, label, warm=5,
     return colony, rec, run_ms, last
 
 
-def aco_full_width(dsa, af, kernels, smi, t_start, dev):
-    """Phase 14's ACO part: bench_aco.py's instance (C = 256, A = 1,024, 400
-    iterations), the device's busy share from a trace of 16 more, B20 and
-    B21 at the final pheromone against their plain versions, timed beside
-    them, their bounds and index_add_; then bench_aco_sweep.py's C = 512
-    and 1,024 and its circle-1,024 known optimum."""
+def tours_timed(af, state, census, label, smi):
+    """B20 at a colony's pheromone: the main path's own start draw and a
+    fixed seed, timed replayed from a CUDA graph (the device's time) and
+    back to back (the host's pacing included), beside its bound and its
+    issue floor from the census of the kernel the team width takes."""
     from distributed_swarm_algorithm_tpu_torch.ops import aco
+    a, c = ACO_A, state.dist.shape[0]
+    dev = state.dist.device
+    logits = aco.aco_logits(state.tau, state.dist, 1.0, 2.0)
+    start = torch.randint(0, c, (a,), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
+    call = lambda: af.construct_tours_cuda(logits, state.dist, start,  # noqa
+                                           seed)
+    tours, lengths = call()
+    geo = af.tour_geometry(c)
+    kernel = census["tours"] if geo.blocks_per_lane == 1 else (
+        census["tours_k2"] if geo.blocks_per_lane == 2 else {})
+    per_step, floor = tours_issue_floor(kernel, (a, c), geo.lanes,
+                                        census["clock_mhz"])
+    bound, by, ops, nbytes = aco_tours_bound_ms(tours)
+    rec = dict(shape=[a, c], instance=label, kernel_ms=graph_ms(call, 20),
+               kernel_back_to_back_ms=cuda_ms(call, 20), bound_ms=bound,
+               bound_by=by, operations=ops, bytes=nbytes,
+               issue_floor_ms=floor, instructions_per_lane_step=per_step,
+               team_lanes=geo.lanes, blocks_per_lane=geo.blocks_per_lane,
+               chain_steps=c - 1, smi=smi)
+    return rec, (logits, start, seed, tours, lengths)
+
+
+def aco_short_runs(dsa, coords, smi):
+    """``ACO.run(n)`` for the short n of ACO_SHORT against the eager loop
+    of n ``ACO.step()`` (fused_aco_step, no graph), each pair on two new
+    colonies of one seed, timed to the device's end: the run's first call
+    (its capture included) and its next (the capture replayed), the loop's
+    first and next; the two colonies' states equal bit for bit after
+    each.  Medians of ACO_SHORT_REPS pairs."""
+    for n in ACO_SHORT:
+        times = {k: [] for k in ("first", "next", "eager_first",
+                                 "eager_next")}
+        for _ in range(ACO_SHORT_REPS):
+            g = dsa.ACO(coords=coords, seed=0, n_ants=ACO_A)
+            e = dsa.ACO(coords=coords, seed=0, n_ants=ACO_A)
+            for k in ("first", "next"):
+                torch.cuda.synchronize()
+                times[k].append(timed(lambda: g.run(n))[1])
+                times["eager_" + k].append(
+                    timed(lambda: [e.step() for _ in range(n)])[1])
+                check(all(torch.equal(getattr(g.state, f),
+                                      getattr(e.state, f))
+                          for f in ("tau", "best_tour", "best_len",
+                                    "iteration")),
+                      f"ACO.run({n}) differs from {n} eager steps")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        record(phase="aco_short_runs", cities=ACO_C, ants=ACO_A,
+               iterations=n, reps=ACO_SHORT_REPS,
+               run_first_call_ms=med["first"], run_next_call_ms=med["next"],
+               eager_first_call_ms=med["eager_first"],
+               eager_next_call_ms=med["eager_next"],
+               first_over_eager=med["first"] / med["eager_first"],
+               next_over_eager=med["next"] / med["eager_next"],
+               all_ms=times, smi=smi)
+
+
+def aco_full_width(dsa, af, kernels, smi, t_start, dev, census):
+    """Phase 14's ACO part: bench_aco.py's instance (C = 256, A = 1,024, 400
+    iterations, replayed from the graph its warm-up captured), the device's
+    busy share from a trace of 16 more, short runs against the eager loop
+    (aco_short_runs), B20 and B21 at the final pheromone against their
+    plain versions, timed beside them (B20 from a graph and back to back),
+    their bounds, B20's issue floor and index_add_; then
+    bench_aco_sweep.py's C = 512 and 1,024 (B20 and B21 timed at each) and
+    its circle-1,024 known optimum."""
     coords = np.random.default_rng(0).uniform(0, 100, (ACO_C, 2)).astype(
         np.float32)
     colony, rec, run_ms, _ = aco_run_checked(dsa, af, kernels, coords,
@@ -2553,31 +2708,26 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev):
                                      ACO_PROFILED)
     ms_it = run_ms / ACO_ITERS
     record(phase="aco_iteration_breakdown", cities=ACO_C, ants=ACO_A,
+           iterations_from="one CUDA graph a colony, replayed an iteration",
            profiled_iterations=ACO_PROFILED, ms_per_iteration=ms_it,
            device_busy_ms_per_iteration=busy,
            device_busy_share=None if busy is None else busy / ms_it,
            device_idle_share=None if busy is None else 1.0 - busy / ms_it,
            device_ops_per_iteration=ops_per, top_device_ops=top, smi=smi)
+    aco_short_runs(dsa, coords, smi)
 
     state = colony.state
-    logits = aco.aco_logits(state.tau, state.dist, 1.0, 2.0)
-    start = torch.randint(0, ACO_C, (ACO_A,), dtype=torch.int32, device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(1))
-    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
-    tours, lengths = af.construct_tours_cuda(logits, state.dist, start, seed)
+    rec, (logits, start, seed, tours, lengths) = tours_timed(
+        af, state, census, "uniform-256", smi)
     want, tours_plain_ms = timed(lambda: af.construct_tours_plain(
         logits, state.dist, start, seed))
     check(torch.equal(tours, want[0]) and torch.equal(lengths, want[1]),
           "B20 differs from its plain version at the main path's state")
     tours_err = float((lengths - want[1]).abs().max())
-    tours_ms = cuda_ms(lambda: af.construct_tours_cuda(
-        logits, state.dist, start, seed), 20)
-    t_bound, t_by, t_ops, t_bytes = aco_tours_bound_ms(tours)
-    record(phase="aco_tours_timing", shape=[ACO_A, ACO_C], kernel_ms=tours_ms,
-           plain_ms=tours_plain_ms, bound_ms=t_bound, bound_by=t_by,
-           operations=t_ops, bytes=t_bytes, chain_steps=ACO_C - 1,
+    tours_ms, t_bound, t_by = rec["kernel_ms"], rec["bound_ms"], rec["bound_by"]
+    record(phase="aco_tours_timing", **rec, plain_ms=tours_plain_ms,
            kernel_share_of_run=tours_ms * launches["aco_tours"] / run_ms,
-           max_abs_err=tours_err, smi=smi)
+           max_abs_err=tours_err)
     amount = torch.full_like(lengths, 1.0) / lengths
     d = af.deposit_matrix_cuda(tours, amount)
     want_d, dep_plain_ms = timed(lambda: af.deposit_matrix_plain(tours,
@@ -2631,9 +2781,13 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev):
     for c, iters in ACO_SWEEP:
         coords = np.random.default_rng(0).uniform(0, 100, (c, 2)).astype(
             np.float32)
-        _, rec, run_ms, last = aco_run_checked(
+        swept, rec, run_ms, last = aco_run_checked(
             dsa, af, kernels, coords, iters, smi, f"uniform-{c}", n_ants=ACO_A)
         record(**rec, seconds_so_far=time.perf_counter() - t_start)
+        rec, _ = tours_timed(af, swept.state, census, f"uniform-{c}", smi)
+        record(phase="aco_tours_timing", **rec,
+               kernel_share_of_run=rec["kernel_ms"] * iters / run_ms)
+        del swept
         tours, lengths = last["tours"], last["lengths"]
         amount = torch.full_like(lengths, 1.0) / lengths
         d = af.deposit_matrix_cuda(tours, amount)
@@ -2732,9 +2886,14 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
     record(phase="device", kind=kind, nvidia_smi=smi,
            count=torch.cuda.device_count(), torch=torch.__version__,
-           cuda=torch.version.cuda)
+           cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz)
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2748,6 +2907,15 @@ def main():
     record(phase="redesigned_builds", ptxas={
         name: ptxas[name] for name in ("firefly_fused", "gwo_fused")},
         gwo_sass=sass_census(_build, "gwo_fused", "gwo_fused_kernelILi2E"))
+    # PR 11's redesigns: the census of the main path's kernels, whose step
+    # loops give the issue floors of phases 8, 9 and 14.
+    census = dict(clock_mhz=clock_mhz,
+                  tours=sass_census(_build, "aco_fused", TOURS_MAIN),
+                  tours_k2=sass_census(_build, "aco_fused", TOURS_MAIN_K2),
+                  pso=sass_census(_build, "pso_fused", PSO_MAIN))
+    record(phase="redesigned_builds_pr11", **census,
+           tours_step_loop=step_loop(census["tours"]),
+           pso_step_and_chunk_loops=step_loop(census["pso"]))
 
     # 3. kernels vs plain on the card ---------------------------------------
     separation_small_shapes(sep, dev)
@@ -3079,9 +3247,13 @@ def main():
         *step_args, **dict(step_kw, k_steps=8)), 5)
     pso_bound, pso_bound_by, ops, nbytes = pso_bound_ms(PSO_N, PSO_DIM,
                                                         PSO_K, 1)
+    per_element, pso_floor = pso_issue_floor(census["pso"], PSO_N, PSO_DIM,
+                                             PSO_K, clock_mhz)
     record(phase="pso_fused_timing", shape=[PSO_DIM, PSO_N], k_steps=PSO_K,
            kernel_ms=pso_ms, plain_ms=pso_plain_ms, bound_ms=pso_bound,
            bound_by=pso_bound_by, operations=ops, bytes=nbytes,
+           issue_floor_ms=pso_floor,
+           instructions_per_element_step=per_element,
            kernel_ms_at_k8=pso_ms_k8,
            bound_ms_at_k8=pso_bound_ms(PSO_N, PSO_DIM, 8, 1)[:2],
            kernel_share_of_run=pso_ms * pso_launches / pso_run_ms, smi=smi,
@@ -3152,6 +3324,8 @@ def main():
            islands=ISL_I, k_steps=PSO_K, kernel_ms=isl_ms,
            plain_ms=isl_plain_ms, bound_ms=isl_bound, bound_by=isl_bound_by,
            operations=ops, bytes=nbytes,
+           issue_floor_ms=pso_issue_floor(census["pso"], ISL_I * ISL_N,
+                                          PSO_DIM, PSO_K, clock_mhz)[1],
            kernel_share_of_run=isl_ms * isl_launches / isl_run_ms, smi=smi,
            seconds_so_far=time.perf_counter() - t_start)
     del ist, step_args
@@ -3201,7 +3375,7 @@ def main():
 
     # 14. firefly and ACO at full width ---------------------------------------
     ff_row = firefly_full_width(dsa, ff, kernels, smi, t_start, dev)
-    aco_rows = aco_full_width(dsa, af, kernels, smi, t_start, dev)
+    aco_rows = aco_full_width(dsa, af, kernels, smi, t_start, dev, census)
 
     print(json.dumps({"kernels": [
         {

@@ -42,21 +42,46 @@
 // lengths written, about 1.6 MB; a Philox call per block of four cities
 // that still holds an open city, and per open city and step its uniform, the
 // Gumbel transform (two log2s) and the score: about 3e9 operations, 0.045 ms
-// at 67 TFLOP/s.  The kernel cannot come near it: each ant's 255 steps are a
-// chain of dependent argmaxes, each a pass over the row and a 5-round
-// shuffle reduction, so latency bounds it.
+// at 67 TFLOP/s.  Each ant's 255 steps are a chain of dependent argmaxes
+// (the next step reads the row of this step's city), so latency bounds a
+// kernel with few warps: the first version, a warp an ant (7.75 warps an
+// SM), took 0.549 ms (PERF.md).
 // Deposit: the tours and amounts read, D written, about 1.3 MB: 0.4 us.
 //
-// Design.  Tours (first, simple version): one warp per ant, no block
-// barrier.  Lane l holds the city blocks b = l + 32 k of four cities each, so
-// one Philox call feeds its four cities and a warp reads a row's 4 x 32
-// consecutive floats at once; its visited bits live in a 64-bit register
-// (C <= 2,048).  The scores are read from transposed copies of logits and
-// dist (the wrapper makes them), so the column select reads a row.  A lane
-// scans its cities in ascending order keeping the first strict maximum; the
-// lanes then reduce (value, city) pairs by shuffles, the lower city winning a
-// tie.  Left to a later redesign: several ants a warp to hide the chain's
-// latency.
+// Design of the tours (rule 2's redesign).  A team of lanes builds one
+// ant's tour (tour_geometry in ops/cuda/aco_fused.py; the entry checks
+// it): a lane per block of four cities, 32 lanes up to 128 cities, 64 up to
+// 256 (C = 256: 2 warps an ant, 15.5 warps an SM at A = 1,024), 128 above
+// with up to four blocks a lane (C = 2,048), in blocks of 256 threads.
+// Lane tl holds blocks b = tl + lanes j, so a team reads a row's 4 lanes
+// consecutive floats at once (one 16-byte load a block where C is a
+// multiple of 4), and its visited bits fit a 32-bit register.  The scores
+// are read from transposed copies of logits and dist (the wrapper makes
+// them), so the column select reads a row.  A step:
+//   - loads the lane's blocks of row `cur` of the transposed scores;
+//   - meanwhile draws the NEXT step's Gumbel noise, which depends on (ant,
+//     block, step) and not on `cur`: one Philox call a block, with the
+//     products that depend on the ant alone or on the ant and the step
+//     hoisted (16 products a call where philox4x32_10 takes 20), skipped
+//     for a block whose four cities are all visited;
+//   - takes the lane's first strict maximum over its cities in ascending
+//     order, maps it to an ordered 32-bit key (-0 and +0 one key), and
+//     reduces the warp with two redux instructions (the largest key, then
+//     the lowest city holding it) where the first version took five
+//     rounds of two shuffles;
+//   - where the team spans warps, exchanges the warps' (key, city) pairs
+//     through shared memory under the team's named barrier (bar.sync id,
+//     lanes), two parities so that one barrier a step suffices.
+// The length sum and the dist read stay off the chain: the team's first
+// lane reads dist[next, cur] after the argmax and adds it a step later, in
+// step order from 0 as before.  Templates on the blocks a lane (1, 2, 4),
+// the rule (0, 1, 2) and the draws' source (the kernel's or the operands)
+// leave no runtime loop, mode or source test in a step, so the step loop's
+// SASS is what a step issues (chip_smoke.py counts it for the issue floor).
+// An issue floor: ~300 lane-instructions a lane-step at C = 256 (four
+// Gumbel transforms ~50 each, the Philox call ~65, the scores, keys and
+// reductions), 64 lanes x 1,024 ants x 255 steps over 132 SMs x 128 lanes a
+// clock: ~0.15 ms at 1.98 GHz (chip_smoke.py reads the SASS census).
 //
 // Deposit: a stable bucketing of the edges by row, then an ordered sum a
 // row, two kernels a call.  A block a row that walked every tour would
@@ -93,8 +118,9 @@
 
 namespace {
 
-constexpr int kMaxCities = 2048;   // 64 cities a lane: one 64-bit mask
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxCities = 2048;   // 16 cities a lane: a 32-bit mask
+constexpr int kTourThreads = 256;  // a tours block: 8 warps
+constexpr int kMaxTeamLanes = 128; // an ant's team: at most 4 warps
 constexpr int kSortWarps = 4;      // a bucketing block
 constexpr int kBatch = 8;          // edges a bucketing thread loads at once
 constexpr int kFoldWarps = 8;      // a fold block
@@ -107,27 +133,6 @@ constexpr float kLn2 = static_cast<float>(0.6931471805599453);
 using dsa::obj::add;
 using dsa::obj::mul;
 using dsa::obj::sub;
-
-struct Best {
-  float v;
-  int i;
-};
-
-// The larger value, the lower city among equal values.
-__device__ __forceinline__ Best better(Best a, Best b) {
-  return (b.v > a.v || (b.v == a.v && b.i < a.i)) ? b : a;
-}
-
-__device__ __forceinline__ Best warp_argmax(Best b) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    Best o;
-    o.v = __shfl_xor_sync(0xffffffffu, b.v, s);
-    o.i = __shfl_xor_sync(0xffffffffu, b.i, s);
-    b = better(b, o);
-  }
-  return b;
-}
 
 __device__ __forceinline__ float gumbel(float u) {
   const float v = dsa::fast::clip(sub(1.0f, u), 1e-7f, 0.9999999f);
@@ -147,99 +152,331 @@ struct TourArgs {
   int c;
   int a;
   float q0;
-  int mode;               // 0 sampled, 1 mixed, 2 greedy
+  int log2_team;          // lanes of an ant's team: 32, 64 or 128
 };
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Whether a team geometry (tour_geometry in ops/cuda/aco_fused.py picks it
+// from C) is one the tours kernels run: a team of 1, 2 or 4 warps, whole
+// teams a block of kTourThreads, 1, 2 or 4 blocks of four cities a lane (at
+// most 16 cities: a 32-bit visited mask), a slot for every city, and room
+// for the exchange of the warps' bests where a team spans warps (s_best).
+bool tour_geometry_ok(int c, int lanes, int ants_per_block, int per_lane,
+                      int shared) {
+  const int warps_shared = 2 * (kTourThreads / 32) * 2 * 8;
+  return (lanes == 32 || lanes == 64 || lanes == kMaxTeamLanes)
+         && ants_per_block * lanes == kTourThreads
+         && (per_lane == 1 || per_lane == 2 || per_lane == 4)
+         && 4 * lanes * per_lane >= c
+         && shared >= (lanes > 32 ? warps_shared : 0);
+}
+
+// philox4x32_10(ant, b, step, 0, seed, 0), the sampling rule's draw for
+// the cities 4 b .. 4 b + 3 (philox.cuh), with the products that depend on
+// the ant alone (round 0's M0 ant, round 1's M1 product) or on the ant and
+// the step (round 0's M1 step, round 2's M0 product) computed once, so
+// that a block's call takes 16 products where philox4x32_10 takes 20.  The
+// words are philox4x32_10's bit for bit.
+struct TourPhiloxAnt {
+  uint32_t lo_a;   // lo(M0 ant): round 0's c3
+  uint32_t hi_b;   // hi(M1 hi(M0 ant)): round 1
+  uint32_t lo_b;   // lo(M1 hi(M0 ant)): round 1's c1
+};
+
+struct TourPhiloxStep {
+  uint32_t c0_base;  // hi(M1 step) ^ seed: round 0's c0 without b
+  uint32_t hi_c;     // hi(M0 c0''), c0'' round 1's c0 (ant, step)
+  uint32_t lo_c;     // lo(M0 c0''): round 2's c3
+  uint32_t seed;
+};
+
+__device__ __forceinline__ TourPhiloxAnt tour_philox_ant(uint32_t ant) {
+  const uint32_t hi_a = __umulhi(dsa::kPhiloxM0, ant);
+  return TourPhiloxAnt{dsa::kPhiloxM0 * ant, __umulhi(dsa::kPhiloxM1, hi_a),
+                       dsa::kPhiloxM1 * hi_a};
+}
+
+__device__ __forceinline__ TourPhiloxStep tour_philox_step(
+    const TourPhiloxAnt& an, uint32_t step, uint32_t seed) {
+  const uint32_t c0 =
+      an.hi_b ^ (dsa::kPhiloxM1 * step) ^ (seed + dsa::kPhiloxW0);
+  return TourPhiloxStep{__umulhi(dsa::kPhiloxM1, step) ^ seed,
+                        __umulhi(dsa::kPhiloxM0, c0), dsa::kPhiloxM0 * c0,
+                        seed};
+}
+
+__device__ __forceinline__ dsa::Philox4 tour_philox_block(
+    const TourPhiloxAnt& an, const TourPhiloxStep& st, uint32_t b) {
+  // Round 1's product of b, then round 2's.
+  const uint32_t c0 = st.c0_base ^ b;
+  const uint32_t h1 = __umulhi(dsa::kPhiloxM0, c0), l1 = dsa::kPhiloxM0 * c0;
+  const uint32_t x2 = h1 ^ an.lo_a ^ dsa::kPhiloxW1;
+  const uint32_t h2 = __umulhi(dsa::kPhiloxM1, x2), l2 = dsa::kPhiloxM1 * x2;
+  uint32_t y0 = h2 ^ an.lo_b ^ (st.seed + 2u * dsa::kPhiloxW0);
+  uint32_t y1 = l2;
+  uint32_t y2 = st.hi_c ^ l1 ^ (2u * dsa::kPhiloxW1);
+  uint32_t y3 = st.lo_c;
+#pragma unroll
+  for (uint32_t round = 3; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(dsa::kPhiloxM0, y0);
+    const uint32_t lo0 = dsa::kPhiloxM0 * y0;
+    const uint32_t hi1 = __umulhi(dsa::kPhiloxM1, y2);
+    const uint32_t lo1 = dsa::kPhiloxM1 * y2;
+    const uint32_t n0 = hi1 ^ y1 ^ (st.seed + round * dsa::kPhiloxW0);
+    const uint32_t n2 = hi0 ^ y3 ^ (round * dsa::kPhiloxW1);
+    y0 = n0;
+    y1 = lo1;
+    y2 = n2;
+    y3 = lo0;
+  }
+  return dsa::Philox4{{y0, y1, y2, y3}};
+}
+
+// An ordered key of a score: the larger score, the larger key; -0 and +0
+// one key (as they compare equal).
+__device__ __forceinline__ uint32_t score_key(float v) {
+  const uint32_t u = __float_as_uint(add(v, 0.0f));   // -0 + 0 = +0
+  return u ^ (static_cast<uint32_t>(static_cast<int>(u) >> 31) | 0x80000000u);
+}
+
+// The team's (key, city) best of a warp's bests: the largest key, the
+// lowest city among equal keys, packed so that the larger packing wins.
+__device__ __forceinline__ unsigned long long pack_best(uint32_t key,
+                                                        int city) {
+  return (static_cast<unsigned long long>(key) << 32)
+         | static_cast<uint32_t>(~city);
+}
+
+// The lowest city of the largest key over the warp: two warp reductions.
+__device__ __forceinline__ unsigned long long warp_best(uint32_t key,
+                                                        int city) {
+  const uint32_t top = __reduce_max_sync(0xffffffffu, key);
+  const uint32_t low = __reduce_min_sync(
+      0xffffffffu, key == top ? static_cast<uint32_t>(city) : 0xffffffffu);
+  return pack_best(top, static_cast<int>(low));
+}
+
+__device__ __forceinline__ void team_barrier(int id, int lanes) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(lanes) : "memory");
+}
+
+// One lane's draws for a step: the Gumbel noise of its blocks' cities
+// (kK blocks of four), from the kernel's Philox or (kHost) from the
+// operand u.  A block all of whose cities are visited (or absent) draws
+// nothing.
+template <int kK, bool kHost>
+__device__ __forceinline__ void draw_step(const TourArgs& p,
+                                          const TourPhiloxAnt& an,
+                                          uint32_t seed, int ant, int tl,
+                                          int lanes, uint32_t closed,
+                                          int step, float g[kK][4]) {
+  const TourPhiloxStep st =
+      tour_philox_step(an, static_cast<uint32_t>(step), seed);
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    if (((closed >> (4 * j)) & 0xFu) == 0xFu) continue;
+    const int b = tl + lanes * j;
+    if constexpr (!kHost) {
+      const dsa::Philox4 w =
+          tour_philox_block(an, st, static_cast<uint32_t>(b));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        g[j][r] = gumbel(dsa::uniform_from_bits(w.v[r]));
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int city = min(4 * b + r, p.c - 1);   // absent: any city
+        g[j][r] = gumbel(
+            p.u[(static_cast<size_t>(step) * p.c + city) * p.a + ant]);
+      }
+    }
+  }
+}
+
+// Mode kMode: 0 samples only, 1 mixed, 2 greedy only; kK blocks a lane;
+// kHost: the uniforms are the operands u and uq.
+template <int kK, int kMode, bool kHost>
+__global__ void __launch_bounds__(kTourThreads)
 tours_kernel(TourArgs p) {
-  const int lane = threadIdx.x & 31;
-  const int ant = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ant >= p.a) return;  // the whole warp leaves together
+  extern __shared__ unsigned long long s_best[];  // [2][warps][2]
+  const int lanes = 1 << p.log2_team;
+  const int team = threadIdx.x >> p.log2_team;
+  const int tl = threadIdx.x & (lanes - 1);
+  const int warps = lanes >> 5;
+  const int ant = blockIdx.x * (kTourThreads >> p.log2_team) + team;
+  if (ant >= p.a) return;  // the whole team leaves together
   const int c = p.c;
-  const int n_blocks = (c + 3) / 4;
-  const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
   const int start = p.start[ant];
   int* tour = p.tours + static_cast<size_t>(ant) * c;
   if (start < 0 || start >= c) {  // not a city: no tour
-    for (int t = lane; t < c; t += 32) tour[t] = -1;
-    if (lane == 0) p.lengths[ant] = NAN;
+    for (int t = tl; t < c; t += lanes) tour[t] = -1;
+    if (tl == 0) p.lengths[ant] = NAN;
     return;
   }
 
-  uint64_t visited = 0;
-  {
-    const int b = start >> 2;
-    if ((b & 31) == lane) visited |= 1ull << (4 * (b >> 5) + (start & 3));
+  // Bit 4 j + r: city 4 (tl + lanes j) + r is visited or absent.
+  uint32_t closed = 0;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (4 * (tl + lanes * j) + r >= c) closed |= 1u << (4 * j + r);
+    }
   }
-  if (lane == 0) tour[0] = start;
+  uint32_t absent = closed;
+  const auto visit = [&](int city) {
+    const int b = city >> 2;
+    if ((b & (lanes - 1)) == tl) {
+      closed |= 1u << (4 * (b >> p.log2_team) + (city & 3));
+    }
+  };
+  visit(start);
+  if (tl == 0) tour[0] = start;
+  const bool aligned = (c & 3) == 0;
+  const TourPhiloxAnt an = tour_philox_ant(static_cast<uint32_t>(ant));
+  const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
+  unsigned long long* s_team = s_best + team * 2 * warps * 2;
+  const int w = tl >> 5;
+
+  float g[kK][4];
+  if (kMode != 2 && c > 1) {
+    draw_step<kK, kHost>(p, an, seed, ant, tl, lanes, closed, 0, g);
+  }
   int cur = start;
   float len = 0.0f;
+  float pending = 0.0f;   // the last edge's length, added a step later
 
   for (int t = 1; t < c; ++t) {
-    const uint32_t step = static_cast<uint32_t>(t - 1);
+    const int step = t - 1;
     const float* row = p.logits_t + static_cast<size_t>(cur) * c;
-    Best bs{-INFINITY, kMaxCities};
-    Best bg{-INFINITY, kMaxCities};
-    for (int b = lane, k = 0; b < n_blocks; b += 32, ++k) {
-      float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (p.mode != 2 && p.u == nullptr) {
-        const dsa::Philox4 w = dsa::philox4x32_10(
-            static_cast<uint32_t>(ant), static_cast<uint32_t>(b), step, 0u,
-            seed, 0u);
+    float x[kK][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = dsa::uniform_from_bits(w.v[r]);
+    for (int j = 0; j < kK; ++j) {
+      const int b = tl + lanes * j;
+      if (aligned && 4 * b < c) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row) + b);
+        x[j][0] = v.x;
+        x[j][1] = v.y;
+        x[j][2] = v.z;
+        x[j][3] = v.w;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          x[j][r] = __ldg(row + min(4 * b + r, c - 1));
+        }
       }
+    }
+    // The next step's draws do not depend on this step's city: drawn
+    // while this step's row is in flight.
+    float gn[kK][4];
+    if (kMode != 2 && t + 1 < c) {
+      draw_step<kK, kHost>(p, an, seed, ant, tl, lanes, closed, step + 1,
+                           gn);
+    }
+    float uq = 0.0f;
+    if (kMode == 1) {
+      uq = kHost
+               ? p.uq[static_cast<size_t>(step) * p.a + ant]
+               : dsa::uniform_from_bits(
+                     dsa::philox4x32_10(static_cast<uint32_t>(ant), 0u,
+                                        static_cast<uint32_t>(step), 1u,
+                                        seed, 0u).v[0]);
+    }
+    // This lane's best of each rule: its cities in ascending order, the
+    // first strict maximum; an absent city scores -inf and is never first.
+    float bs = -INFINITY, bg = -INFINITY;
+    int cs = 4 * tl, cg = 4 * tl;
+#pragma unroll
+    for (int j = 0; j < kK; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int city = 4 * b + r;
-        if (city >= c) break;
-        const bool open = !((visited >> (4 * k + r)) & 1ull);
-        const float x = row[city];
-        if (p.mode != 2) {
-          float v = kNeg;
-          if (open) {
-            const float ur =
-                p.u == nullptr
-                    ? u[r]
-                    : p.u[(static_cast<size_t>(step) * c + city) * p.a + ant];
-            v = add(x, gumbel(ur));
+        const int city = 4 * (tl + lanes * j) + r;
+        const uint32_t bit = 1u << (4 * j + r);
+        const bool open = !(closed & bit);
+        const bool gone = absent & bit;
+        if (kMode != 2) {
+          const float v =
+              gone ? -INFINITY : open ? add(x[j][r], g[j][r]) : kNeg;
+          if (v > bs) {
+            bs = v;
+            cs = city;
           }
-          if (v > bs.v) bs = Best{v, city};
         }
-        if (p.mode != 0) {
-          const float v = open ? x : kNeg;
-          if (v > bg.v) bg = Best{v, city};
+        if (kMode != 0) {
+          const float v = gone ? -INFINITY : open ? x[j][r] : kNeg;
+          if (v > bg) {
+            bg = v;
+            cg = city;
+          }
         }
       }
     }
-    int nxt;
-    if (p.mode == 0) {
-      nxt = warp_argmax(bs).i;
-    } else if (p.mode == 2) {
-      nxt = warp_argmax(bg).i;
-    } else {
-      const int s_idx = warp_argmax(bs).i;
-      const int g_idx = warp_argmax(bg).i;
-      float uq;
-      if (p.uq == nullptr) {
-        uq = dsa::uniform_from_bits(
-            dsa::philox4x32_10(static_cast<uint32_t>(ant), 0u, step, 1u,
-                               seed, 0u).v[0]);
-      } else {
-        uq = p.uq[static_cast<size_t>(step) * p.a + ant];
+    unsigned long long ws = 0, wg = 0;
+    if (kMode != 2) ws = warp_best(score_key(bs), cs);
+    if (kMode != 0) wg = warp_best(score_key(bg), cg);
+    if (warps > 1) {  // the team's warps exchange their bests
+      unsigned long long* slot = s_team + (step & 1) * warps * 2;
+      if ((tl & 31) == 0) {
+        slot[2 * w] = ws;
+        slot[2 * w + 1] = wg;
       }
-      nxt = uq < p.q0 ? g_idx : s_idx;
+      team_barrier(1 + team, lanes);
+      ws = slot[0];
+      wg = slot[1];
+#pragma unroll
+      for (int v = 1; v < kMaxTeamLanes / 32; ++v) {   // no loop: predicated
+        if (v < warps) {
+          ws = max(ws, slot[2 * v]);
+          wg = max(wg, slot[2 * v + 1]);
+        }
+      }
     }
-    {
-      const int b = nxt >> 2;
-      if ((b & 31) == lane) visited |= 1ull << (4 * (b >> 5) + (nxt & 3));
+    const int s_idx = static_cast<int>(~static_cast<uint32_t>(ws));
+    const int g_idx = static_cast<int>(~static_cast<uint32_t>(wg));
+    const int nxt = kMode == 0 ? s_idx : kMode == 2 ? g_idx
+                                       : (uq < p.q0 ? g_idx : s_idx);
+    visit(nxt);
+    if (tl == 0) {
+      len = add(len, pending);
+      pending = p.dist_t[static_cast<size_t>(cur) * c + nxt];
+      tour[t] = nxt;
     }
-    len = add(len, p.dist_t[static_cast<size_t>(cur) * c + nxt]);
-    if (lane == 0) tour[t] = nxt;
     cur = nxt;
+    if (kMode != 2) {
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) g[j][r] = gn[j][r];
+      }
+    }
   }
-  len = add(len, p.dist_t[static_cast<size_t>(cur) * c + start]);
-  if (lane == 0) p.lengths[ant] = len;
+  if (tl == 0) {
+    if (c > 1) len = add(len, pending);
+    p.lengths[ant] = add(len, p.dist_t[static_cast<size_t>(cur) * c + start]);
+  }
+}
+
+template <int kK, bool kHost>
+cudaError_t launch_rule(const TourArgs& p, int mode, int blocks, int shared,
+                        cudaStream_t s) {
+  switch (mode) {
+    case 0:
+      tours_kernel<kK, 0, kHost><<<blocks, kTourThreads, shared, s>>>(p);
+      break;
+    case 1:
+      tours_kernel<kK, 1, kHost><<<blocks, kTourThreads, shared, s>>>(p);
+      break;
+    default:
+      tours_kernel<kK, 2, kHost><<<blocks, kTourThreads, shared, s>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <int kK>
+cudaError_t launch_tours(const TourArgs& p, int mode, int blocks, int shared,
+                         cudaStream_t s) {
+  return p.u != nullptr ? launch_rule<kK, true>(p, mode, blocks, shared, s)
+                        : launch_rule<kK, false>(p, mode, blocks, shared, s);
 }
 
 // Edge e = ant * c + t of the flat [A, C] tours: (cur, nxt) = (tour[t],
@@ -497,23 +734,34 @@ extern "C" int dsa_aco_max_cities() { return kMaxCities; }
 // logits_t, dist_t [c, c] f32 (transposed scores and distances), start [a]
 // i32, u [c - 1, c, a] and uq [c - 1, a] f32 or null, seed [1] i32 in; tours
 // [a, c] i32 and lengths [a] f32 out; all contiguous on `device`, launched
-// on `stream` without synchronising.  Returns the CUDA error of the launch.
+// on `stream` without synchronising, with the team geometry `lanes`,
+// `ants_per_block`, `per_lane` and `shared` (tour_geometry_ok).  Returns the
+// CUDA error of the launch.
 extern "C" int dsa_aco_tours_f32(const float* logits_t, const float* dist_t,
                                  const int* start, const float* u,
                                  const float* uq, const int* seed, int* tours,
                                  float* lengths, int c, int a, float q0,
-                                 int mode, int device, void* stream) {
+                                 int mode, int lanes, int ants_per_block,
+                                 int per_lane, int shared, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (c < 1 || c > kMaxCities || a < 1 || mode < 0 || mode > 2) {
+  if (c < 1 || c > kMaxCities || a < 1 || mode < 0 || mode > 2
+      || !tour_geometry_ok(c, lanes, ants_per_block, per_lane, shared)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int log2_team = 0;
+  while ((1 << log2_team) < lanes) ++log2_team;
   const TourArgs p{logits_t, dist_t, start, u, uq, seed, tours, lengths,
-                   c, a, q0, mode};
-  const dim3 grid((a + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  tours_kernel<<<grid, kWarpsPerBlock * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                   c, a, q0, log2_team};
+  const int blocks = (a + ants_per_block - 1) / ants_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (per_lane) {
+    case 1: err = launch_tours<1>(p, mode, blocks, shared, s); break;
+    case 2: err = launch_tours<2>(p, mode, blocks, shared, s); break;
+    default: err = launch_tours<4>(p, mode, blocks, shared, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 // The int32 scratch the deposit takes: every chunk's row starts, then

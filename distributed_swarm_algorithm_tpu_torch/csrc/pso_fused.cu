@@ -44,20 +44,47 @@
 // the update with its clamps, and the objective (rastrigin: 23): 93.  At
 // k_steps = 64 that is 1.9e11 operations, 2.8 ms at the f32 peak of
 // 67 TFLOP/s: operations bound it from k_steps of about 6 up, and the Philox
-// rounds are more than half of them.  Measured at that shape on an NVIDIA
-// H100 80GB HBM3 at 700 W: 7.8 ms a launch, 2.8 times the bound (PERF.md).
+// rounds are more than half of them.  The bound counts Philox's integer
+// work at the f32 rate; its 32-bit products issue on the pipe that also
+// runs f32 multiply-adds, at half that rate.  The first version took
+// 7.8 ms a launch at that shape (PERF.md; chip_smoke.py on an NVIDIA H100
+// 80GB HBM3 at 700 W).
 //
-// Design (first, simple version).  One thread per particle.  A block stages
+// Design (rule 2's redesign).  One thread per particle.  A block stages
 // its particles' pos, vel and bpos once in dynamic shared memory as
 // [3][D][block] with the thread index fastest (a thread owns a column, so
-// there are no bank conflicts and no barriers), loops k_steps times over
-// it, and writes everything once.  The block is 128 threads where
-// 3 D 128 floats fit the 227 KB a block may take, else 64, else 32 (the
-// entry picks; D <= 605).  Above 48 KB the entry opts in with
-// cudaFuncSetAttribute.  The ragged edge is masked in the kernel, so N
-// needs no padding.  Not done yet: more than one generator call in flight
-// per thread, keeping the column in registers for small D, and a cheaper
-// generator (fewer rounds, or 16-bit uniforms from one call).
+// there are no bank conflicts), loops k_steps times over it, and writes
+// everything once.  The block is 128 threads where 3 D 128 floats fit the
+// 227 KB a block may take, else 64, else 32 (the entry picks; D <= 605);
+// above 48 KB the entry opts in with cudaFuncSetAttribute.  The ragged edge
+// of N is masked.  The first version drew each stream with a plain
+// philox4x32_10 call, masked every element with d < D, read the gbest
+// column from global memory at every element and step, and evaluated the
+// objective in a second pass behind a runtime switch.  Now:
+//   - both streams of a group come from one philox_pair_group call
+//     (philox_pair.cuh, as the grey-wolf kernel draws): 30 products where
+//     two calls take 40, the lane's work once a launch and the step's once
+//     a step;
+//   - the kernel is a template on D mod 4: the chunks of four run with no
+//     mask, and the last D mod 4 dimensions are a chunk of their own;
+//   - the objective is a template parameter (one kernel each, picked by
+//     the entry); sphere, rastrigin, schwefel and styblinski_tang, sums of
+//     per-dimension terms, fold each term into the update loop as its
+//     coordinate moves (ascending d, from -0, the plain version's order),
+//     the others keep the second pass over the staged column;
+//   - the gbest column is staged once a block in shared memory (the
+//     island's, where the block lies in one island and it fits; else read
+//     from global memory);
+//   - the uniforms' source (the kernel's Philox or the operands) is a
+//     template parameter too, so the step loop of the main path holds only
+//     what it runs (chip_smoke.py counts its SASS for the issue floor).
+// Tried and left out, each timed against this version on the card (PERF.md):
+// blocks of 64 or 32 threads (18 or 19 warps an SM where shared memory
+// holds 16 at 128: 2% faster, not worth a new envelope), the chunk loop
+// unrolled by 2 or 4 (1% slower), and the pbest write folded into the next
+// step's update as a select and a predicated store a coordinate, in place
+// of the copy loop a warp runs when one of its lanes improved (3-5%
+// slower).
 //
 // Built with nvcc for sm_90a into a shared library with plain C entries
 // (ops/cuda/_build.py) and called through ctypes (ops/cuda/pso_fused.py,
@@ -67,7 +94,7 @@
 
 #include <cstdint>
 
-#include "philox.cuh"
+#include "philox_pair.cuh"
 #include "swarm_objectives.cuh"
 
 namespace {
@@ -96,8 +123,8 @@ struct PsoArgs {
   int lanes_per_island;
   int k_steps;
   uint32_t step0;         // global index of the launch's first step
-  int objective;
   float w, c1, c2, vmax, half_width;
+  int g_in_shared;        // 1: the block's gbest column fits shared memory
 };
 
 // One particle's coordinates in the staged tile: element d at p[d * stride].
@@ -109,93 +136,203 @@ struct Column {
   }
 };
 
+using dsa::obj::add;
+using dsa::obj::mul;
+using dsa::obj::sub;
+
+// The objective of a launch, fixed at compile time.  kFold: a sum of
+// per-dimension terms, folded into the update loop (each term added as its
+// coordinate moves, in ascending d, from -0); otherwise a second pass over
+// the particle's staged column after the update.
+template <int kObj>
+struct Objective {
+  static constexpr bool kFold =
+      kObj == dsa::kSphere || kObj == dsa::kRastrigin
+      || kObj == dsa::kSchwefel || kObj == dsa::kStyblinskiTang;
+  __device__ __forceinline__ static float term(float v) {
+    switch (kObj) {
+      case dsa::kSphere: return dsa::obj::sphere_term(v);
+      case dsa::kRastrigin: return dsa::obj::rastrigin_term(v);
+      case dsa::kSchwefel: return dsa::obj::schwefel_term(v);
+      default: return dsa::obj::styblinski_tang_term(v);
+    }
+  }
+  __device__ __forceinline__ static float close(float s, int dim) {
+    switch (kObj) {
+      case dsa::kSphere: return dsa::obj::sphere_close(s, dim);
+      case dsa::kRastrigin: return dsa::obj::rastrigin_close(s, dim);
+      case dsa::kSchwefel: return dsa::obj::schwefel_close(s, dim);
+      default: return dsa::obj::styblinski_tang_close(s, dim);
+    }
+  }
+  __device__ __forceinline__ static float whole(const Column& x, int dim) {
+    return dsa::evaluate_objective(kObj, x, dim);
+  }
+};
+
 __device__ __forceinline__ bool better(float fit, int lane, float other_fit,
                                        int other_lane) {
   return fit < other_fit || (fit == other_fit && lane < other_lane);
 }
 
-template <bool kIslands>
+// What a thread carries through the step loop.
+struct Lane {
+  float* s_pos;           // column of the thread in [D][block]
+  float* s_vel;
+  float* s_bpos;
+  int block;
+  const float* g;         // the gbest column: shared (stride 1) or global
+  int g_stride;
+  int lane;
+  size_t n;
+};
+
+// The update of chunk q (dimensions 4 q .. 4 q + kN - 1) at one step, with
+// its uniforms; folds each moved coordinate's term into `s`.  The gbest
+// column is read through one generic pointer, staged or not, so that the
+// step has one code path.
+template <int kN, class Obj>
+__device__ __forceinline__ void update_chunk(const PsoArgs& a, const Lane& l,
+                                             int q, const float r1[4],
+                                             const float r2[4], float& s) {
+  const int d0 = 4 * q;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const float gd = l.g[(d0 + j) * l.g_stride];
+    const int at = (d0 + j) * l.block;
+    const float x = l.s_pos[at];
+    const float b = l.s_bpos[at];
+    float v = add(
+        add(mul(a.w, l.s_vel[at]), mul(mul(a.c1, r1[j]), sub(b, x))),
+        mul(mul(a.c2, r2[j]), sub(gd, x)));
+    v = fminf(fmaxf(v, -a.vmax), a.vmax);
+    const float p = fminf(fmaxf(add(x, v), -a.half_width), a.half_width);
+    l.s_vel[at] = v;
+    l.s_pos[at] = p;
+    if constexpr (Obj::kFold) s = add(s, Obj::term(p));
+  }
+}
+
+// The uniforms of chunk q: the operands' (kHost, one step) or the kernel's
+// two Philox streams, drawn together (philox_pair.cuh).
+template <int kN, bool kHost>
+__device__ __forceinline__ void chunk_uniforms(
+    const PsoArgs& a, const Lane& l, const dsa::PhiloxPairLane& pl,
+    const dsa::PhiloxPairStep& ps, int q, float r1[4], float r2[4]) {
+  if constexpr (kHost) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const size_t at = (4 * q + j) * l.n + l.lane;
+      r1[j] = a.r1[at];
+      r2[j] = a.r2[at];
+    }
+  } else {
+    dsa::Philox4 w[2];
+    dsa::philox_pair_group(pl, ps, static_cast<uint32_t>(q), w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r1[j] = dsa::uniform_from_bits(w[0].v[j]);
+      r2[j] = dsa::uniform_from_bits(w[1].v[j]);
+    }
+  }
+}
+
+// k_steps steps of one particle; returns its pbest fitness.
+template <int kR, int kObj, bool kHost>
+__device__ __forceinline__ float run_steps(const PsoArgs& a, const Lane& l,
+                                           float bfit) {
+  using Obj = Objective<kObj>;
+  const int dim = a.dim;
+  const int full = dim >> 2;   // chunks of four; kR dimensions after them
+  const uint32_t seed = kHost ? 0u : static_cast<uint32_t>(*a.seed);
+  const dsa::PhiloxPairLane pl =
+      dsa::philox_pair_lane(static_cast<uint32_t>(l.lane));
+  for (int step = 0; step < a.k_steps; ++step) {
+    const dsa::PhiloxPairStep ps = dsa::philox_pair_step(
+        pl, a.step0 + static_cast<uint32_t>(step), seed);
+    float s = -0.0f;
+    for (int q = 0; q < full; ++q) {
+      float r1[4], r2[4];
+      chunk_uniforms<4, kHost>(a, l, pl, ps, q, r1, r2);
+      update_chunk<4, Obj>(a, l, q, r1, r2, s);
+    }
+    if (kR != 0) {
+      float r1[4], r2[4];
+      chunk_uniforms<kR, kHost>(a, l, pl, ps, full, r1, r2);
+      update_chunk<kR, Obj>(a, l, full, r1, r2, s);
+    }
+    float fit;
+    if constexpr (Obj::kFold) {
+      fit = Obj::close(s, dim);
+    } else {
+      fit = Obj::whole(Column{l.s_pos, l.block}, dim);
+    }
+    if (fit < bfit) {
+      bfit = fit;
+      for (int d = 0; d < dim; ++d) {
+        l.s_bpos[d * l.block] = l.s_pos[d * l.block];
+      }
+    }
+  }
+  return bfit;
+}
+
+// kR = D mod 4, the objective and the source of the uniforms (kHost: the
+// operands) are template parameters, so a step has no runtime mask, no
+// objective switch and one code path; the island flag only picks the gbest
+// column at entry.
+template <int kR, int kObj, bool kHost>
 __global__ void pso_fused_kernel(const PsoArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int block = blockDim.x;
   const int t = threadIdx.x;
-  const long long lane_ll = static_cast<long long>(blockIdx.x) * block + t;
+  const int dim = a.dim;
+  const int dim4 = (dim + 3) & ~3;
+  const long long first = static_cast<long long>(blockIdx.x) * block;
+  const long long lane_ll = first + t;
   const bool live = lane_ll < a.n;
   const int lane = static_cast<int>(lane_ll);
-  const int dim = a.dim;
-  float* s_pos = smem + t;
-  float* s_vel = s_pos + static_cast<size_t>(dim) * block;
-  float* s_bpos = s_vel + static_cast<size_t>(dim) * block;
+  const bool islands = a.n_islands > 1;
+  // The block's gbest column, staged once where the block lies in one
+  // island (always for one swarm) and it fits.
+  const int isl0 = islands ? static_cast<int>(first / a.lanes_per_island) : 0;
+  const long long last = min(first + block, static_cast<long long>(a.n)) - 1;
+  const int isl1 = islands ? static_cast<int>(last / a.lanes_per_island) : 0;
+  const bool g_shared = a.g_in_shared && isl0 == isl1;
+  float* s_g = smem;
+  float* tile = smem + (a.g_in_shared ? dim4 : 0);
+  if (g_shared) {
+    for (int e = t; e < dim4; e += block) {
+      s_g[e] = e < dim ? a.gbest[e * a.n_islands + isl0] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  Lane l;
+  l.s_pos = tile + t;
+  l.s_vel = l.s_pos + static_cast<size_t>(dim) * block;
+  l.s_bpos = l.s_vel + static_cast<size_t>(dim) * block;
+  l.block = block;
+  l.g = g_shared ? s_g
+                 : a.gbest + (islands && live ? lane / a.lanes_per_island : 0);
+  l.g_stride = g_shared ? 1 : a.n_islands;
+  l.lane = lane;
+  l.n = static_cast<size_t>(a.n);
 
   float bfit = __int_as_float(0x7f800000);  // +inf for the masked edge
   if (live) {
-    const size_t n = static_cast<size_t>(a.n);
     for (int d = 0; d < dim; ++d) {
-      const size_t at = d * n + lane;
-      s_pos[d * block] = a.pos[at];
-      s_vel[d * block] = a.vel[at];
-      s_bpos[d * block] = a.bpos[at];
+      const size_t at = d * l.n + lane;
+      l.s_pos[d * block] = a.pos[at];
+      l.s_vel[d * block] = a.vel[at];
+      l.s_bpos[d * block] = a.bpos[at];
     }
-    bfit = a.bfit[lane];
-    const int g_stride = kIslands ? a.n_islands : 1;
-    const float* g = a.gbest + (kIslands ? lane / a.lanes_per_island : 0);
-    const bool host_rng = a.r1 != nullptr;
-    const uint32_t seed = host_rng ? 0u : static_cast<uint32_t>(*a.seed);
-
-    for (int step = 0; step < a.k_steps; ++step) {
-      for (int d0 = 0; d0 < dim; d0 += 4) {
-        float r1[4], r2[4];
-        if (host_rng) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool in = d0 + j < dim;
-            r1[j] = in ? a.r1[(d0 + j) * n + lane] : 0.0f;
-            r2[j] = in ? a.r2[(d0 + j) * n + lane] : 0.0f;
-          }
-        } else {
-          const uint32_t c1 = static_cast<uint32_t>(d0 >> 2);
-          const uint32_t c2 = a.step0 + static_cast<uint32_t>(step);
-          const dsa::Philox4 u1 = dsa::philox4x32_10(
-              static_cast<uint32_t>(lane), c1, c2, 0u, seed, 0u);
-          const dsa::Philox4 u2 = dsa::philox4x32_10(
-              static_cast<uint32_t>(lane), c1, c2, 1u, seed, 0u);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            r1[j] = dsa::uniform_from_bits(u1.v[j]);
-            r2[j] = dsa::uniform_from_bits(u2.v[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = d0 + j;
-          if (d < dim) {
-            const float x = s_pos[d * block];
-            const float b = s_bpos[d * block];
-            const float gd = g[d * g_stride];
-            float v = __fadd_rn(
-                __fadd_rn(__fmul_rn(a.w, s_vel[d * block]),
-                          __fmul_rn(__fmul_rn(a.c1, r1[j]), __fsub_rn(b, x))),
-                __fmul_rn(__fmul_rn(a.c2, r2[j]), __fsub_rn(gd, x)));
-            v = fminf(fmaxf(v, -a.vmax), a.vmax);
-            s_vel[d * block] = v;
-            s_pos[d * block] =
-                fminf(fmaxf(__fadd_rn(x, v), -a.half_width), a.half_width);
-          }
-        }
-      }
-      const float fit =
-          dsa::evaluate_objective(a.objective, Column{s_pos, block}, dim);
-      if (fit < bfit) {
-        bfit = fit;
-        for (int d = 0; d < dim; ++d) s_bpos[d * block] = s_pos[d * block];
-      }
-    }
-
+    bfit = run_steps<kR, kObj, kHost>(a, l, a.bfit[lane]);
     for (int d = 0; d < dim; ++d) {
-      const size_t at = d * n + lane;
-      a.pos_out[at] = s_pos[d * block];
-      a.vel_out[at] = s_vel[d * block];
-      a.bpos_out[at] = s_bpos[d * block];
+      const size_t at = d * l.n + lane;
+      a.pos_out[at] = l.s_pos[d * block];
+      a.vel_out[at] = l.s_vel[d * block];
+      a.bpos_out[at] = l.s_bpos[d * block];
     }
     a.bfit_out[lane] = bfit;
   }
@@ -239,29 +376,77 @@ int pick_block(int dim) {
   return 0;
 }
 
-template <bool kIslands>
-int launch(const PsoArgs& a, int device, void* stream) {
+template <int kR, int kObj, bool kHost>
+cudaError_t launch_variant(const PsoArgs& a, unsigned blocks, int block,
+                           size_t shared, cudaStream_t s) {
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pso_fused_kernel<kR, kObj, kHost>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  pso_fused_kernel<kR, kObj, kHost><<<blocks, block, shared, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kR, int kObj>
+cudaError_t launch_kernel(const PsoArgs& a, unsigned blocks, int block,
+                          size_t shared, cudaStream_t s) {
+  return a.r1 != nullptr
+             ? launch_variant<kR, kObj, true>(a, blocks, block, shared, s)
+             : launch_variant<kR, kObj, false>(a, blocks, block, shared, s);
+}
+
+template <int kR>
+cudaError_t launch_objective(const PsoArgs& a, int objective,
+                             unsigned blocks, int block, size_t shared,
+                             cudaStream_t s) {
+#define DSA_PSO_CASE(k)                                                  \
+  case dsa::k:                                                           \
+    return launch_kernel<kR, dsa::k>(a, blocks, block, shared, s);
+  switch (objective) {
+    DSA_PSO_CASE(kSphere)
+    DSA_PSO_CASE(kRastrigin)
+    DSA_PSO_CASE(kAckley)
+    DSA_PSO_CASE(kRosenbrock)
+    DSA_PSO_CASE(kGriewank)
+    DSA_PSO_CASE(kSchwefel)
+    DSA_PSO_CASE(kLevy)
+    DSA_PSO_CASE(kZakharov)
+    DSA_PSO_CASE(kStyblinskiTang)
+    default:
+      return launch_kernel<kR, dsa::kMichalewicz>(a, blocks, block, shared, s);
+  }
+#undef DSA_PSO_CASE
+}
+
+int launch(PsoArgs a, int objective, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int block = pick_block(a.dim);
   if (a.n <= 0 || a.dim <= 0 || a.k_steps <= 0 || block == 0 ||
-      a.objective < 0 || a.objective >= dsa::kObjectiveCount ||
-      (kIslands && (a.n_islands <= 0 || a.lanes_per_island <= 0)) ||
+      objective < 0 || objective >= dsa::kObjectiveCount ||
+      a.n_islands <= 0 || a.lanes_per_island <= 0 ||
       ((a.r1 == nullptr) != (a.r2 == nullptr)) ||
       (a.r1 != nullptr && a.k_steps != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t shared = 3ull * a.dim * block * sizeof(float);
-  if (shared > 48 * 1024) {
-    err = cudaFuncSetAttribute(pso_fused_kernel<kIslands>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t tile = 3ull * a.dim * block * sizeof(float);
+  const size_t g_bytes = ((a.dim + 3ull) & ~3ull) * sizeof(float);
+  a.g_in_shared = tile + g_bytes <= kMaxSharedBytes;
+  const size_t shared = tile + (a.g_in_shared ? g_bytes : 0);
   const unsigned blocks = (static_cast<unsigned>(a.n) + block - 1) / block;
-  pso_fused_kernel<kIslands><<<blocks, block, shared,
-                               static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.dim & 3) {
+    case 0: err = launch_objective<0>(a, objective, blocks, block, shared, s);
+      break;
+    case 1: err = launch_objective<1>(a, objective, blocks, block, shared, s);
+      break;
+    case 2: err = launch_objective<2>(a, objective, blocks, block, shared, s);
+      break;
+    default: err = launch_objective<3>(a, objective, blocks, block, shared, s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -284,8 +469,8 @@ extern "C" int dsa_pso_fused_f32(
     float half_width, int device, void* stream) {
   const PsoArgs a{seed, gbest, pos, vel, bpos, bfit, r1, r2, pos_out, vel_out,
                   bpos_out, bfit_out, block_fit, block_lane, n, dim, 1, n,
-                  k_steps, step0, objective, w, c1, c2, vmax, half_width};
-  return launch<false>(a, device, stream);
+                  k_steps, step0, w, c1, c2, vmax, half_width, 0};
+  return launch(a, objective, device, stream);
 }
 
 // The same over n_islands islands of lanes_per_island particles each, laid
@@ -304,7 +489,7 @@ extern "C" int dsa_islands_fused_f32(
   }
   const PsoArgs a{seed, gbest, pos, vel, bpos, bfit, r1, r2, pos_out, vel_out,
                   bpos_out, bfit_out, nullptr, nullptr, n, dim, n_islands,
-                  lanes_per_island, k_steps, step0, objective, w, c1, c2,
-                  vmax, half_width};
-  return launch<true>(a, device, stream);
+                  lanes_per_island, k_steps, step0, w, c1, c2, vmax,
+                  half_width, 0};
+  return launch(a, objective, device, stream);
 }

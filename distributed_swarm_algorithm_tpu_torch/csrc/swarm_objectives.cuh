@@ -93,6 +93,35 @@ __device__ __forceinline__ float sum_squares(const X& x, int dim) {
   return s;
 }
 
+// The objectives that are a sum of per-dimension terms, split into the
+// term of one coordinate and the step that closes the sum s = term(x_0) +
+// ... + term(x_{D-1}) (added in that order), so that a kernel can fold the
+// sum into its update loop (csrc/pso_fused.cu).  -0 is the identity of the
+// sum: s = -0 + term(x_0) is term(x_0) bit for bit.
+__device__ __forceinline__ float sphere_term(float v) { return sq(v); }
+__device__ __forceinline__ float sphere_close(float s, int) { return s; }
+
+__device__ __forceinline__ float rastrigin_term(float v) {
+  return sub(sq(v), mul(10.0f, cos2pi(v)));
+}
+__device__ __forceinline__ float rastrigin_close(float s, int dim) {
+  return add(static_cast<float>(10.0 * dim), s);
+}
+
+__device__ __forceinline__ float schwefel_term(float v) {
+  return mul(v, sinx(__fsqrt_rn(fabsf(v))));
+}
+__device__ __forceinline__ float schwefel_close(float s, int dim) {
+  return sub(static_cast<float>(418.9829 * dim), s);
+}
+
+__device__ __forceinline__ float styblinski_tang_term(float v) {
+  return add(sub(sq(sq(v)), mul(mul(16.0f, v), v)), mul(5.0f, v));
+}
+__device__ __forceinline__ float styblinski_tang_close(float s, int dim) {
+  return add(mul(0.5f, s), static_cast<float>(39.16616570377142 * dim));
+}
+
 template <class X>
 __device__ float sphere(const X& x, int dim) {
   return sum_squares(x, dim);
@@ -102,11 +131,10 @@ template <class X>
 __device__ float rastrigin(const X& x, int dim) {
   float s = 0.0f;
   for (int d = 0; d < dim; ++d) {
-    const float v = x(d);
-    const float term = sub(sq(v), mul(10.0f, cos2pi(v)));
+    const float term = rastrigin_term(x(d));
     s = d == 0 ? term : add(s, term);
   }
-  return add(static_cast<float>(10.0 * dim), s);
+  return rastrigin_close(s, dim);
 }
 
 template <class X>
@@ -153,11 +181,10 @@ template <class X>
 __device__ float schwefel(const X& x, int dim) {
   float s = 0.0f;
   for (int d = 0; d < dim; ++d) {
-    const float v = x(d);
-    const float term = mul(v, sinx(__fsqrt_rn(fabsf(v))));
+    const float term = schwefel_term(x(d));
     s = d == 0 ? term : add(s, term);
   }
-  return sub(static_cast<float>(418.9829 * dim), s);
+  return schwefel_close(s, dim);
 }
 
 __device__ __forceinline__ float levy_w(float v) {
@@ -196,12 +223,10 @@ template <class X>
 __device__ float styblinski_tang(const X& x, int dim) {
   float s = 0.0f;
   for (int d = 0; d < dim; ++d) {
-    const float v = x(d);
-    const float term =
-        add(sub(sq(sq(v)), mul(mul(16.0f, v), v)), mul(5.0f, v));
+    const float term = styblinski_tang_term(x(d));
     s = d == 0 ? term : add(s, term);
   }
-  return add(mul(0.5f, s), static_cast<float>(39.16616570377142 * dim));
+  return styblinski_tang_close(s, dim);
 }
 
 // On the symmetric search domain [-pi/2, pi/2], shifted onto the canonical

@@ -33,14 +33,20 @@ pheromone.  On the card it is two kernels a call, reading the tours where
 they lie: a stable bucketing of the edges by row, then one block a row
 adding its edges in order (``csrc/aco_fused.cu`` says why).
 
-The envelope is the kernel's (no VMEM fit model): C <= 2,048 cities (one
-64-bit visited mask a lane), any number of ants with A C < 2^31.
+The envelope is the kernel's (no VMEM fit model): C <= 2,048 cities (a team
+of at most 128 lanes an ant, 16 cities and a 32-bit visited mask a lane;
+:func:`tour_geometry`), any number of ants with A C < 2^31.
+
+On the card, :func:`fused_aco_run` with device draws replays one captured
+colony iteration from a CUDA graph, so the host launches one graph an
+iteration instead of its ~35 operations; the capture is kept for the next
+run of the same colony.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,13 +62,22 @@ from . import _build
 from .fast_math import LN2, log2_fast
 from .pso_fused import philox_uniforms, seed_base
 
-# Launches of each kernel since its count was last set to 0, one per call
+# Launches of each kernel since its count was last set to 0: one per call
 # of construct_tours_cuda (B20) and of deposit_matrix_cuda (B21; a call
-# launches its two kernels).
+# launches its two kernels).  A call made while the stream is capturing a
+# CUDA graph adds to _captured instead, and each replay of a colony
+# iteration that fused_aco_run captured adds what its capture recorded.
 TOURS_LAUNCHES = 0
 DEPOSIT_LAUNCHES = 0
+_captured = {"tours": 0, "deposit": 0}
 
 MAX_CITIES = 2048
+
+# Threads of a tours block and the most lanes of one ant's team
+# (csrc/aco_fused.cu: kTourThreads, kMaxTeamLanes; its entry rejects a
+# geometry that does not fit them).
+TOUR_THREADS = 256
+MAX_TEAM_LANES = 128
 
 _fns = {}   # the C entries, bound at the first launch
 
@@ -82,6 +97,37 @@ def require_supported(n_cities: int, n_ants: int) -> None:
             f"the fused ACO kernels take 1 <= C <= {MAX_CITIES} cities and "
             f"A >= 1 ants with A C < 2^31, got C = {n_cities}, A = {n_ants}; "
             "use the portable ops/aco.py path")
+
+
+class TourGeometry(NamedTuple):
+    """How the tours kernel lays out ants: ``lanes`` per ant (its team),
+    ``ants_per_block`` teams a block of ``TOUR_THREADS``, ``blocks_per_lane``
+    blocks of four cities a lane, and the ``shared`` bytes a block takes
+    for the team's exchange of its warps' bests."""
+
+    lanes: int
+    ants_per_block: int
+    blocks_per_lane: int
+    shared: int
+
+
+def tour_geometry(n_cities: int) -> TourGeometry:
+    """The tours kernel's team for C cities, handed to its entry, which
+    checks it (``csrc/aco_fused.cu: tour_geometry_ok``): a lane per block
+    of four cities, at least a warp and at most ``MAX_TEAM_LANES`` (32
+    lanes up to 128 cities, 64 up to 256, 128 above, with 2 blocks a lane
+    up to 1,024 and 4 up to 2,048; three would do up to 1,536, but that
+    variant spilled registers); two parities of a (key, city) pair of each
+    rule for each warp of a block where a team spans warps."""
+    if not 1 <= n_cities <= MAX_CITIES:
+        raise ValueError(f"the tours kernel takes 1 <= C <= {MAX_CITIES} "
+                         f"cities, got {n_cities}")
+    blocks = -(-n_cities // 4)
+    lanes = 32 if blocks <= 32 else 64 if blocks <= 64 else MAX_TEAM_LANES
+    per_lane = -(-blocks // lanes)
+    shared = 2 * (TOUR_THREADS // 32) * 2 * 8 if lanes > 32 else 0
+    return TourGeometry(lanes, TOUR_THREADS // lanes,
+                        per_lane if per_lane <= 2 else 4, shared)
 
 
 def q0_mode(q0: float) -> int:
@@ -226,16 +272,19 @@ def construct_tours_cuda(logits: torch.Tensor, dist: torch.Tensor,
     lengths = torch.empty(a, dtype=torch.float32, device=logits.device)
     p = ctypes.c_void_p
     fn = _bind("dsa_aco_tours_f32", [p] * 8 + [ctypes.c_int] * 2
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_int, p])
+               + [ctypes.c_float] + [ctypes.c_int] * 6 + [p])
     err = fn(logits_t.data_ptr(), dist_t.data_ptr(), start.data_ptr(),
              None if u is None else u.data_ptr(),
              None if uq is None else uq.data_ptr(), seed.data_ptr(),
              tours.data_ptr(), lengths.data_ptr(), c, a, float(q0),
-             q0_mode(q0), logits.device.index,
+             q0_mode(q0), *tour_geometry(c), logits.device.index,
              torch.cuda.current_stream(logits.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ACO tour kernel launch failed: CUDA error {err}")
-    TOURS_LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured["tours"] += 1
+    else:
+        TOURS_LAUNCHES += 1
     return tours, lengths
 
 
@@ -324,7 +373,10 @@ def deposit_matrix_cuda(tours: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ACO deposit kernel launch failed: CUDA error "
                            f"{err}")
-    DEPOSIT_LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured["deposit"] += 1
+    else:
+        DEPOSIT_LAUNCHES += 1
     return d
 
 
@@ -432,10 +484,110 @@ def fused_aco_run(
 ) -> ACOState:
     """``n_steps`` fused colony iterations; ``draws[i]`` replaces
     iteration i's host draws, and ``out`` receives the last one's tours and
-    lengths."""
+    lengths.
+
+    With ``rng="device"`` on a card the iterations replay one captured
+    :func:`fused_aco_step` from a CUDA graph (:func:`_graph_run`), as the
+    JAX package runs them under one ``lax.scan``; the host then launches
+    one graph an iteration where it would launch some 35 operations.  The
+    results are the eager loop's bit for bit.  On the CPU and with host
+    draws the loop runs eagerly."""
+    if rng == "device" and state.device.type == "cuda" and n_steps > 0:
+        if draws is not None:
+            raise ValueError('draws are operands of rng="host"')
+        return _graph_run(state, n_steps, n_ants,
+                          (alpha, beta, rho, q0, elite), out)
     for i in range(n_steps):
         state = fused_aco_step(state, n_ants, alpha, beta, rho, q0, elite,
                                rng=rng,
                                draws=None if draws is None else draws[i],
                                out=out)
     return state
+
+
+# The fields a colony iteration carries to the next.
+_CARRIED = ("tau", "best_tour", "best_len", "iteration")
+
+
+class _Replay(NamedTuple):
+    """A captured colony iteration: its graph, the static state it reads
+    and writes and the last tours and lengths it writes, the launches its
+    capture recorded, and what it was captured for (the colony's sizes
+    and parameters; the generator and distances are ``static``'s own)."""
+
+    graph: torch.cuda.CUDAGraph
+    static: ACOState
+    last: dict
+    launches: dict
+    key: tuple
+
+
+# The last captured iteration, replayed by the next run whose state has the
+# same generator, distances, sizes and parameters (a colony's later runs).
+_replay: Optional[_Replay] = None
+
+
+def _capture(state: ACOState, n_ants: int, params: tuple,
+             key: tuple) -> _Replay:
+    """Capture one :func:`fused_aco_step` into a CUDA graph over static
+    copies of the state's tensors, with the state's generator registered.
+    Raises if the capture fails or did not record one launch of each
+    kernel."""
+    dev = state.device
+    static = state.replace(**{f: getattr(state, f).clone()
+                              for f in _CARRIED})
+    last = {}
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(state.gen)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    _captured.update(tours=0, deposit=0)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            nxt = fused_aco_step(static, n_ants, *params, out=last)
+            for f in _CARRIED:
+                getattr(static, f).copy_(getattr(nxt, f))
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    launches = dict(_captured)
+    if launches != {"tours": 1, "deposit": 1}:
+        raise RuntimeError("a captured colony iteration must launch the tours "
+                           f"and deposit kernels once each, got {launches}")
+    return _Replay(graph, static, last, launches, key)
+
+
+def _graph_run(state: ACOState, n_steps: int, n_ants: int, params: tuple,
+               out: Optional[dict]) -> ACOState:
+    """``n_steps`` iterations replayed from the graph of one captured
+    iteration, captured anew unless the last one was captured for this
+    state's generator, distances, sizes and ``params``.
+
+    The generator is registered with the graph, so a replay draws the start
+    cities and the kernel's seed from the generator's offset at that replay
+    and advances it as the eager step does: the run draws what the eager
+    loop draws.  Each replay adds the launches its capture recorded.  The
+    state is copied into the graph's static tensors and the result copied
+    out of them, so the caller's tensors are never written.  No step waits
+    for the device."""
+    global _replay, TOURS_LAUNCHES, DEPOSIT_LAUNCHES
+    key = (n_ants, params) + tuple(
+        (tuple(getattr(state, f).shape), getattr(state, f).dtype)
+        for f in _CARRIED)
+    r = _replay
+    if (r is None or r.static.gen is not state.gen
+            or r.static.dist is not state.dist or r.key != key):
+        _replay = r = None          # the old graph's memory goes first
+        r = _replay = _capture(state, n_ants, params, key)
+    for f in _CARRIED:
+        getattr(r.static, f).copy_(getattr(state, f))
+    for _ in range(n_steps):
+        r.graph.replay()
+        TOURS_LAUNCHES += r.launches["tours"]
+        DEPOSIT_LAUNCHES += r.launches["deposit"]
+    if out is not None:
+        out.update(tours=r.last["tours"].clone(),
+                   lengths=r.last["lengths"].clone())
+    return state.replace(**{f: getattr(r.static, f).clone()
+                            for f in _CARRIED})

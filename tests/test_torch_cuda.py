@@ -2219,3 +2219,323 @@ def test_redesigned_builds_spill_no_registers(cuda):
         assert len(spills) >= len(kernels), (name, spills)
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# The redesigned tour kernel (B20: a team of lanes an ant, the next step's
+# draws ahead, redux reductions and a named barrier a step), the colony run
+# replayed from one CUDA graph, and the redesigned PSO kernel (B5 and B6:
+# hoisted Philox pairs, a template on D mod 4 and on the objective, the
+# gbest column staged) at the edges of their designs.  Tours, lengths and
+# the PSO state equal the plain versions' under torch.equal (ackley within
+# its expf band, as above).
+# --------------------------------------------------------------------------
+
+def _team_edges():
+    """C at every edge of the tour team: 4 lanes +- 1 for each team size
+    and blocks a lane, C not a multiple of 4, the smallest and the
+    largest."""
+    cs = {2, 3, 5, 2047, 2048}
+    for cities in (128, 256, 512, 1024):
+        cs.update((cities - 1, cities, cities + 1))
+    return sorted(cs)
+
+
+# A is odd, so never a multiple of the 2, 4 or 8 ants of a block.
+TEAM_CASES = [(c, a, q0, rng) for i, c in enumerate(_team_edges())
+              for a, q0, rng in (((3, 37, 129)[i % 3], 0.0, "device"),
+                                 ((5, 3)[i % 2], (0.5, 1.0)[i % 2], "host"),
+                                 (9, 0.3, "device"))]
+
+
+def _team_inputs(c, a, seed, device, host):
+    """Scores, dist, starts and seed of C cities for A ants, and host draws
+    (u [C - 1, C, A], uq [C - 1, A]) made on the card where asked."""
+    g = np.random.default_rng(seed)
+    coords = torch.from_numpy(g.uniform(0, 100, (c, 2)).astype(np.float32))
+    dist = port_aco.coords_to_dist(coords).to(device)
+    tau = torch.from_numpy(g.uniform(0.5, 2.0, (c, c)).astype(np.float32))
+    logits = port_aco.aco_logits(tau.to(device), dist, 1.0, 2.0)
+    start = torch.from_numpy(g.integers(0, c, a).astype(np.int32)).to(device)
+    seed_t = torch.tensor([seed + 11], dtype=torch.int32, device=device)
+    draws = (None, None)
+    if host:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        draws = (torch.rand((c - 1, c, a), generator=gen, device=device),
+                 torch.rand((c - 1, a), generator=gen, device=device))
+    return logits, dist, start, seed_t, draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,a,q0,rng", TEAM_CASES,
+                         ids=[f"C{c}-A{a}-q{q0}-{r}"
+                              for c, a, q0, r in TEAM_CASES])
+def test_tours_redesign_equals_plain_at_team_edges(cuda, c, a, q0, rng):
+    assert a % port_af.tour_geometry(c).ants_per_block
+    logits, dist, start, seed, draws = _team_inputs(c, a, c + 7 * a, cuda,
+                                                    rng == "host")
+    before = port_af.TOURS_LAUNCHES
+    tours, lengths = port_af.construct_tours_cuda(logits, dist, start, seed,
+                                                  q0, *draws)
+    again = port_af.construct_tours_cuda(logits, dist, start, seed, q0,
+                                         *draws)
+    assert port_af.TOURS_LAUNCHES == before + 2
+    want = port_af.construct_tours_plain(logits, dist, start, seed, q0,
+                                         *draws)
+    assert torch.equal(tours, want[0]) and torch.equal(lengths, want[1])
+    assert torch.equal(again[0], tours) and torch.equal(again[1], lengths)
+    assert (torch.sort(tours, 1).values
+            == torch.arange(c, device=cuda)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [129, 256, 1000])
+@pytest.mark.parametrize("q0", [0.0, 0.5, 1.0])
+def test_tours_redesign_ties_go_to_the_lowest_city(cuda, c, q0):
+    # Constant scores and one uniform for every city: every step of either
+    # rule is a tie among the open cities, across the lanes and warps of a
+    # team, and the lowest open city wins.
+    a = 11
+    _, dist, start, seed, _ = _team_inputs(c, a, 3, cuda, False)
+    flat = torch.zeros((c, c), device=cuda)
+    u = torch.full((c - 1, c, a), 0.25, device=cuda)
+    uq = torch.full((c - 1, a), 0.4, device=cuda)
+    tours, lengths = port_af.construct_tours_cuda(flat, dist, start, seed,
+                                                  q0, u, uq)
+    want = port_af.construct_tours_plain(flat, dist, start, seed, q0, u, uq)
+    assert torch.equal(tours, want[0]) and torch.equal(lengths, want[1])
+    for k in range(a):
+        rest = [x for x in range(c) if x != int(start[k])]
+        assert tours[k, 1:].tolist() == rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [7, 256, 700])
+def test_tours_redesign_invalid_starts(cuda, c):
+    # An ant starting outside [0, C) gets tour -1 and length NaN; the
+    # others are the plain version's, whatever their neighbours in the
+    # team's block do.
+    a = 13
+    logits, dist, start, seed, _ = _team_inputs(c, a, c, cuda, False)
+    bad = torch.tensor([0, 4, 5, 12])
+    start = start.clone()
+    start[bad.to(cuda)] = torch.tensor([-1, c, -7, 2**30], dtype=torch.int32,
+                                       device=cuda)
+    tours, lengths = port_af.construct_tours_cuda(logits, dist, start, seed)
+    assert (tours[bad] == -1).all() and torch.isnan(lengths[bad]).all()
+    ok = torch.ones(a, dtype=torch.bool)
+    ok[bad] = False
+    fixed = torch.where(ok.to(cuda), start, torch.zeros_like(start))
+    want = port_af.construct_tours_plain(logits, dist, fixed, seed)
+    assert torch.equal(tours[ok], want[0][ok])
+    assert torch.equal(lengths[ok], want[1][ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [
+    (96, 2, 1, 256),        # a team that is not 1, 2 or 4 warps
+    (64, 2, 1, 256),        # teams that do not fill a block
+    (64, 4, 3, 256),        # three blocks of four a lane
+    (32, 8, 1, 0),          # 128 slots for 200 cities
+    (64, 4, 1, 0),          # no room for the warps' exchange
+], ids=["lanes96", "ants2", "per_lane3", "short", "no_shared"])
+def test_tours_entry_rejects_a_geometry_it_cannot_run(cuda, monkeypatch,
+                                                       geo):
+    # The wrapper hands tour_geometry's team to the entry, which checks it:
+    # a geometry its kernels cannot run launches nothing and counts nothing.
+    logits, dist, start, seed, _ = _team_inputs(200, 9, 4, cuda, False)
+    monkeypatch.setattr(port_af, "tour_geometry",
+                        lambda c: port_af.TourGeometry(*geo))
+    before = port_af.TOURS_LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        port_af.construct_tours_cuda(logits, dist, start, seed)
+    assert port_af.TOURS_LAUNCHES == before
+
+
+def _eager_aco(state, n_steps, n_ants, out, **kw):
+    for _ in range(n_steps):
+        state = port_af.fused_aco_step(state, n_ants, out=out, **kw)
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,a,q0,elite", [(256, 1024, 0.0, 3.0),
+                                          (131, 77, 0.1, 4.0)],
+                         ids=["C256-A1024", "C131-A77-q0.1"])
+def test_graph_replayed_aco_run_equals_the_eager_loop(cuda, c, a, q0, elite):
+    coords = torch.rand((c, 2), generator=torch.Generator().manual_seed(c))
+    dist = port_aco.coords_to_dist(coords * 100.0).to(cuda)
+    kw = dict(q0=q0, elite=elite)
+    eager_out, graph_out = {}, {}
+    eager = _eager_aco(port_aco.aco_init(dist, seed=5), 21, a, eager_out,
+                       **kw)
+    st = port_aco.aco_init(dist, seed=5)
+    before = port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    graph = port_af.fused_aco_run(st, 21, a, out=graph_out, **kw)
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == (
+        before[0] + 21, before[1] + 21)
+    captured = port_af._replay.graph
+    for f in ("tau", "best_tour", "best_len", "iteration"):
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+    for f in ("tours", "lengths"):
+        assert torch.equal(graph_out[f], eager_out[f]), f
+    assert int(graph.iteration) == 21
+    # The graph advanced the generator as the eager loop did; a second run
+    # from there replays the same capture and goes on equal, and neither
+    # run wrote the state it was given.
+    assert torch.equal(graph.gen.get_state(), eager.gen.get_state())
+    tau = graph.tau.clone()
+    again = port_af.fused_aco_run(graph, 3, a, **kw)
+    assert port_af._replay.graph is captured
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == (
+        before[0] + 24, before[1] + 24)
+    eager = _eager_aco(eager, 3, a, None, **kw)
+    assert torch.equal(again.tau, eager.tau)
+    assert torch.equal(again.best_tour, eager.best_tour)
+    assert int(st.iteration) == 0 and torch.equal(graph.tau, tau)
+
+
+@pytest.mark.cuda
+def test_graph_replayed_aco_run_counts_and_raises(cuda):
+    coords = torch.rand((64, 2), generator=torch.Generator().manual_seed(1))
+    st = port_aco.aco_init(port_aco.coords_to_dist(coords).to(cuda))
+    before = port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    out = port_af.fused_aco_run(st, 0, 32)
+    assert out is st
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == before
+    with pytest.raises(ValueError, match="host"):
+        port_af.fused_aco_run(st, 2, 32, draws=[None, None])
+    # A step the kernels do not take raises during the capture; nothing
+    # runs eagerly in its place.
+    with pytest.raises(ValueError, match="2048"):
+        port_af.fused_aco_run(port_aco.aco_init(torch.zeros(
+            (2049, 2049), device=cuda)), 2, 4)
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == before
+    # A run of other parameters captures anew; the next run of the same
+    # colony replays that capture.
+    one = port_af.fused_aco_run(st, 2, 32)
+    first = port_af._replay.graph
+    two = port_af.fused_aco_run(one, 1, 32, elite=1.0)
+    assert port_af._replay.graph is not first
+    second = port_af._replay.graph
+    port_af.fused_aco_run(two, 1, 32, elite=1.0)
+    assert port_af._replay.graph is second
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == (
+        before[0] + 4, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_graph_replayed_aco_run_counts_what_its_capture_launched(
+        cuda, monkeypatch):
+    # Each replay adds the launches its capture recorded; a capture that
+    # recorded other than one launch of each kernel raises and is not
+    # kept, and a graph the caller captures counts nothing.
+    coords = torch.rand((40, 2), generator=torch.Generator().manual_seed(4))
+    st = port_aco.aco_init(port_aco.coords_to_dist(coords).to(cuda))
+    step = port_af.fused_aco_step
+
+    def two_deposits(state, *args, **kw):
+        nxt = step(state, *args, **kw)
+        port_af.fused_deposit_matrix(kw["out"]["tours"], kw["out"]["lengths"])
+        return nxt
+
+    monkeypatch.setattr(port_af, "fused_aco_step", two_deposits)
+    before = port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES
+    with pytest.raises(RuntimeError, match="once each"):
+        port_af.fused_aco_run(st, 3, 16, rho=0.3)
+    assert port_af._replay is None
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == before
+    logits = port_aco.aco_logits(st.tau, st.dist, 1.0, 2.0)
+    start = torch.zeros(16, dtype=torch.int32, device=cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tours, lengths = port_af.construct_tours_cuda(logits, st.dist, start,
+                                                      seed)
+        port_af.deposit_matrix_cuda(tours, 1.0 / lengths)
+    graph.replay()
+    assert (port_af.TOURS_LAUNCHES, port_af.DEPOSIT_LAUNCHES) == before
+
+
+PSO_REDESIGN_DIMS = [1, 2, 3, 4, 5, 31, 64, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("k_steps,rng", [(1, "host"), (8, "device")])
+@pytest.mark.parametrize("d", PSO_REDESIGN_DIMS)
+def test_pso_redesign_equals_plain_across_widths(cuda, name, k_steps, rng, d):
+    n = 333
+    hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = _pso_inputs(
+        name, n, d, d + 3, cuda)
+    kw = dict(objective_name=name, half_width=hw, rng=rng, k_steps=k_steps,
+              track_best=True, step0=2**32 - 3)
+    rr = (r1, r2) if rng == "host" else (None, None)
+    got = port_pf.fused_pso_step_cuda(seed, gbest, pos, vel, bpos, bfit,
+                                      *rr, **kw)
+    want = port_pf.fused_pso_step_plain(seed, gbest, pos, vel, bpos, bfit,
+                                        *rr, **kw)
+    _assert_kernel_equals_plain(name, got, want, bfit, k_steps)
+    if name != "ackley":
+        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rastrigin", "schwefel", "levy"])
+@pytest.mark.parametrize("k_steps,rng", [(1, "host"), (8, "device")])
+@pytest.mark.parametrize("d,n_l", [(3, 157), (30, 256), (13, 64), (65, 300)])
+def test_islands_redesign_equals_plain(cuda, name, k_steps, rng, d, n_l):
+    # n_l = 256 puts every 128-thread block inside one island (the column
+    # staged in shared memory); 157, 64 and 300 give blocks that span
+    # islands (read from global memory).
+    n_i = 3
+    hw, seed, gbest, pos, vel, bpos, bfit, r1, r2 = _pso_inputs(
+        name, n_i * n_l, d, d + n_l, cuda, islands=n_i)
+    kw = dict(objective_name=name, half_width=hw, lanes_per_island=n_l,
+              rng=rng, k_steps=k_steps, step0=11)
+    rr = (r1, r2) if rng == "host" else (None, None)
+    got = port_isl.islands_step_cuda(seed, gbest, pos, vel, bpos, bfit, *rr,
+                                     **kw)
+    want = port_isl.islands_step_plain(seed, gbest, pos, vel, bpos, bfit,
+                                       *rr, **kw)
+    _assert_kernel_equals_plain(name, got, want, bfit, k_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 6, 30])
+@pytest.mark.parametrize("step0", [0, 12345, 2**32 - 1])
+def test_pso_redesign_draws_both_streams(cuda, d, step0):
+    # The hoisted Philox pair at PSO's counters (lane, d // 4, step, stream):
+    # with w = 0 and one of c1, c2 zero, one step leaves vel equal to the
+    # other stream's uniforms, which must be philox4x32_10's.
+    n = 1000
+    seed = torch.tensor([987 + d], dtype=torch.int32, device=cuda)
+    zeros = torch.zeros((d, n), device=cuda)
+    ones = zeros + 1.0
+    common = dict(objective_name="sphere", w=0.0, half_width=100.0,
+                  k_steps=1, step0=step0, track_best=False)
+    r1 = port_pf.fused_pso_step_cuda(
+        seed, torch.zeros((d, 1), device=cuda), zeros, zeros, ones,
+        torch.zeros((1, n), device=cuda), c1=1.0, c2=0.0, **common)[1]
+    r2 = port_pf.fused_pso_step_cuda(
+        seed, torch.ones((d, 1), device=cuda), zeros, zeros, zeros,
+        torch.zeros((1, n), device=cuda), c1=0.0, c2=1.0, **common)[1]
+    assert torch.equal(r1, port_pf.philox_uniforms(seed, n, d, step0, 0))
+    assert torch.equal(r2, port_pf.philox_uniforms(seed, n, d, step0, 1))
+
+
+@pytest.mark.cuda
+def test_pso_aco_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["aco_fused", "pso_fused"])
+    # Tours: 3 team widths of blocks x 3 rules x 2 sources of the draws;
+    # PSO: 4 classes of D mod 4 x 10 objectives x 2 sources.
+    for name, kernel, variants in (("aco_fused", "tours_kernel", 18),
+                                   ("pso_fused", "pso_fused_kernel", 80)):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines()
+                   if "Compiling entry" in ln and kernel in ln]
+        assert len(entries) == variants, (name, len(entries))
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

@@ -14,7 +14,11 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    of the redesigned B20's main kernel (one block of four cities a lane,
    sampling, device draws; and two blocks a lane, for C = 1,024) and of
    B5's and B6's (D mod 4 = 2, rastrigin, device draws), whose step loops
-   give the issue floors of phases 8, 9 and 14;
+   give the issue floors of phases 8, 9 and 14; and of B10's and B12's
+   main kernels (the staged DE windows, the cuckoo tile on chip across a
+   cluster; D mod 4 = 2, rastrigin, device draws) with their registers
+   and spills, beside their second variants (the first versions, kept),
+   whose step loops give the issue floors of phases 12 and 13;
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -111,10 +115,13 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    flame) rising, every position inside the domain; SHADE's device busy
    share from a trace of 16 more generations; then one launch of the kernel
    at the final state against its plain version, timed beside it and its
-   bound.  Phase 3 holds the four kernels at small ragged shapes (4 tiles or
-   more, 1 and k steps, GA at every k from 1 to 8, draws handed in and made
-   in the kernel) and phase 4 three launches of each on the CPU and on the
-   card;
+   bound (B10 also beside its issue floor, and in both its variants at CR
+   = 0.9 and at CR = 0, where no gene crosses and the first version reads
+   no donor, the second variant held against the plain version too).  Phase 3 holds the four kernels at
+   small ragged shapes (4 tiles or more, 1 and k steps, GA at every k from
+   1 to 8, draws handed in and made in the kernel; DE past 32 genes, in its
+   second variant at D = 200, and with windows longer than the tile) and
+   phase 4 three launches of each on the CPU and on the card;
 13. full width, cuckoo search, Harris hawks, the artificial bee colony and
    parallel tempering, each at its JAX bench's configuration, Rastrigin-30D
    at 1,048,576 in 256 tiles of 4,096 lanes (benchmarks/bench_cuckoo_1m.py:
@@ -128,11 +135,15 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    one launch of the kernel at the final state against its plain version,
    timed beside it and its bound (the data-dependent work, abandoned,
    exploring, diving, probed and exhausted lanes, tallied by the plain
-   version on the same inputs).  Phase 3 holds the four kernels at small
-   ragged shapes (4 tiles or more, an explicit tile, every k from 1 to the
-   family's cap, draws handed in and made in the kernel, ABC at a small
-   limit so that its scouts fire, PT with padded lanes and with the widest
-   halo) and phase 4 three launches of each on the CPU and on the card.
+   version on the same inputs; B12 also beside its issue floor, and in
+   both its variants at pa = 0.25 and at pa = 0, where no lane walks, the
+   second variant held against the plain version too).  Phase 3 holds the
+   four kernels at small ragged shapes (4 tiles or more, an explicit tile,
+   every k from 1 to the family's cap, draws handed in and made in the
+   kernel, ABC at a small limit so that its scouts fire, PT with padded
+   lanes and with the widest halo; cuckoo in clusters of 4 and 16 blocks,
+   of 256 and 512 lanes, and in its second variant at a tile of 16,384)
+   and phase 4 three launches of each on the CPU and on the card.
 14. full width, firefly and ACO at their JAX benches: ``Firefly("rastrigin",
    n=65_536, dim=30)`` for 8 generations and ``n=16_384`` for 32
    (benchmarks/bench_firefly_64k.py:17-24), each after a warm-up run: one
@@ -182,6 +193,7 @@ Any failure raises, so the script exits non-zero and prints no ok line.
 It exits non-zero at once where no CUDA device is available.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -371,6 +383,11 @@ PSO_OPS_PER_ELEMENT_STEP = 50 + 6 + 14 + 23
 TOURS_MAIN = "tours_kernelILi1ELi0ELb0E"
 TOURS_MAIN_K2 = "tours_kernelILi2ELi0ELb0E"
 PSO_MAIN = "pso_fused_kernelILi2ELi1ELb0E"
+# The main kernels of the redesigned B10 and B12 (PR 12): D mod 4 = 2,
+# rastrigin, device draws; and their second variants, the first versions.
+DE_MAIN = "de_staged_kernelILi2ELi1ELb0E"
+CUCKOO_MAIN = "cuckoo_cluster_kernelILi2ELi1ELb0E"
+SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -1216,6 +1233,106 @@ def pso_issue_floor(census, n, d, k_steps, clock_mhz):
     return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
 
 
+def ptxas_of(log, function):
+    """The lines ptxas wrote for the kernel whose mangled name holds
+    ``function`` (its registers and spills) in a build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and function in line:
+            return [ln.strip() for ln in lines[i + 1:i + 4]
+                    if "registers" in ln or "spill" in ln]
+    return []
+
+
+def inner_loops(census):
+    """(instructions of the outermost loop, the instructions of each loop
+    inside it, largest first) of a census."""
+    loops = census.get("loops") or []
+    if not loops:
+        return None, []
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    return outer[2], sorted((lp[2] for lp in loops if lp is not outer
+                             and outer[0] <= lp[0] and lp[1] <= outer[1]),
+                            reverse=True)
+
+
+# B10's issue floor on one launch, counted as B5's: the gene chunk loop D //
+# 4 times a step and the rest of the step loop (the last D mod 4 genes, the
+# objective's close, the acceptance test), the acceptance's rewrite left
+# out.
+de_issue_floor = pso_issue_floor
+
+
+def cuckoo_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B12's issue floor on one launch: a generation's two chunk loops
+    (the candidate's and the walk's, four dimensions each; every warp walks,
+    since nearly every warp holds an abandoned lane) D // 4 times, plus
+    what the generation loop holds outside its inner loops (the last D mod
+    4 dimensions, the objective's close, the egg's and the abandonment's
+    tests), the egg's copy (taken only where an egg wins) left out."""
+    outer, inner = inner_loops(census)
+    if len(inner) < 2:
+        return None, None
+    per_step = (d // 4) * (inner[0] + inner[1]) + outer - sum(inner)
+    return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
+
+
+@contextlib.contextmanager
+def geometry(mod, name, fn):
+    """``mod``'s wrapper with ``fn`` in place of its geometry function
+    ``name``: how a kernel's second variant is run at the main path's
+    shape."""
+    orig = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def variant_times(fam, mod, kernel, args, step_kw, want, k_steps, smi):
+    """B10 or B12 at the main path's final state in both variants (the
+    second, the first version, reached with ``global_geometry`` in place of
+    the module's geometry function), at the run's CR or pa and at 0 (no
+    gene crosses, no lane walks): device milliseconds, and the second
+    variant against the plain version."""
+    name, fn = f"{fam}_geometry", mod.global_geometry
+    knob, run_value = {"de": ("cr", 0.9), "cuckoo": ("pa", 0.25)}[fam]
+    out = dict(phase=f"{fam}_variants", shape=[ZOO_DIM, ZOO_N],
+               k_steps=k_steps, knob=knob, smi=smi)
+    for variant, ctx in ((0, contextlib.nullcontext()),
+                         (1, geometry(mod, name, fn))):
+        with ctx:
+            if variant == 1:
+                out["second_variant_vs_plain"] = compare_family(
+                    fam, "rastrigin", "main path, final state, second "
+                    "variant", kernel(*args, **step_kw), want, k_steps)
+            for value in (run_value, 0.0):
+                kw = dict(step_kw, **{knob: value})
+                out[f"variant{variant}_{knob}{value}_ms"] = cuda_ms(
+                    lambda: kernel(*args, **kw), 10)
+    record(**out)
+
+
+def pr12_census(build, census):
+    """PR 12's redesigns: the census of B10's and B12's main kernels, whose
+    step loops give the issue floors of phases 12 and 13 (into
+    ``census``), with their registers and spills, and of their second
+    variants."""
+    for fam, source, function in (("de", "de_fused", DE_MAIN),
+                                  ("cuckoo", "cuckoo_fused", CUCKOO_MAIN)):
+        census[fam] = sass_census(build, source, function)
+        log = build.build_log(source)
+        census[f"{fam}_ptxas"] = ptxas_of(log, function)
+        record(phase="redesigned_builds_pr12", kernel=function,
+               ptxas=census[f"{fam}_ptxas"], census=census[fam],
+               loops_inside_the_step_loop=inner_loops(census[fam]),
+               second_variant=SECOND_VARIANTS[fam],
+               second_variant_ptxas=ptxas_of(log, SECOND_VARIANTS[fam]),
+               second_variant_census=sass_census(build, source,
+                                                 SECOND_VARIANTS[fam]))
+
+
 def reset_launches(kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1586,12 +1703,20 @@ def rot_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0):
 def rot_small_shapes(mods, pf, dev):
     """Phase 3's part for DE, SHADE, GA and MFO: each kernel against its
     plain version at ragged shapes, with 4 or more tiles, 1 and k steps,
-    both rng modes; GA at every k from 1 to 8 (the tile kept in step)."""
+    both rng modes; GA at every k from 1 to 8 (the tile kept in step); DE
+    at the main path's tile, past 32 genes (a mask word in shared memory),
+    in its second variant (D = 200) and with windows longer than the tile
+    (96 lanes)."""
     cases = [
         ("de", "rastrigin", 512, 8, 1, "host", 128),
         ("de", "sphere", 480, 30, 32, "device", 96),
         ("de", "michalewicz", 640, 1, 8, "device", 160),
         ("de", "ackley", 4096, 30, 32, "device", 1024),
+        ("de", "rastrigin", 16384, 30, 32, "device", 4096),
+        ("de", "levy", 2048, 70, 4, "device", 512),
+        ("de", "griewank", 4000, 33, 8, "device", 1000),
+        ("de", "rosenbrock", 1024, 200, 2, "device", 256),
+        ("de", "schwefel", 384, 31, 32, "device", 96),
         ("shade", "rastrigin", 512, 8, 1, "host", 128),
         ("shade", "griewank", 1280, 30, 1, "device", 256),
         ("shade", "levy", 512, 1, 1, "device", 128),
@@ -1735,11 +1860,12 @@ def rot_launch_args(mods, fam, state, seed, dev):
             dict(kw, k_steps=k, step0=steps))
 
 
-def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
+def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     """Phase 12 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked (SHADE's device busy share from a
     trace of more generations); then one launch at the final state against
-    its plain version, timed beside it and its bound."""
+    its plain version, timed beside it and its bound (DE also beside its
+    issue floor, and in both variants)."""
     steps, k, t_max = ROT[fam]
     mod = mods[fam]
     model = {"de": dsa.DE, "shade": dsa.SHADE, "ga": dsa.GA,
@@ -1810,12 +1936,19 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
         lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
+    if fam == "de":
+        variant_times(fam, mod, kernel, args, step_kw, want, k, smi)
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k)
+    floor = (de_issue_floor(census["de"], ZOO_N, ZOO_DIM, k,
+                            census["clock_mhz"]) if fam == "de"
+             else (None, None))
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
            bound_by=bound_by, operations=ops, bytes=nbytes,
+           instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
+           ptxas=census.get(f"{fam}_ptxas"),
            kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
            smi=smi, seconds_so_far=time.perf_counter() - t_start)
     return dict(name=f"{fam}_fused", route="cuda",
@@ -1890,13 +2023,20 @@ def levy_small_shapes(mods, pf, dev):
     """Phase 3's part for cuckoo, HHO, ABC and PT: each kernel against its
     plain version at ragged shapes with 4 tiles or more and an explicit
     tile, both rng modes, the objectives, and every k from 1 to the
-    family's cap; ABC at a small limit (its scouts fire), PT with padded
-    lanes (n_real < n) and with the widest halo (swap_every = 1)."""
+    family's cap; cuckoo in clusters of 16 blocks (of 256 lanes: the main
+    path's tile; of 512: a tile of 8,192) and of 4, and in its second
+    variant (a tile of 16,384); ABC at a small limit (its scouts fire), PT
+    with padded lanes (n_real < n) and with the widest halo (swap_every =
+    1)."""
     cases = [
         ("cuckoo", "rastrigin", 512, 8, 1, "host", 128, {}),
         ("cuckoo", "sphere", 480, 30, 8, "device", 96, {}),
         ("cuckoo", "michalewicz", 640, 1, 8, "device", 160, {}),
         ("cuckoo", "ackley", 4096, 30, 8, "device", 1024, {}),
+        ("cuckoo", "rastrigin", 16384, 30, 8, "device", 4096, {}),
+        ("cuckoo", "rastrigin", 32768, 8, 8, "device", 8192, {}),
+        ("cuckoo", "zakharov", 4000, 33, 8, "device", 1000, {}),
+        ("cuckoo", "griewank", 65536, 30, 3, "device", 16384, {}),
         ("hho", "rastrigin", 512, 8, 1, "host", 128, {}),
         ("hho", "griewank", 1000, 30, 8, "device", 200, {}),
         ("hho", "levy", 640, 1, 8, "device", 160, {}),
@@ -2067,11 +2207,12 @@ def levy_launch_args(fam, opt, seed, dev):
              1.0 / temps], dict(kw, swap_every=opt.swap_every))
 
 
-def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
+def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     """Phase 13 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked, the device's busy share from a
     trace of one more launch; then one launch at the final state against
-    its plain version, timed beside it and its bound."""
+    its plain version, timed beside it and its bound (cuckoo also beside
+    its issue floor, and in both variants)."""
     steps, k, t_max = LEVY[fam]
     mod = mods[fam]
     model = {"cuckoo": dsa.Cuckoo, "hho": dsa.HarrisHawks, "abc": dsa.ABC,
@@ -2132,8 +2273,13 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
         *args, **step_kw, counts=counts))
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
+    if fam == "cuckoo":
+        variant_times(fam, mod, kernel, args, step_kw, want, k, smi)
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
+    floor = (cuckoo_issue_floor(census["cuckoo"], ZOO_N, ZOO_DIM, k,
+                                census["clock_mhz"]) if fam == "cuckoo"
+             else (None, None))
     rounds = 0
     if fam == "pt":
         it0 = int(opt.state.iteration)
@@ -2145,6 +2291,8 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev):
            bound_by=bound_by, operations=ops, bytes=nbytes,
            data_dependent_lanes={key: int(sum(int(v) for v in vals))
                                  for key, vals in counts.items()},
+           instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
+           ptxas=census.get(f"{fam}_ptxas"),
            kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
            smi=smi, seconds_so_far=time.perf_counter() - t_start)
     return dict(name=f"{fam}_fused", route="cuda",
@@ -2916,6 +3064,7 @@ def main():
     record(phase="redesigned_builds_pr11", **census,
            tours_step_loop=step_loop(census["tours"]),
            pso_step_and_chunk_loops=step_loop(census["pso"]))
+    pr12_census(_build, census)
 
     # 3. kernels vs plain on the card ---------------------------------------
     separation_small_shapes(sep, dev)
@@ -3366,12 +3515,12 @@ def main():
                 for fam, mod in zoo.items()]
 
     # 12. DE, SHADE, GA and moth-flame optimization at full width ----------
-    rot_rows = [rot_full_width(dsa, fam, rot, kernels, smi, t_start, dev)
-                for fam in rot]
+    rot_rows = [rot_full_width(dsa, fam, rot, kernels, smi, t_start, dev,
+                               census) for fam in rot]
 
     # 13. cuckoo, Harris hawks, ABC and parallel tempering at full width ----
-    levy_rows = [levy_full_width(dsa, fam, levy, kernels, smi, t_start, dev)
-                 for fam in levy]
+    levy_rows = [levy_full_width(dsa, fam, levy, kernels, smi, t_start,
+                                 dev, census) for fam in levy]
 
     # 14. firefly and ACO at full width ---------------------------------------
     ff_row = firefly_full_width(dsa, ff, kernels, smi, t_start, dev)

@@ -68,7 +68,8 @@
 //   - the kernel is a template on D mod 4: the chunks of four run with no
 //     mask, and the last D mod 4 dimensions are a chunk of their own;
 //   - the objective is a template parameter (one kernel each, picked by
-//     the entry); sphere, rastrigin, schwefel and styblinski_tang, sums of
+//     the entry; swarm_objectives.cuh: ObjectiveOf); sphere, rastrigin,
+//     schwefel and styblinski_tang, sums of
 //     per-dimension terms, fold each term into the update loop as its
 //     coordinate moves (ascending d, from -0, the plain version's order),
 //     the others keep the second pass over the staged column;
@@ -139,36 +140,6 @@ struct Column {
 using dsa::obj::add;
 using dsa::obj::mul;
 using dsa::obj::sub;
-
-// The objective of a launch, fixed at compile time.  kFold: a sum of
-// per-dimension terms, folded into the update loop (each term added as its
-// coordinate moves, in ascending d, from -0); otherwise a second pass over
-// the particle's staged column after the update.
-template <int kObj>
-struct Objective {
-  static constexpr bool kFold =
-      kObj == dsa::kSphere || kObj == dsa::kRastrigin
-      || kObj == dsa::kSchwefel || kObj == dsa::kStyblinskiTang;
-  __device__ __forceinline__ static float term(float v) {
-    switch (kObj) {
-      case dsa::kSphere: return dsa::obj::sphere_term(v);
-      case dsa::kRastrigin: return dsa::obj::rastrigin_term(v);
-      case dsa::kSchwefel: return dsa::obj::schwefel_term(v);
-      default: return dsa::obj::styblinski_tang_term(v);
-    }
-  }
-  __device__ __forceinline__ static float close(float s, int dim) {
-    switch (kObj) {
-      case dsa::kSphere: return dsa::obj::sphere_close(s, dim);
-      case dsa::kRastrigin: return dsa::obj::rastrigin_close(s, dim);
-      case dsa::kSchwefel: return dsa::obj::schwefel_close(s, dim);
-      default: return dsa::obj::styblinski_tang_close(s, dim);
-    }
-  }
-  __device__ __forceinline__ static float whole(const Column& x, int dim) {
-    return dsa::evaluate_objective(kObj, x, dim);
-  }
-};
 
 __device__ __forceinline__ bool better(float fit, int lane, float other_fit,
                                        int other_lane) {
@@ -241,7 +212,7 @@ __device__ __forceinline__ void chunk_uniforms(
 template <int kR, int kObj, bool kHost>
 __device__ __forceinline__ float run_steps(const PsoArgs& a, const Lane& l,
                                            float bfit) {
-  using Obj = Objective<kObj>;
+  using Obj = dsa::ObjectiveOf<kObj>;
   const int dim = a.dim;
   const int full = dim >> 2;   // chunks of four; kR dimensions after them
   const uint32_t seed = kHost ? 0u : static_cast<uint32_t>(*a.seed);

@@ -266,4 +266,36 @@ __device__ float evaluate_objective(int which, const X& x, int dim) {
   }
 }
 
+// The objective of a launch, fixed at compile time (the kernels that are
+// templates on it: pso_fused.cu, de_fused.cu, cuckoo_fused.cu).  kFold: a
+// sum of per-dimension terms, which a kernel folds into its update loop
+// (each term added as its coordinate moves, in ascending d, from -0, then
+// closed); otherwise a second pass over the particle's coordinates.
+template <int kObj>
+struct ObjectiveOf {
+  static constexpr bool kFold =
+      kObj == kSphere || kObj == kRastrigin || kObj == kSchwefel
+      || kObj == kStyblinskiTang;
+  __device__ __forceinline__ static float term(float v) {
+    switch (kObj) {
+      case kSphere: return obj::sphere_term(v);
+      case kRastrigin: return obj::rastrigin_term(v);
+      case kSchwefel: return obj::schwefel_term(v);
+      default: return obj::styblinski_tang_term(v);
+    }
+  }
+  __device__ __forceinline__ static float close(float s, int dim) {
+    switch (kObj) {
+      case kSphere: return obj::sphere_close(s, dim);
+      case kRastrigin: return obj::rastrigin_close(s, dim);
+      case kSchwefel: return obj::schwefel_close(s, dim);
+      default: return obj::styblinski_tang_close(s, dim);
+    }
+  }
+  template <class X>
+  __device__ __forceinline__ static float whole(const X& x, int dim) {
+    return evaluate_objective(kObj, x, dim);
+  }
+};
+
 }  // namespace dsa

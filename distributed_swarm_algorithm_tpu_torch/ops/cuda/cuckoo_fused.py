@@ -19,7 +19,10 @@ strictly better (a bijective egg drop, so no conflict); then each lane
 with ``u_ab < pa`` is rebuilt by a walk ``u (x1 - x2)`` over lane rolls of
 the block-start tiles ``i + s1`` and ``i + s2`` (the two tile shifts need
 not differ).  The egg roll reads the whole tile's candidates of the same
-generation, so the kernel runs one block per tile and synchronizes it.
+generation, so the kernel keeps a tile in step: across a thread-block
+cluster whose blocks hold the tile's state in shared memory for the whole
+launch, or, where that state does not fit 16 blocks, in one block through
+global scratch (:func:`cuckoo_geometry` picks; the kernel's entry checks).
 
 Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed; the
 Box-Muller pair's two uniforms on streams 0 and 1 and the walk's on
@@ -33,16 +36,18 @@ global step, stream); ``u_ab`` is word 0 of the call (lane, 0, global step,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..cuckoo import LEVY_BETA, PA, STEP_SCALE, CuckooState, mantegna_sigma
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .family import LANE_SHIFTS, donor_tiles, roll_lanes
 from .fast_math import levy_power, normal_pair
+from .ga_fused import tile_threads
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -64,6 +69,49 @@ _fn = None   # the C entry, bound at the first launch
 MAX_STEPS_PER_KERNEL = 8
 
 
+# The cluster variant: a thread a lane, at most 256 lanes a block where 16
+# blocks hold the tile (three such blocks fit an SM at D = 30), else at
+# most 512; the cluster sizes the entry takes (16 as a non-portable size).
+CLUSTER_LANES, CLUSTER_MAX_LANES = 256, 512
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+class CuckooGeometry(NamedTuple):
+    """How the kernel runs a tile, handed to its entry, which checks it."""
+    variant: int    # 0: on chip across a cluster; 1: through global scratch
+    cluster: int    # blocks a tile
+    lanes: int      # lanes a block
+    threads: int    # threads a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def cluster_bytes(dim: int, lanes: int) -> int:
+    """Shared memory of a cluster block of ``lanes`` lanes: positions, a
+    generation's candidates and their fitness, and the best."""
+    return 4 * (2 * dim * lanes + lanes + ceil_to(dim, 4))
+
+
+def cuckoo_geometry(dim: int, tile_n: int) -> CuckooGeometry:
+    """The smallest cluster whose blocks, ``ceil(tile_n / cluster)`` lanes
+    each, at most 256 (else 512), hold a tile's state within a block's
+    shared memory; where none does (an explicit tile above 8,192 lanes, or
+    D above ~3,500), one block a tile through global scratch."""
+    for most in (CLUSTER_LANES, CLUSTER_MAX_LANES):
+        for cluster in CLUSTER_SIZES:
+            lanes = -(-tile_n // cluster)
+            shared = cluster_bytes(dim, lanes)
+            if lanes <= most and shared <= MAX_SHARED_BYTES:
+                return CuckooGeometry(0, cluster, lanes, ceil_to(lanes, 32),
+                                      shared)
+    return global_geometry(dim, tile_n)
+
+
+def global_geometry(dim: int, tile_n: int) -> CuckooGeometry:
+    """The global-scratch variant (the first version) at any shape: one
+    block a tile."""
+    return CuckooGeometry(1, 1, tile_n, tile_threads(tile_n), 0)
+
+
 def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
     """The kernel's host-RNG operands ``(r_levy1, r_levy2, r_ab, r_walk)``,
     in the JAX package's order (``cuckoo_fused.host_draws``), from
@@ -77,8 +125,8 @@ def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
 def cuckoo_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
     """True if the fused kernel covers this config (else use the portable
     path): a named objective, float32 and michalewicz within its phase
-    bound.  The kernel keeps no per-dimension state in shared memory, so D
-    is free.  The name is the JAX package's."""
+    bound.  D is free: a tile too large for a cluster runs through global
+    scratch.  The name is the JAX package's."""
     return family.family_supported(objective_name, dtype, dim, lambda d: 1)
 
 
@@ -168,7 +216,8 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("cuckoo_fused", "dsa_cuckoo_fused_f32", 14,
-                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 5)
+                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 5
+                          + [i] * 5)
     return _fn
 
 
@@ -181,11 +230,11 @@ def fused_cuckoo_step_cuda(
 ):
     """Launch the CUDA kernel: ``k_steps`` fused cuckoo generations on
     ``pos`` [D, N] and ``fit`` [1, N] toward ``best_pos`` [D, 1] (f32,
-    contiguous, one CUDA device; N a multiple of ``tile_n``), one block per
-    tile.  ``scalars`` is [6] int32 on the device: the seed, the two peer
-    tile shifts and the egg's and the two peers' lane shifts; ``step0`` is
-    the global index of the launch's first step.  Returns new tensors
-    ``(pos, fit)`` without waiting for the kernel."""
+    contiguous, one CUDA device; N a multiple of ``tile_n``), a tile as
+    :func:`cuckoo_geometry` says.  ``scalars`` is [6] int32 on the device:
+    the seed, the two peer tile shifts and the egg's and the two peers'
+    lane shifts; ``step0`` is the global index of the launch's first step.
+    Returns new tensors ``(pos, fit)`` without waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     draws = (r_levy1, r_levy2, r_ab, r_walk)
@@ -197,22 +246,26 @@ def fused_cuckoo_step_cuda(
         dict(best_pos=(best_pos, (d, 1)), fit=(fit, (1, n)),
              r_levy1=(r_levy1, (d, n)), r_levy2=(r_levy2, (d, n)),
              r_ab=(r_ab, (1, n)), r_walk=(r_walk, (d, n))))
+    geo = cuckoo_geometry(d, int(tile_n))
     pos_out, fit_out = torch.empty_like(pos), torch.empty_like(fit)
-    # The candidates of a generation, and the generations between the first
-    # and the last, which ping-pong between the outputs and a scratch pair.
-    cand, cand_fit = torch.empty_like(pos), torch.empty_like(fit)
-    scratch_pos = torch.empty_like(pos) if k_steps > 1 else pos_out
-    scratch_fit = torch.empty_like(fit) if k_steps > 1 else fit_out
+    scratch = (None,) * 4
+    if geo.variant == 1:
+        # The generations between the first and the last ping-pong between
+        # the outputs and a scratch pair; a generation's candidates go to
+        # a second pair.
+        scratch = (torch.empty_like(pos) if k_steps > 1 else pos_out,
+                   torch.empty_like(fit) if k_steps > 1 else fit_out,
+                   torch.empty_like(pos), torch.empty_like(fit))
     err = _kernel()(
         scalars.data_ptr(), best_pos.data_ptr(), pos.data_ptr(),
         fit.data_ptr(), *(family.ptr(r) for r in (r_levy1, r_levy2, r_ab,
                                                   r_walk)),
-        pos_out.data_ptr(), fit_out.data_ptr(), scratch_pos.data_ptr(),
-        scratch_fit.data_ptr(), cand.data_ptr(), cand_fit.data_ptr(), n, d,
-        int(tile_n), int(k_steps), int(step0) & _MASK32,
-        OBJECTIVE_IDS[objective_name], float(half_width), float(pa),
-        float(step_scale), float(mantegna_sigma(levy_beta)),
-        float(-1.0 / levy_beta), *family.stream_args(pos),
+        pos_out.data_ptr(), fit_out.data_ptr(),
+        *(family.ptr(t) for t in scratch), n, d, int(tile_n), int(k_steps),
+        int(step0) & _MASK32, OBJECTIVE_IDS[objective_name],
+        float(half_width), float(pa), float(step_scale),
+        float(mantegna_sigma(levy_beta)), float(-1.0 / levy_beta), *geo,
+        *family.stream_args(pos),
     )
     family.check_launch(err, "cuckoo")
     LAUNCHES += 1

@@ -22,20 +22,26 @@ Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed, the
 crossover uniforms on stream 0 over the dimensions, counter (lane, block of
 four dimensions, global step, 0).  ``rng="host"`` takes them as the operand
 ``r`` [D, N] (one step per call).
+
+The donors are block-start snapshots, so up to D = 179 the kernel stages,
+once a launch, each block's three donor windows in shared memory
+(:func:`donor_window`); above, it reads them from global memory
+(:func:`de_geometry` picks; the kernel's entry checks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..de import CR, DEState, F
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .family import LANE_SHIFTS, donor_tiles, roll_lanes
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -58,10 +64,79 @@ MAX_STEPS_PER_KERNEL = 32
 
 
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    two ``[D][block]`` f32 tiles (the population and the trial) fit a
-    block's shared memory, or 0 (D > 908)."""
+    """Threads per block of the kernel's global-memory variant: the largest
+    of 128, 64 and 32 whose two ``[D][block]`` f32 tiles (the population
+    and the trial) fit a block's shared memory, or 0 (D > 908): the
+    kernel's envelope."""
     return family.pick_block(lambda block: 2 * dim * block * 4)
+
+
+# Donor k's largest schedule shift and its window's lanes beyond a block's
+# (the largest shift of its LANE_SHIFTS column less the smallest): 37, 95,
+# 113 and 36, 50, 108.
+SHIFT_MAX = tuple(max(col) for col in zip(*LANE_SHIFTS))
+WINDOW_SPAN = tuple(max(col) - min(col) for col in zip(*LANE_SHIFTS))
+# The staged variant's blocks: a thread a lane, a multiple of 32 up to 512.
+STAGED_MAX_LANES = 512
+# Shared memory of an SM and what the card reserves a block (sm_90).
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 228 * 1024, 1024
+
+
+class DeGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: donor windows staged; 1: donors from global memory
+    lanes: int      # lanes (threads) a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def staged_bytes(dim: int, lanes: int) -> int:
+    """Shared memory of a staged block: its own lanes, the three windows
+    ``[D][lanes + span]`` and the crossing masks of all but the last 32
+    genes."""
+    return 4 * (dim * lanes + dim * sum(lanes + s for s in WINDOW_SPAN)
+                + (dim - 1) // 32 * lanes)
+
+
+def donor_window(lanes: int, tile_n: int, j0: int, lshift: int,
+                 k: int) -> Tuple[int, int]:
+    """(first lane, length) of the window of donor k that a staged block of
+    ``lanes`` lanes starting at lane ``j0`` of its tile stages: window
+    element e is tile lane ``(first + e) mod tile_n``, and at step s the
+    block's lane t reads element ``t + SHIFT_MAX[k] -
+    LANE_SHIFTS[s % 8][k]``."""
+    return ((j0 - lshift - SHIFT_MAX[k]) % tile_n, lanes + WINDOW_SPAN[k])
+
+
+def de_geometry(dim: int, tile_n: int) -> DeGeometry:
+    """The staged variant where a block of 32 lanes fits, with the lanes
+    (at most the tile rounded up to a warp) that keep the most warps
+    resident on an SM, by shared memory and threads, among the blocks of
+    which two or more fit an SM (so that one block's staging overlaps
+    another's steps), or among all where none does; the more lanes among
+    equals.  Else the global-memory variant (D <= 908)."""
+    options = []
+    for lanes in range(32, min(STAGED_MAX_LANES, ceil_to(tile_n, 32)) + 1,
+                       32):
+        shared = staged_bytes(dim, lanes)
+        if shared > MAX_SHARED_BYTES:
+            break
+        blocks = min(2048 // lanes,
+                     SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES))
+        options.append((blocks >= 2, blocks * lanes, lanes, shared))
+    if options:
+        _, _, lanes, shared = max(options)
+        return DeGeometry(0, lanes, shared)
+    return global_geometry(dim, tile_n)
+
+
+def global_geometry(dim: int, tile_n: int) -> DeGeometry:
+    """The global-memory variant (the first version) at any D <= 908."""
+    block = kernel_block(dim)
+    if block == 0:
+        raise ValueError(
+            f"the fused DE kernel takes D <= 908 (two [D][32] f32 tiles in "
+            f"{MAX_SHARED_BYTES} bytes of shared memory), got D = {dim}")
+    return DeGeometry(1, block, 2 * dim * block * 4)
 
 
 def de_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -117,7 +192,8 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("de_fused", "dsa_de_fused_f32", 6,
-                          [i, i, i, i, ctypes.c_uint, i, fl, fl, fl])
+                          [i, i, i, i, ctypes.c_uint, i, fl, fl, fl, i, i,
+                           i])
     return _fn
 
 
@@ -128,10 +204,11 @@ def fused_de_step_cuda(
 ):
     """Launch the CUDA kernel: ``k_steps`` fused DE generations on ``pos``
     [D, N] and ``fit`` [1, N] (f32, contiguous, one CUDA device; N a
-    multiple of ``tile_n``).  ``scalars`` is [7] int32 on the device: the
-    seed, the three donor tile shifts and the three donor lane shifts;
-    ``step0`` is the global index of the launch's first step.  Returns new
-    tensors ``(pos, fit)`` without waiting for the kernel."""
+    multiple of ``tile_n``; D <= 908), as :func:`de_geometry` says.
+    ``scalars`` is [7] int32 on the device: the seed, the three donor tile
+    shifts and the three donor lane shifts; ``step0`` is the global index
+    of the launch's first step.  Returns new tensors ``(pos, fit)`` without
+    waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     _check(rng, r, k_steps, tile_n, n)
@@ -139,18 +216,15 @@ def fused_de_step_cuda(
         r = None
     family.check_operands("fused_de_step_cuda", scalars, 7, pos,
                           dict(fit=(fit, (1, n)), r=(r, (d, n))))
-    if kernel_block(d) == 0:
-        raise ValueError(
-            f"fused_de_step_cuda: D = {d} is outside the kernel's envelope "
-            f"(two [D][32] f32 tiles must fit {family.MAX_SHARED_BYTES} "
-            "bytes of shared memory)")
+    geo = de_geometry(d, int(tile_n))
     pos_out = torch.empty_like(pos)
     fit_out = torch.empty_like(fit)
     err = _kernel()(
         scalars.data_ptr(), pos.data_ptr(), fit.data_ptr(), family.ptr(r),
         pos_out.data_ptr(), fit_out.data_ptr(), n, d, int(tile_n),
         int(k_steps), int(step0) & _MASK32, OBJECTIVE_IDS[objective_name],
-        float(f), float(cr), float(half_width), *family.stream_args(pos),
+        float(f), float(cr), float(half_width), *geo,
+        *family.stream_args(pos),
     )
     family.check_launch(err, "de")
     LAUNCHES += 1

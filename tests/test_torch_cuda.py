@@ -2539,3 +2539,186 @@ def test_pso_aco_redesign_builds_spill_no_registers(cuda):
         spills = [ln for ln in log.splitlines() if "spill" in ln]
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# The redesigned cuckoo kernel (B12: a tile on chip across a thread-block
+# cluster, the eggs read through distributed shared memory) and DE kernel
+# (B10: each block's donor windows staged once a launch, no trial tile),
+# each in both its variants, against their plain versions under
+# torch.equal (ackley within its expf band, as above), and the one-stream
+# hoisted Philox of the DE kernel.
+# --------------------------------------------------------------------------
+
+REDESIGN_WIDTHS = [4, 5, 30, 31]          # D mod 4 = 0, 1, 2, 3
+REDESIGN_STEPS = [(1, "host"), (8, "device"), (32, "device")]
+CUCKOO_DE = {"cuckoo": (_levy_case, port_cuckoo, "cuckoo_geometry"),
+             "de": (_rot_case, port_de, "de_geometry")}
+
+
+def _cuckoo_de_equal(fam, name, n, d, k, rng, device, tile_n, seed=0,
+                     lanes=None, **kw_extra):
+    make, mod, _ = CUCKOO_DE[fam]
+    kernel, plain, args, kw = make(fam, name, n, d, k, rng, device, tile_n,
+                                   seed=seed)
+    if lanes is not None:      # the lane shifts, in place of the drawn ones
+        args[0][-3:] = torch.tensor(lanes, dtype=torch.int32)
+    kw.update(kw_extra)
+    before = mod.LAUNCHES
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    assert mod.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal(name, got, want)
+    _assert_family_equal(name, again, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(CUCKOO_DE))
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("k,rng", REDESIGN_STEPS)
+@pytest.mark.parametrize("d", REDESIGN_WIDTHS)
+def test_cuckoo_de_redesign_equals_plain_across_widths(cuda, fam, name, k,
+                                                      rng, d):
+    # Four tiles of 4,096 lanes: cuckoo's tile across a cluster of 16
+    # blocks of 256 lanes, DE's blocks of 512 (D = 4, 5), 192 (30) or 160
+    # (31) lanes, ragged at the tile's end where they do not divide it.
+    _cuckoo_de_equal(fam, name, 16384, d, k, rng, cuda, 4096, seed=d,
+                     step0=2**32 - 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(CUCKOO_DE))
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("n,d,tile_n", [(16384, 30, 4096), (4000, 33, 1000),
+                                        (512, 8, 128), (480, 30, 96)])
+def test_cuckoo_de_redesign_lane_shifts_at_the_tile_edge(
+        cuda, monkeypatch, fam, second, n, d, tile_n):
+    # Every lane shift at tile_n - 1 (and 2 tile_n - 1), so each roll wraps
+    # at the tile's edge; DE's windows at a tile of 96 lanes are longer
+    # than the tile and wrap more than once.
+    _, mod, geometry = CUCKOO_DE[fam]
+    if second:
+        monkeypatch.setattr(mod, geometry, mod.global_geometry)
+    for lanes in ([tile_n - 1] * 3, [2 * tile_n - 1, tile_n - 1, 0]):
+        _cuckoo_de_equal(fam, "rastrigin", n, d, 8, "device", cuda, tile_n,
+                         lanes=lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("knob", [0.0, 1.0])
+def test_cuckoo_de_redesign_at_the_knobs_edges(cuda, monkeypatch, second,
+                                               knob):
+    # CR 0 (no gene crosses: every trial is x) and 1 (every gene does); pa
+    # 0 (no lane walks) and 1 (every lane does).
+    for fam in CUCKOO_DE:
+        _, mod, geometry = CUCKOO_DE[fam]
+        if second:
+            monkeypatch.setattr(mod, geometry, mod.global_geometry)
+        extra = {"cr": knob} if fam == "de" else {"pa": knob}
+        _cuckoo_de_equal(fam, "sphere", 16384, 30, 8, "device", cuda, 4096,
+                         **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,name,n,d,k,rng,tile_n", [
+    ("cuckoo", "rastrigin", 32768, 8, 8, "device", 8192),   # 16 x 512 lanes
+    ("cuckoo", "levy", 8192, 100, 4, "device", 1024),       # 4 x 256 lanes
+    ("cuckoo", "griewank", 65536, 30, 3, "device", 16384),  # second variant
+    ("cuckoo", "sphere", 512, 2500, 2, "device", 128),      # 16 x 8 lanes
+    ("cuckoo", "sphere", 512, 3600, 2, "device", 128),      # second variant
+    ("cuckoo", "schwefel", 2048, 31, 1, "host", 512),
+    ("de", "levy", 2048, 70, 4, "device", 512),             # a mask word
+    ("de", "rosenbrock", 1024, 200, 2, "device", 256),      # second variant
+    ("de", "zakharov", 640, 179, 3, "device", 160),         # 32 lanes a block
+    ("de", "styblinski_tang", 1536, 64, 1, "host", 384),
+], ids=lambda v: str(v))
+def test_cuckoo_de_redesign_geometries(cuda, fam, name, n, d, k, rng,
+                                       tile_n):
+    _cuckoo_de_equal(fam, name, n, d, k, rng, cuda, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,geo", [
+    ("cuckoo", (0, 3, 1366, 1376, 0)),          # a cluster of 3
+    ("cuckoo", (0, 16, 250, 256, 62592)),       # lanes short of the tile
+    ("cuckoo", (0, 16, 256, 256, 62588)),       # bytes not its layout's
+    ("cuckoo", (0, 4, 1024, 1024, 0)),          # 1,024 lanes a block
+    ("cuckoo", (1, 1, 4096, 256, 0)),           # not the first version's
+    ("de", (0, 100, 0)),                        # not whole warps
+    ("de", (0, 192, 115436)),                   # bytes not its layout's
+    ("de", (0, 1024, 0)),                       # past 512 lanes
+    ("de", (1, 64, 15360)),                     # not the first version's
+], ids=lambda v: str(v))
+def test_cuckoo_de_entries_reject_a_geometry_they_cannot_run(
+        cuda, monkeypatch, fam, geo):
+    # The wrapper hands its geometry to the entry, which checks it: one the
+    # kernels cannot run launches nothing and counts nothing.
+    make, mod, geometry = CUCKOO_DE[fam]
+    tup = port_de.DeGeometry if fam == "de" else port_cuckoo.CuckooGeometry
+    monkeypatch.setattr(mod, geometry, lambda d, t: tup(*geo))
+    kernel, _, args, kw = make(fam, "sphere", 16384, 30, 2, "device", cuda,
+                               4096)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_de_hoisted_philox_equals_philox4x32_10(cuda):
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    fn = _build.load("de_fused").dsa_de_philox_check
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = np.random.default_rng(1)
+    edges = [0, 1, 2, 2**31 - 1, 2**31, 2**32 - 1]
+    grid = np.array(np.meshgrid(edges, [0, 1, 7, 2**32 - 1],
+                                [0, 1, 2**32 - 1], [0, 1, 2, 3],
+                                [0, 2025, 2**32 - 1]),
+                    dtype=np.int64).reshape(5, -1)
+    grid = np.concatenate([grid, g.integers(0, 2**32, (5, 4096))], 1)
+    cols = [torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(cuda)
+            for c in grid]
+    m = grid.shape[1]
+    out = torch.empty((m, 8), dtype=torch.int32, device=cuda)
+    err = fn(*(c.data_ptr() for c in cols), m, out.data_ptr(),
+             cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    words = out.cpu().numpy().view(np.uint32).astype(np.int64)
+    assert np.array_equal(words[:, :4], words[:, 4:])
+    # ...and both equal the plain version's words (ops/cuda/pso_fused.py).
+    lane, grp, ctr, stream, seed = (torch.from_numpy(c) for c in grid)
+    for s in range(4):
+        pick = (stream == s).numpy()
+        want = torch.stack(port_pf.philox4x32_10(
+            lane[pick], grp[pick], ctr[pick], s, seed[pick], 0), 1).numpy()
+        assert np.array_equal(words[pick, :4], want), s
+
+
+@pytest.mark.cuda
+def test_cuckoo_de_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["cuckoo_fused", "de_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws, beside
+    # the second variant (and DE's Philox check).
+    for name, kernel, variants, others in (
+            ("cuckoo_fused", "cuckoo_cluster_kernel", 80,
+             ("cuckoo_global_kernel",)),
+            ("de_fused", "de_staged_kernel", 80,
+             ("de_global_kernel", "philox_check_kernel"))):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines()
+                   if "Compiling entry" in ln and kernel in ln]
+        assert len(entries) == variants, (name, len(entries))
+        for other in others:
+            assert other in log, (name, other)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

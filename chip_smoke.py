@@ -18,7 +18,11 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    main kernels (the staged DE windows, the cuckoo tile on chip across a
    cluster; D mod 4 = 2, rastrigin, device draws) with their registers
    and spills, beside their second variants (the first versions, kept),
-   whose step loops give the issue floors of phases 12 and 13;
+   whose step loops give the issue floors of phases 12 and 13; and so for
+   B7's and B17's (the bat step with no candidate tile, the ABC tile on
+   chip across a cluster), whose loops give the issue floors of phases 11
+   and 13 (``redesigned_census``, records ``redesigned_builds_de_cuckoo``
+   and ``redesigned_builds_bat_abc``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -99,10 +103,14 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    a warm-up launch, timed with CUDA events: the launch count, no
    incumbent (gwo: no leader) rising, every position inside the domain;
    then one launch of the kernel at the final state against its plain
-   version, timed beside it and its bound.  Phase 3 holds the four kernels
+   version, timed beside it and its bound (B7 also beside its issue floor,
+   and in both its variants at the final state and at the initial one,
+   where the pulse is 0 and every bat walks, the second variant held
+   against the plain version at both).  Phase 3 holds the four kernels
    at small ragged shapes (several tiles for salp and whale, 1 and k
-   steps, draws handed in and made in the kernel) and phase 4 three
-   launches of each on the CPU and on the card;
+   steps, draws handed in and made in the kernel; B7 at every D mod 4 and
+   in both variants) and phase 4 three launches of each on the CPU and on
+   the card;
 12. full width, differential evolution, SHADE, the genetic algorithm and
    moth-flame optimization, each at its JAX bench's configuration,
    Rastrigin-30D at 1,048,576 in 256 tiles of 4,096 lanes
@@ -137,13 +145,18 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    exploring, diving, probed and exhausted lanes, tallied by the plain
    version on the same inputs; B12 also beside its issue floor, and in
    both its variants at pa = 0.25 and at pa = 0, where no lane walks, the
-   second variant held against the plain version too).  Phase 3 holds the
+   second variant held against the plain version too; B17 likewise at the
+   final state and where every lane is probed, every fitness set to -1).
+   Phase 3 holds the
    four kernels at small ragged shapes (4 tiles or more, an explicit tile,
    every k from 1 to the family's cap, draws handed in and made in the
    kernel, ABC at a small limit so that its scouts fire, PT with padded
    lanes and with the widest halo; cuckoo in clusters of 4 and 16 blocks,
-   of 256 and 512 lanes, and in its second variant at a tile of 16,384)
-   and phase 4 three launches of each on the CPU and on the card.
+   of 256 and 512 lanes, and in its second variant at a tile of 16,384;
+   ABC at every D mod 4, with its lane shifts at the tile's edge, in
+   clusters of 4 and 16 and in its second variant at a tile of 16,384 and
+   at D = 227) and phase 4 three launches of each on the CPU and on the
+   card.
 14. full width, firefly and ACO at their JAX benches: ``Firefly("rastrigin",
    n=65_536, dim=30)`` for 8 generations and ``n=16_384`` for 32
    (benchmarks/bench_firefly_64k.py:17-24), each after a warm-up run: one
@@ -387,7 +400,22 @@ PSO_MAIN = "pso_fused_kernelILi2ELi1ELb0E"
 # rastrigin, device draws; and their second variants, the first versions.
 DE_MAIN = "de_staged_kernelILi2ELi1ELb0E"
 CUCKOO_MAIN = "cuckoo_cluster_kernelILi2ELi1ELb0E"
-SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel"}
+# The main kernels of the redesigned B7 and B17: D mod 4 = 2, rastrigin,
+# device draws.
+BAT_MAIN = "bat_step_kernelILi2ELi1ELb0E"
+ABC_MAIN = "abc_cluster_kernelILi2ELi1ELb0E"
+# The redesigns with a second variant, a pair at a time: (family, source,
+# main kernel); the second variants (the first versions, kept) and the
+# geometry functions that reach them.
+REDESIGNED = ((("de", "de_fused", DE_MAIN),
+               ("cuckoo", "cuckoo_fused", CUCKOO_MAIN)),
+              (("bat", "bat_fused", BAT_MAIN),
+               ("abc", "abc_fused", ABC_MAIN)))
+SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
+                   "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel"}
+SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
+                   "bat": "candidate_tile_geometry",
+                   "abc": "global_geometry"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -1142,8 +1170,11 @@ def sass_census(build, name, function):
     """Opcode counts of the SASS of the first function of ``name``'s library
     whose mangled name holds ``function`` (``cuobjdump -sass``), and its
     loops: each backward branch's [target, branch] address range with the
-    number of instructions in it (16 bytes an instruction), outermost
-    first; or why there are none."""
+    number of instructions in it (16 bytes an instruction), of its 32-bit
+    products (``IMAD.HI``, ``IMAD.WIDE``: the Philox rounds') and whether
+    its branch is predicated (an unconditional branch back is a divergence
+    handler's return into a loop, not a loop), outermost first; or why
+    there are none."""
     import os
     import re
     import shutil
@@ -1155,7 +1186,7 @@ def sass_census(build, name, function):
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         return {"error": out.stderr[-300:]}
-    counts, inside, loops = {}, False, []
+    counts, inside, loops, products = {}, False, [], []
     for line in out.stdout.splitlines():
         if "Function :" in line:
             if inside:
@@ -1171,12 +1202,17 @@ def sass_census(build, name, function):
                         if op.startswith(k)), op.split(".")[0])
             counts[key] = counts.get(key, 0) + 1
             at = int(m.group(1), 16)
+            if key in ("IMAD.HI", "IMAD.WIDE"):
+                products.append(at)
             b = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", line)
             if b and int(b.group(1), 16) < at:
                 start = int(b.group(1), 16)
-                loops.append([start, at, (at - start) // 16 + 1])
+                loops.append([start, at, (at - start) // 16 + 1,
+                              int(bool(re.search(r"\*/\s+@", line)))])
     if not counts:
         return {"error": f"no function {function} in {name}"}
+    for lp in loops:
+        lp.insert(3, sum(lp[0] <= at <= lp[1] for at in products))
     loops.sort(key=lambda lp: (lp[0], -lp[1]))
     return dict(function=function, total=sum(counts.values()),
                 opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])),
@@ -1277,6 +1313,48 @@ def cuckoo_issue_floor(census, n, d, k_steps, clock_mhz):
     return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
 
 
+def bat_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B7's issue floor on one launch: the chunk loop's instructions (four
+    dimensions: a Philox group, the walk and the flight, the folded
+    objective terms) D // 4 - 1 times a step (the first chunk, drawn with
+    the row by the Philox pair, lies outside the loop), plus what the step
+    loop holds outside its inner loops (the first and the last D mod 4
+    dimensions, the row's draw, the objective's close, the acceptance test
+    and its updates), the acceptance's rewrite loop (taken only where a bat
+    is accepted) left out, over N bats and k steps."""
+    outer, chunk, rest = step_loop(census)
+    if chunk is None:
+        return None, None
+    per_step = (d // 4 - 1) * chunk + (outer - chunk - rest)
+    return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
+
+
+def abc_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B17's issue floor on one launch: a cycle's two evaluation chunk
+    loops (the employed and the onlooker candidate, four dimensions each,
+    the two largest loops inside the cycle loop with no 32-bit product;
+    every warp runs the onlooker's, since nearly every warp holds a probed
+    lane) D // 4 times, plus what the cycle loop holds outside its inner
+    loops (the row draws, the partner's coordinate, the last D mod 4
+    dimensions, the closes, the tests, the reductions and the barriers),
+    the scout's loop (its Philox groups; taken only where a lane is
+    exhausted) left out.  Only predicated branches back make loops: the
+    cluster barriers' and shuffles' divergence handlers jump back
+    unconditionally."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+    chunks = sorted((lp[2] for lp in inner if lp[3] == 0), reverse=True)
+    if len(chunks) < 2:
+        return None, None
+    per_step = ((d // 4) * (chunks[0] + chunks[1]) + outer[2]
+                - sum(lp[2] for lp in inner))
+    return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
+
+
 @contextlib.contextmanager
 def geometry(mod, name, fn):
     """``mod``'s wrapper with ``fn`` in place of its geometry function
@@ -1290,41 +1368,52 @@ def geometry(mod, name, fn):
         setattr(mod, name, orig)
 
 
-def variant_times(fam, mod, kernel, args, step_kw, want, k_steps, smi):
-    """B10 or B12 at the main path's final state in both variants (the
-    second, the first version, reached with ``global_geometry`` in place of
-    the module's geometry function), at the run's CR or pa and at 0 (no
-    gene crosses, no lane walks): device milliseconds, and the second
-    variant against the plain version."""
-    name, fn = f"{fam}_geometry", mod.global_geometry
-    knob, run_value = {"de": ("cr", 0.9), "cuckoo": ("pa", 0.25)}[fam]
+def variant_times(fam, mod, kernel, settings, k_steps, smi, knob=None):
+    """A redesigned kernel at the main path's shape in both variants (the
+    second, the first version, reached with the module's second-variant
+    geometry function in place of its geometry function): device
+    milliseconds at each setting ``(label, args, keywords, want)``, and the
+    second variant against the plain version where ``want`` is given.
+    B10 and B12 at the run's CR or pa and at 0 (no gene crosses, no lane
+    walks); B7 at the final state and at the initial one (pulse 0: every
+    bat walks); B17 at the final state and where every lane is probed."""
+    name = f"{fam}_geometry"
+    fn = getattr(mod, SECOND_GEOMETRY[fam])
     out = dict(phase=f"{fam}_variants", shape=[ZOO_DIM, ZOO_N],
-               k_steps=k_steps, knob=knob, smi=smi)
+               k_steps=k_steps, knob=knob, smi=smi, second_variant_vs_plain={})
     for variant, ctx in ((0, contextlib.nullcontext()),
                          (1, geometry(mod, name, fn))):
         with ctx:
-            if variant == 1:
-                out["second_variant_vs_plain"] = compare_family(
-                    fam, "rastrigin", "main path, final state, second "
-                    "variant", kernel(*args, **step_kw), want, k_steps)
-            for value in (run_value, 0.0):
-                kw = dict(step_kw, **{knob: value})
-                out[f"variant{variant}_{knob}{value}_ms"] = cuda_ms(
+            for label, args, kw, want in settings:
+                if variant == 1 and want is not None:
+                    out["second_variant_vs_plain"][label] = compare_family(
+                        fam, "rastrigin", f"main path, {label}, second "
+                        "variant", kernel(*args, **kw), want, k_steps)
+                out[f"variant{variant}_{label}_ms"] = cuda_ms(
                     lambda: kernel(*args, **kw), 10)
     record(**out)
 
 
-def pr12_census(build, census):
-    """PR 12's redesigns: the census of B10's and B12's main kernels, whose
-    step loops give the issue floors of phases 12 and 13 (into
-    ``census``), with their registers and spills, and of their second
-    variants."""
-    for fam, source, function in (("de", "de_fused", DE_MAIN),
-                                  ("cuckoo", "cuckoo_fused", CUCKOO_MAIN)):
+def knob_settings(fam, args, step_kw, want):
+    """B10's and B12's settings for ``variant_times``: the run's CR or pa,
+    held against the plain version, and 0."""
+    knob, run_value = {"de": ("cr", 0.9), "cuckoo": ("pa", 0.25)}[fam]
+    return knob, [(f"{knob}{run_value}", args,
+                   dict(step_kw, **{knob: run_value}), want),
+                  (f"{knob}0.0", args, dict(step_kw, **{knob: 0.0}), None)]
+
+
+def redesigned_census(build, census, group):
+    """A pair of rule 2's redesigns (``REDESIGNED``): the census of each
+    main kernel, whose step loop gives its issue floor in the timing phases
+    (into ``census``), with its registers and spills, and of its second
+    variant."""
+    phase = "redesigned_builds_" + "_".join(fam for fam, _, _ in group)
+    for fam, source, function in group:
         census[fam] = sass_census(build, source, function)
         log = build.build_log(source)
         census[f"{fam}_ptxas"] = ptxas_of(log, function)
-        record(phase="redesigned_builds_pr12", kernel=function,
+        record(phase=phase, kernel=function,
                ptxas=census[f"{fam}_ptxas"], census=census[fam],
                loops_inside_the_step_loop=inner_loops(census[fam]),
                second_variant=SECOND_VARIANTS[fam],
@@ -1436,12 +1525,23 @@ def compare_family(fam, name, label, got, want, k_steps):
 
 def zoo_small_shapes(mods, pf, dev):
     """Phase 3's zoo part: each family kernel against its plain version at
-    ragged shapes, 1 and k steps, both rng modes, several tiles."""
+    ragged shapes, 1 and k steps, both rng modes, several tiles; B7 at
+    every D mod 4, with no chunk of four, at the widest main variant, in its
+    first version past it and, by its geometry, at D = 30."""
     cases = [
         ("bat", "rastrigin", 300, 8, 1, "host", None),
         ("bat", "sphere", 1000, 30, 8, "device", None),
         ("bat", "michalewicz", 77, 1, 8, "device", None),
         ("bat", "ackley", 515, 30, 8, "device", None),
+        # B7 at every D mod 4, without a chunk of four, at its widest main
+        # variant and in its first version past it (D = 227, 605).
+        ("bat", "rastrigin", 3000, 4, 8, "device", None),
+        ("bat", "griewank", 3000, 5, 8, "device", None),
+        ("bat", "schwefel", 3000, 31, 8, "device", None),
+        ("bat", "levy", 700, 2, 8, "device", None),
+        ("bat", "styblinski_tang", 300, 226, 3, "device", None),
+        ("bat", "rastrigin", 300, 227, 3, "device", None),
+        ("bat", "zakharov", 100, 605, 2, "device", None),
         ("gwo", "rastrigin", 300, 8, 1, "host", None),
         ("gwo", "griewank", 1000, 30, 8, "device", None),
         ("gwo", "levy", 77, 1, 8, "device", None),
@@ -1463,6 +1563,14 @@ def zoo_small_shapes(mods, pf, dev):
         check(mods[fam].LAUNCHES == before + 1, "launch not counted")
         compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
                        f"tile_n={tile_n}", got, plain(*args, **kw), k)
+    # B7's first version at the main path's width, reached by its geometry.
+    mod = mods["bat"]
+    with geometry(mod, "bat_geometry", mod.candidate_tile_geometry):
+        for name in ("rastrigin", "ackley"):
+            kernel, plain, args, kw = zoo_case(mods, pf, "bat", name, 3000,
+                                               30, 8, "device", dev)
+            compare_family("bat", name, "n=3000 D=30 k=8, second variant",
+                           kernel(*args, **kw), plain(*args, **kw), 8)
 
 
 def zoo_cpu_vs_gpu(dsa, mods, dev):
@@ -1571,10 +1679,12 @@ def zoo_launch_args(fam, state, seed, dev):
             dict(t_max=ZOO["woa"][2], tile_n=4096))
 
 
-def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
+def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev, census):
     """Phase 11 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked; then one launch at the final
-    state against its plain version, timed beside it and its bound."""
+    state against its plain version, timed beside it and its bound (bat
+    also beside its issue floor, and in both variants at the final and at
+    the initial state)."""
     steps, k, t_max = ZOO[fam]
     model = {"bat": dsa.Bat, "gwo": dsa.GWO, "salp": dsa.Salp,
              "woa": dsa.WOA}[fam]
@@ -1586,6 +1696,13 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
     opt = model("rastrigin", n=ZOO_N, dim=ZOO_DIM, **kw)
     check(opt.use_pallas, f"{fam}: the model did not take the fused kernel")
     hw32 = float(np.float32(opt.half_width))
+    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    # Bat's launch at the initial state (pulse 0: every bat walks), kept on
+    # the host while the run's peak memory is taken.
+    initial = None
+    if fam == "bat":
+        initial = [t.cpu() for t in
+                   zoo_launch_args(fam, opt.state, seed, dev)[0]]
     bests = [zoo_incumbent(fam, opt.state)]
     opt.run(k)                                       # warm-up: one launch
     bests.append(zoo_incumbent(fam, opt.state))
@@ -1613,7 +1730,6 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
     check(tuple(state.pos.shape) == (ZOO_N, ZOO_DIM)
           and rec["iteration"] == k + steps, f"{fam}: wrong state")
 
-    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
     args, extra = zoo_launch_args(fam, state, seed, dev)
     step_kw = dict(objective_name="rastrigin", half_width=opt.half_width,
                    k_steps=k, step0=steps, **extra)
@@ -1623,12 +1739,26 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev):
         lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
-    del got, want
+    if fam == "bat":
+        args0 = [t.to(dev) for t in initial]
+        check(bool((args0[7] == 0).all()), "bat: an initial pulse > 0")
+        variant_times(fam, mod, kernel, [
+            ("final_state", args, step_kw, want),
+            ("initial_state", args0, step_kw,
+             getattr(mod, f"fused_{fam}_step_plain")(*args0, **step_kw))],
+            k, smi)
+        del args0
+    del got, want, initial
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     bound, bound_by, ops, nbytes = zoo_bound_ms(fam, ZOO_N, ZOO_DIM, k)
+    floor = (bat_issue_floor(census["bat"], ZOO_N, ZOO_DIM, k,
+                             census["clock_mhz"]) if fam == "bat"
+             else (None, None))
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
            bound_by=bound_by, operations=ops, bytes=nbytes,
+           instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
+           ptxas=census.get(f"{fam}_ptxas"),
            kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
            smi=smi, seconds_so_far=time.perf_counter() - t_start)
     return dict(name=f"{fam}_fused", route="cuda",
@@ -1937,7 +2067,8 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
     if fam == "de":
-        variant_times(fam, mod, kernel, args, step_kw, want, k, smi)
+        knob, settings = knob_settings(fam, args, step_kw, want)
+        variant_times(fam, mod, kernel, settings, k, smi, knob)
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k)
@@ -2025,7 +2156,9 @@ def levy_small_shapes(mods, pf, dev):
     tile, both rng modes, the objectives, and every k from 1 to the
     family's cap; cuckoo in clusters of 16 blocks (of 256 lanes: the main
     path's tile; of 512: a tile of 8,192) and of 4, and in its second
-    variant (a tile of 16,384); ABC at a small limit (its scouts fire), PT
+    variant (a tile of 16,384); ABC at a small limit (its scouts fire), at
+    every D mod 4, with its lane shifts at the tile's edge, in clusters of
+    4 and 16 and in its second variant (a tile of 16,384, D = 227); PT
     with padded lanes (n_real < n) and with the widest halo (swap_every =
     1)."""
     cases = [
@@ -2045,6 +2178,18 @@ def levy_small_shapes(mods, pf, dev):
         ("abc", "zakharov", 500, 3, 8, "device", 100, dict(limit=2)),
         ("abc", "ackley", 16384, 30, 8, "device", 4096,
          dict(limit=491520)),
+        # B17 at every D mod 4, both lane shifts at the tile's edge, in
+        # clusters of 4 and 16 blocks, and in its second variant at a tile
+        # no cluster holds (16,384) and past 227 KB a block (D = 227).
+        ("abc", "rastrigin", 16384, 4, 8, "device", 4096, dict(limit=2)),
+        ("abc", "sphere", 16384, 5, 8, "device", 4096, dict(limit=2)),
+        ("abc", "michalewicz", 4096, 31, 8, "device", 1024, dict(limit=2)),
+        ("abc", "rastrigin", 16384, 30, 8, "device", 4096,
+         dict(limit=2, lanes=(4095, 4095))),
+        ("abc", "griewank", 4000, 33, 8, "device", 1000,
+         dict(limit=2, lanes=(1999, 0))),
+        ("abc", "rastrigin", 32768, 30, 8, "device", 16384, dict(limit=2)),
+        ("abc", "schwefel", 8192, 227, 2, "device", 4096, dict(limit=2)),
         ("pt", "rastrigin", 512, 8, 1, "host", 128, dict(n_real=500)),
         ("pt", "styblinski_tang", 1000, 30, 16, "device", 200,
          dict(n_real=987)),
@@ -2061,8 +2206,12 @@ def levy_small_shapes(mods, pf, dev):
     ]
     scouts = swaps = 0
     for fam, name, n, d, k, rng, tile_n, extra in cases:
+        extra = dict(extra)
+        lanes = extra.pop("lanes", None)
         kernel, plain, args, kw = levy_case(mods, pf, fam, name, n, d, k,
                                             rng, dev, tile_n, **extra)
+        if lanes is not None:   # ABC's two lane shifts, at the tile's edge
+            args[0][-2:] = torch.tensor(lanes, dtype=torch.int32)
         before = mods[fam].LAUNCHES
         got = kernel(*args, **kw)
         check(mods[fam].LAUNCHES == before + 1, "launch not counted")
@@ -2211,8 +2360,8 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     """Phase 13 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked, the device's busy share from a
     trace of one more launch; then one launch at the final state against
-    its plain version, timed beside it and its bound (cuckoo also beside
-    its issue floor, and in both variants)."""
+    its plain version, timed beside it and its bound (cuckoo and ABC also
+    beside their issue floors, and in both variants)."""
     steps, k, t_max = LEVY[fam]
     mod = mods[fam]
     model = {"cuckoo": dsa.Cuckoo, "hho": dsa.HarrisHawks, "abc": dsa.ABC,
@@ -2274,12 +2423,27 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
     if fam == "cuckoo":
-        variant_times(fam, mod, kernel, args, step_kw, want, k, smi)
+        knob, settings = knob_settings(fam, args, step_kw, want)
+        variant_times(fam, mod, kernel, settings, k, smi, knob)
+    elif fam == "abc":
+        probed = list(args)
+        probed[2] = torch.full_like(args[2], -1.0)    # no candidate beats it
+        probed[3] = torch.zeros_like(args[3])
+        every = {}
+        want_probed = getattr(mod, f"fused_{fam}_step_plain")(
+            *probed, **step_kw, counts=every)
+        check(all(int(p) == ZOO_N for p in every["probed"]),
+              "abc: a lane was not probed")
+        variant_times(fam, mod, kernel, [
+            ("final_state", args, step_kw, want),
+            ("every_lane_probed", probed, step_kw, want_probed)], k, smi)
+        del want_probed
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
-    floor = (cuckoo_issue_floor(census["cuckoo"], ZOO_N, ZOO_DIM, k,
-                                census["clock_mhz"]) if fam == "cuckoo"
-             else (None, None))
+    issue_floor = {"cuckoo": cuckoo_issue_floor,
+                   "abc": abc_issue_floor}.get(fam)
+    floor = (issue_floor(census[fam], ZOO_N, ZOO_DIM, k, census["clock_mhz"])
+             if issue_floor else (None, None))
     rounds = 0
     if fam == "pt":
         it0 = int(opt.state.iteration)
@@ -3064,7 +3228,8 @@ def main():
     record(phase="redesigned_builds_pr11", **census,
            tours_step_loop=step_loop(census["tours"]),
            pso_step_and_chunk_loops=step_loop(census["pso"]))
-    pr12_census(_build, census)
+    for group in REDESIGNED:
+        redesigned_census(_build, census, group)
 
     # 3. kernels vs plain on the card ---------------------------------------
     separation_small_shapes(sep, dev)
@@ -3511,8 +3676,8 @@ def main():
     del mem
 
     # 11. the bat, grey-wolf, salp and whale optimizers at full width -------
-    zoo_rows = [zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev)
-                for fam, mod in zoo.items()]
+    zoo_rows = [zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev,
+                               census) for fam, mod in zoo.items()]
 
     # 12. DE, SHADE, GA and moth-flame optimization at full width ----------
     rot_rows = [rot_full_width(dsa, fam, rot, kernels, smi, t_start, dev,

@@ -1,7 +1,8 @@
 // One Philox4x32-10 stream with the work that depends only on the lane or
 // only on the step hoisted out of the per-group calls: philox_pair.cuh's
 // scheme for a single stream s (the DE kernel's crossover, stream 0; the
-// cuckoo kernel's walk and abandonment, streams 2 and 3).
+// cuckoo kernel's walk and abandonment, streams 2 and 3; the ABC kernel's
+// rows, stream 1; the bat kernel's eps past its first group, stream 0).
 //
 // For lane `lane`, group g and global step `ctr` the words are
 // philox4x32_10(lane, g, ctr, s, seed, 0) (philox.cuh).  Round 0 multiplies
@@ -11,13 +12,14 @@
 // lane (PhiloxOneLane), a step two more (PhiloxOneStep), and a group 2 + 7
 // x 2 = 16 where the plain call takes 20.  The words are philox4x32_10's
 // bit for bit; a test holds them together (dsa_de_philox_check in
-// de_fused.cu).
+// de_fused.cu, dsa_bat_philox_check in bat_fused.cu).
 
 #pragma once
 
 #include <cstdint>
 
 #include "philox.cuh"
+#include "philox_pair.cuh"
 
 namespace dsa {
 
@@ -46,6 +48,20 @@ __device__ __forceinline__ PhiloxOneStep philox_one_step(
   const uint32_t a = l.hi_s ^ (kPhiloxM1 * ctr) ^ (seed + kPhiloxW0);
   return PhiloxOneStep{__umulhi(kPhiloxM1, ctr) ^ seed,
                        __umulhi(kPhiloxM0, a), kPhiloxM0 * a, seed};
+}
+
+// Stream s (0 or 1) of philox_pair.cuh's hoisted products: what
+// philox_one_lane(lane, s) and philox_one_step(..., ctr, seed) compute, so a
+// kernel that draws a group of both streams draws more groups of one
+// stream without computing them again.
+__device__ __forceinline__ PhiloxOneLane philox_one_of_pair(
+    const PhiloxPairLane& l, int s) {
+  return PhiloxOneLane{l.lo_lane, l.hi_s[s], l.lo_s[s]};
+}
+
+__device__ __forceinline__ PhiloxOneStep philox_one_of_pair(
+    const PhiloxPairStep& st, int s) {
+  return PhiloxOneStep{st.c0_base, st.hi_a[s], st.lo_a[s], st.seed};
 }
 
 // philox4x32_10(lane, g, ctr, s, seed, 0) for the lane and step hoisted.

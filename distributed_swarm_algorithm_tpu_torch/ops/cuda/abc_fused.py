@@ -19,8 +19,13 @@ over the tile's current quality (a Bernoulli recruitment in place of the
 categorical draw, so no conflict), its partner lane ``j - (dl2 + lb)`` of
 the launch's input tile ``i + s``; a source whose trials pass ``limit``
 re-randomizes.  Both the partner roll and the tile's maximum read the whole
-tile at every cycle, so the kernel runs one block per tile and
-synchronizes it.
+tile at every cycle, so the kernel keeps a tile in step: across a
+thread-block cluster whose blocks hold the tile's sources in shared memory
+for the whole launch, or, where they do not fit 16 blocks, in one block
+through global scratch (:func:`abc_geometry` picks; the kernel's entry
+checks).  The cluster variant takes positions inside ``+-half_width``, as
+every state of a run is: a candidate's other coordinates are then its
+base's, and it writes only the one that moves.
 
 Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed; the
 scout's plane on stream 0 over the dimensions, counter (lane, block of four
@@ -41,7 +46,8 @@ import torch
 from ..abc import ABCState, quality
 from . import family
 from .common import cyclic_pad_rows
-from .family import LANE_SHIFTS, donor_tiles, roll_lanes
+from .family import LANE_SHIFTS, TileGeometry, donor_tiles, roll_lanes
+from .ga_fused import tile_threads
 from .pso_fused import (
     OBJECTIVE_IDS,
     OBJECTIVES_T,
@@ -72,11 +78,39 @@ def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
     return tuple(u(fit_shape) for _ in range(5)) + (u(pos_shape),)
 
 
+# Warps a cluster block may hold (512 lanes), each with a slot for its
+# largest quality beside the block's.
+CLUSTER_WARPS = family.CLUSTER_MAX_LANES // 32
+
+
+def cluster_bytes(dim: int, lanes: int) -> int:
+    """Shared memory of a cluster block of ``lanes`` lanes: their sources,
+    then each warp's largest quality and the block's."""
+    return 4 * (dim * lanes + CLUSTER_WARPS + 1)
+
+
+def abc_geometry(dim: int, tile_n: int) -> TileGeometry:
+    """The smallest cluster whose blocks, ``ceil(tile_n / cluster)`` lanes
+    each, at most 256 (else 512), hold their lanes' sources within a
+    block's shared memory (16 blocks of 256 lanes at 4,096 x 30); where
+    none does (an explicit tile above 8,192 lanes, or D above 226 at tiles
+    of 4,096), one block a tile through global scratch."""
+    return (family.cluster_geometry(tile_n,
+                                    lambda lanes: cluster_bytes(dim, lanes))
+            or global_geometry(dim, tile_n))
+
+
+def global_geometry(dim: int, tile_n: int) -> TileGeometry:
+    """The global-scratch variant (the first version) at any shape: one
+    block a tile."""
+    return TileGeometry(1, 1, tile_n, tile_threads(tile_n), 0)
+
+
 def abc_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
     """True if the fused kernel covers this config (else use the portable
     path): a named objective, float32 and michalewicz within its phase
-    bound.  The kernel keeps no per-dimension state in shared memory, so D
-    is free.  The name is the JAX package's."""
+    bound.  D is free: a tile too large for a cluster runs through global
+    scratch.  The name is the JAX package's."""
     return family.family_supported(objective_name, dtype, dim, lambda d: 1)
 
 
@@ -169,7 +203,7 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("abc_fused", "dsa_abc_fused_f32", 12,
-                          [i, i, i, i, ctypes.c_uint, i, i, fl])
+                          [i, i, i, i, ctypes.c_uint, i, i, fl] + [i] * 5)
     return _fn
 
 
@@ -180,7 +214,8 @@ def fused_abc_step_cuda(
 ):
     """Launch the CUDA kernel: ``k_steps`` fused ABC cycles on ``pos`` [D,
     N], ``fit`` [1, N] f32 and ``trials`` [1, N] int32 (contiguous, one
-    CUDA device; N a multiple of ``tile_n``), one block per tile.
+    CUDA device; N a multiple of ``tile_n``; positions inside
+    ``+-half_width``), a tile as :func:`abc_geometry` says.
     ``scalars`` is [4] int32 on the device: the seed, the onlooker
     partners' tile shift and the two partners' lane shifts; ``step0`` is
     the global index of the launch's first step.  ``draws``
@@ -202,18 +237,21 @@ def fused_abc_step_cuda(
             or trials.device != pos.device or not trials.is_contiguous()):
         raise ValueError("fused_abc_step_cuda: trials must be [1, N] int32, "
                          "contiguous, on pos's device")
+    geo = abc_geometry(d, int(tile_n))
     outs = (torch.empty_like(pos), torch.empty_like(fit),
             torch.empty_like(trials))
-    # The cycles between the first and the last ping-pong between the
-    # outputs and one scratch triple.
-    scratch = (tuple(torch.empty_like(o) for o in outs) if k_steps > 1
-               else outs)
+    scratch = (None,) * 3
+    if geo.variant == 1:
+        # The cycles between the first and the last ping-pong between the
+        # outputs and one scratch triple.
+        scratch = (tuple(torch.empty_like(o) for o in outs) if k_steps > 1
+                   else outs)
     err = _kernel()(
         scalars.data_ptr(), pos.data_ptr(), fit.data_ptr(),
         trials.data_ptr(), family.ptr(rows), family.ptr(fresh),
-        *(o.data_ptr() for o in outs), *(s.data_ptr() for s in scratch),
+        *(o.data_ptr() for o in outs), *(family.ptr(s) for s in scratch),
         n, d, int(tile_n), int(k_steps), int(step0) & _MASK32,
-        OBJECTIVE_IDS[objective_name], int(limit), float(half_width),
+        OBJECTIVE_IDS[objective_name], int(limit), float(half_width), *geo,
         *family.stream_args(pos),
     )
     family.check_launch(err, "abc")

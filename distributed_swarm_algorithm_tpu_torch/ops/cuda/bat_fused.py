@@ -21,19 +21,25 @@ step, 0), and beta, the walk gate and the acceptance gate are words 0, 1
 and 2 of the call (lane, 0, global step, 1).  ``rng="host"`` takes the four
 draws as operands (one step per call), which is how tests feed both
 packages the same numbers.
+
+Up to D = 226 the kernel keeps no candidate tile (blocks of 128 bats,
+their pos and vel and the best column staged); wider, up to D = 605, it
+runs its first version, which stages the candidates too
+(:func:`bat_geometry` picks; the kernel's entry checks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..bat import ALPHA, F_MAX, F_MIN, GAMMA, R0, SIGMA_LOCAL, BatState
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -52,10 +58,45 @@ _fn = None   # the C entry, bound at the first launch
 
 
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    ``[3][D][block]`` f32 tile (pos, vel, cand) fits a block's shared
-    memory, or 0 when none does (D > 605)."""
+    """Threads per block of the kernel's first version: the largest of
+    128, 64 and 32 whose ``[3][D][block]`` f32 tile (pos, vel, cand) fits a
+    block's shared memory, or 0 when none does (D > 605): the kernel's
+    envelope."""
     return family.pick_block(lambda block: 3 * dim * block * 4)
+
+
+# The main variant's block: 128 bats, 7 blocks (28 warps) an SM at D = 30.
+STAGED_LANES = 128
+
+
+class BatGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: no candidate tile; 1: the first version
+    lanes: int      # bats (threads) a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def staged_bytes(dim: int) -> int:
+    """Shared memory of a main-variant block: the best column (padded to
+    four) and the block's pos and vel."""
+    return 4 * (2 * dim * STAGED_LANES + ceil_to(dim, 4))
+
+
+def bat_geometry(dim: int) -> BatGeometry:
+    """Blocks of 128 bats with no candidate tile where their pos, vel and
+    the best column fit a block's shared memory (D <= 226); wider, the
+    first version (:func:`candidate_tile_geometry`)."""
+    shared = staged_bytes(dim)
+    if shared <= MAX_SHARED_BYTES:
+        return BatGeometry(0, STAGED_LANES, shared)
+    return candidate_tile_geometry(dim)
+
+
+def candidate_tile_geometry(dim: int) -> BatGeometry:
+    """The first version at any D of the envelope: three [D][block] tiles,
+    the block from :func:`kernel_block`."""
+    lanes = kernel_block(dim)
+    return BatGeometry(1, lanes, 3 * dim * lanes * 4)
 
 
 def bat_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -136,7 +177,7 @@ def _kernel():
     if _fn is None:
         i, f = ctypes.c_int, ctypes.c_float
         _fn = family.bind("bat_fused", "dsa_bat_fused_f32", 17,
-                          [i, i, i, ctypes.c_uint, i] + [f] * 7)
+                          [i, i, i, ctypes.c_uint, i] + [f] * 7 + [i] * 3)
     return _fn
 
 
@@ -148,11 +189,11 @@ def fused_bat_step_cuda(
     """Launch the CUDA kernel: ``k_steps`` fused bat generations on
     ``pos``/``vel`` [D, N] and ``fit``/``loud``/``pulse`` [1, N] (f32,
     contiguous, one CUDA device), with ``best_pos`` [D, 1] and ``mean_a``
-    (one f32) held fixed.  ``scalars`` is [2] int32 on the device: the seed
-    and the iteration at the launch's start; ``step0`` is the global index
-    of the launch's first step (the generator's counter).  Returns new
-    tensors ``(pos, vel, fit, loud, pulse)`` without waiting for the
-    kernel."""
+    (one f32) held fixed, a block as :func:`bat_geometry` says.
+    ``scalars`` is [2] int32 on the device: the seed and the iteration at
+    the launch's start; ``step0`` is the global index of the launch's first
+    step (the generator's counter).  Returns new tensors ``(pos, vel, fit,
+    loud, pulse)`` without waiting for the kernel."""
     global LAUNCHES
     p = _params(params)
     draws = (r_beta, r_walk, r_eps, r_acc)
@@ -183,7 +224,7 @@ def fused_bat_step_cuda(
         float(p["f_min"]), float(p["f_max"] - p["f_min"]),
         float(p["sigma_local"] * p["half_width"]), float(p["alpha"]),
         float(-p["gamma"]), float(p["r0"]), float(p["half_width"]),
-        *family.stream_args(pos),
+        *bat_geometry(d), *family.stream_args(pos),
     )
     family.check_launch(err, "bat")
     LAUNCHES += 1

@@ -36,18 +36,24 @@ global step, stream); ``u_ab`` is word 0 of the call (lane, 0, global step,
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..cuckoo import LEVY_BETA, PA, STEP_SCALE, CuckooState, mantegna_sigma
 from . import family
 from .common import ceil_to, cyclic_pad_rows
-from .family import LANE_SHIFTS, donor_tiles, roll_lanes
+from .family import (  # noqa: F401 (the cluster sizes, for the tests)
+    CLUSTER_MAX_LANES,
+    CLUSTER_SIZES,
+    LANE_SHIFTS,
+    TileGeometry as CuckooGeometry,
+    donor_tiles,
+    roll_lanes,
+)
 from .fast_math import levy_power, normal_pair
 from .ga_fused import tile_threads
 from .pso_fused import (
-    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -69,22 +75,6 @@ _fn = None   # the C entry, bound at the first launch
 MAX_STEPS_PER_KERNEL = 8
 
 
-# The cluster variant: a thread a lane, at most 256 lanes a block where 16
-# blocks hold the tile (three such blocks fit an SM at D = 30), else at
-# most 512; the cluster sizes the entry takes (16 as a non-portable size).
-CLUSTER_LANES, CLUSTER_MAX_LANES = 256, 512
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
-
-
-class CuckooGeometry(NamedTuple):
-    """How the kernel runs a tile, handed to its entry, which checks it."""
-    variant: int    # 0: on chip across a cluster; 1: through global scratch
-    cluster: int    # blocks a tile
-    lanes: int      # lanes a block
-    threads: int    # threads a block
-    shared: int     # dynamic shared memory a block, bytes
-
-
 def cluster_bytes(dim: int, lanes: int) -> int:
     """Shared memory of a cluster block of ``lanes`` lanes: positions, a
     generation's candidates and their fitness, and the best."""
@@ -95,15 +85,11 @@ def cuckoo_geometry(dim: int, tile_n: int) -> CuckooGeometry:
     """The smallest cluster whose blocks, ``ceil(tile_n / cluster)`` lanes
     each, at most 256 (else 512), hold a tile's state within a block's
     shared memory; where none does (an explicit tile above 8,192 lanes, or
-    D above ~3,500), one block a tile through global scratch."""
-    for most in (CLUSTER_LANES, CLUSTER_MAX_LANES):
-        for cluster in CLUSTER_SIZES:
-            lanes = -(-tile_n // cluster)
-            shared = cluster_bytes(dim, lanes)
-            if lanes <= most and shared <= MAX_SHARED_BYTES:
-                return CuckooGeometry(0, cluster, lanes, ceil_to(lanes, 32),
-                                      shared)
-    return global_geometry(dim, tile_n)
+    D above ~3,500), one block a tile through global scratch.  Three blocks
+    of 256 lanes fit an SM at D = 30."""
+    return (family.cluster_geometry(tile_n,
+                                    lambda lanes: cluster_bytes(dim, lanes))
+            or global_geometry(dim, tile_n))
 
 
 def global_geometry(dim: int, tile_n: int) -> CuckooGeometry:

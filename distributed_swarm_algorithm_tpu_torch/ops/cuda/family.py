@@ -9,7 +9,7 @@ each launch reads.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,39 @@ LANE_SHIFTS = (
     (1, 45, 89), (3, 51, 101), (7, 57, 113), (11, 63, 5),
     (17, 71, 19), (23, 77, 31), (29, 83, 43), (37, 95, 59),
 )
+
+
+# The tile-in-step kernels' cluster variant (cuckoo, ABC): a thread a lane,
+# at most 256 lanes a block where 16 blocks hold the tile, else at most
+# 512; the cluster sizes their entries take (16 as a non-portable size).
+CLUSTER_LANES, CLUSTER_MAX_LANES = 256, 512
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+class TileGeometry(NamedTuple):
+    """How a tile-in-step kernel runs a tile, handed to its entry, which
+    checks it."""
+    variant: int    # 0: on chip across a cluster; 1: through global scratch
+    cluster: int    # blocks a tile
+    lanes: int      # lanes a block
+    threads: int    # threads a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def cluster_geometry(tile_n: int,
+                     block_bytes: Callable[[int], int]
+                     ) -> Optional[TileGeometry]:
+    """The smallest cluster whose blocks, ``ceil(tile_n / cluster)`` lanes
+    each, at most 256 (else 512), hold their share of a tile's state
+    (``block_bytes(lanes)``) within a block's shared memory, or None."""
+    for most in (CLUSTER_LANES, CLUSTER_MAX_LANES):
+        for cluster in CLUSTER_SIZES:
+            lanes = -(-tile_n // cluster)
+            shared = block_bytes(lanes)
+            if lanes <= most and shared <= MAX_SHARED_BYTES:
+                return TileGeometry(0, cluster, lanes, ceil_to(lanes, 32),
+                                    shared)
+    return None
 
 
 def auto_tile(d_pad: int) -> int:

@@ -2722,3 +2722,234 @@ def test_cuckoo_de_redesign_builds_spill_no_registers(cuda):
         spills = [ln for ln in log.splitlines() if "spill" in ln]
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# The redesigned bat kernel (B7: no candidate tile, the eps stream's Philox
+# hoisted) and ABC kernel (B17: a tile on chip across a thread-block
+# cluster, one coordinate of a partner read a candidate), each in both its
+# variants, against their plain versions under torch.equal (ackley within
+# its expf band, as above), and the bat kernel's hoisted Philox.
+# --------------------------------------------------------------------------
+
+BAT_ABC_WIDTHS = [1, 4, 5, 30, 31]        # D mod 4 = 1, 0, 1, 2, 3
+BAT_ABC_STEPS = [(1, "host"), (8, "device")]
+# family -> (case maker, module, geometry function, the second variant's)
+BAT_ABC = {"bat": (_family_case, port_bat, "bat_geometry",
+                   "candidate_tile_geometry"),
+           "abc": (_levy_case, port_abc, "abc_geometry", "global_geometry")}
+
+
+def _bat_abc_case(fam, name, n, d, k, rng, device, tile_n=None, seed=0,
+                  lanes=None, limit=20, **extra):
+    make, mod, _, _ = BAT_ABC[fam]
+    if fam == "bat":
+        kernel, plain, args, kw = make(fam, name, n, d, k, rng, device,
+                                       seed=seed)
+    else:
+        kernel, plain, args, kw = make(fam, name, n, d, k, rng, device,
+                                       tile_n, seed=seed, limit=limit)
+    if lanes is not None:      # ABC's lane shifts, in place of the drawn
+        args[0][-2:] = torch.tensor(lanes, dtype=torch.int32)
+    kw.update(extra)
+    return kernel, plain, args, kw
+
+
+def _bat_abc_equal(monkeypatch, fam, second, name, n, d, k, rng, device,
+                   tile_n=None, **extra):
+    _, mod, geometry, second_geometry = BAT_ABC[fam]
+    if second:
+        monkeypatch.setattr(mod, geometry, getattr(mod, second_geometry))
+    kernel, plain, args, kw = _bat_abc_case(fam, name, n, d, k, rng, device,
+                                            tile_n, **extra)
+    before = mod.LAUNCHES
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    assert mod.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal(name, got, want)
+    _assert_family_equal(name, again, want)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(BAT_ABC))
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("k,rng", BAT_ABC_STEPS)
+@pytest.mark.parametrize("d", BAT_ABC_WIDTHS)
+def test_bat_abc_redesign_equals_plain_across_widths(cuda, monkeypatch, fam,
+                                                    second, name, k, rng, d):
+    # Bat: 3,000 bats, the last block ragged; ABC: four tiles of 4,096
+    # lanes, each across a cluster of 16 blocks of 256 lanes (trials drawn
+    # up to the limit, so scouts fire).  The global step wraps at 2^32.
+    n, tile_n = (3000, None) if fam == "bat" else (16384, 4096)
+    _bat_abc_equal(monkeypatch, fam, second, name, n, d, k, rng, cuda,
+                   tile_n, seed=d, step0=2**32 - 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("n,d,tile_n", [(16384, 30, 4096), (4000, 33, 1000),
+                                        (512, 8, 128), (480, 30, 96)])
+def test_abc_redesign_lane_shifts_at_the_tile_edge(cuda, monkeypatch, second,
+                                                  n, d, tile_n):
+    # Both lane shifts at tile_n - 1 (and 2 tile_n - 1 with 0), so each
+    # partner roll wraps at the tile's edge: in a cluster's first and last
+    # blocks, and where the tile is a block of its own.
+    for lanes in ([tile_n - 1] * 2, [2 * tile_n - 1, 0]):
+        _bat_abc_equal(monkeypatch, "abc", second, "rastrigin", n, d, 8,
+                       "device", cuda, tile_n, lanes=lanes, limit=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("pulse", [0.0, 1.0])
+def test_bat_redesign_every_bat_walks_or_flies(cuda, monkeypatch, second,
+                                               pulse):
+    # Pulse 0: every bat walks (the model's first launch); pulse 1: none
+    # does.  A walking bat that is accepted draws its eps groups again.
+    _, mod, geometry, second_geometry = BAT_ABC["bat"]
+    if second:
+        monkeypatch.setattr(mod, geometry, getattr(mod, second_geometry))
+    kernel, plain, args, kw = _bat_abc_case("bat", "rastrigin", 3000, 30, 8,
+                                            "device", cuda)
+    args[7] = torch.full_like(args[7], pulse)
+    before = mod.LAUNCHES
+    got = kernel(*args, **kw)
+    assert mod.LAUNCHES == before + 1
+    want = plain(*args, **kw)
+    _assert_family_equal("rastrigin", got, want)
+    # Some bats were accepted (their loudness fell), some were not.
+    fell = got[3] < args[6]
+    assert bool(fell.any()) and not bool(fell.all())
+
+
+@pytest.mark.cuda
+def test_abc_redesign_every_lane_probed(cuda, monkeypatch):
+    # Every fitness at -1: no candidate beats it, every quality is 2, so
+    # the gate passes every lane (the onlooker evaluates everywhere).
+    for second in (False, True):
+        _, mod, geometry, second_geometry = BAT_ABC["abc"]
+        with monkeypatch.context() as m:
+            if second:
+                m.setattr(mod, geometry, getattr(mod, second_geometry))
+            kernel, plain, args, kw = _bat_abc_case(
+                "abc", "rastrigin", 16384, 30, 8, "device", cuda, 4096)
+            args[2] = torch.full_like(args[2], -1.0)
+            args[3] = torch.zeros_like(args[3])
+            counts = {}
+            want = plain(*args, **kw, counts=counts)
+            assert all(int(p) == 16384 for p in counts["probed"])
+            _assert_family_equal("rastrigin", kernel(*args, **kw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,name,n,d,k,rng,tile_n,variant", [
+    ("abc", "rastrigin", 32768, 8, 8, "device", 8192, 0),   # 16 x 512
+    ("abc", "levy", 8192, 100, 4, "device", 1024, 0),       # 4 x 256 lanes
+    ("abc", "sphere", 4000, 30, 8, "device", 1000, 0),      # 4 x 250 lanes
+    ("abc", "griewank", 32768, 30, 3, "device", 16384, 1),  # no cluster
+    ("abc", "rastrigin", 8192, 226, 2, "device", 4096, 0),  # 226 KB blocks
+    ("abc", "schwefel", 8192, 227, 2, "device", 4096, 1),   # past them
+    ("abc", "michalewicz", 500, 3, 8, "device", 100, 0),    # one block
+    ("abc", "zakharov", 2048, 31, 1, "host", 512, 0),
+    ("bat", "rastrigin", 700, 2, 8, "device", None, 0),     # no chunk of 4
+    ("bat", "ackley", 700, 3, 8, "device", None, 0),
+    ("bat", "styblinski_tang", 300, 226, 3, "device", None, 0),
+    ("bat", "rastrigin", 300, 227, 3, "device", None, 1),   # first version
+    ("bat", "rosenbrock", 100, 605, 2, "device", None, 1),  # 32 a block
+    ("bat", "levy", 129, 64, 1, "host", None, 0),
+], ids=lambda v: str(v))
+def test_bat_abc_redesign_geometries(cuda, monkeypatch, fam, name, n, d, k,
+                                     rng, tile_n, variant):
+    _, mod, geometry, _ = BAT_ABC[fam]
+    geo = (getattr(mod, geometry)(d) if fam == "bat"
+           else getattr(mod, geometry)(d, tile_n))
+    assert geo.variant == variant
+    _bat_abc_equal(monkeypatch, fam, False, name, n, d, k, rng, cuda, tile_n,
+                   **({"limit": 2} if fam == "abc" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,geo", [
+    ("bat", (0, 64, 4 * (2 * 30 * 64 + 32))),   # not 128 bats a block
+    ("bat", (0, 128, 30720)),                   # bytes not its layout's
+    ("bat", (1, 64, 3 * 30 * 64 * 4)),          # not the first version's
+    ("bat", (2, 128, 0)),                       # no such variant
+    ("abc", (0, 3, 1366, 1376, 0)),             # a cluster of 3
+    ("abc", (0, 16, 250, 256, 30000)),          # lanes short of the tile
+    ("abc", (0, 16, 256, 256, 30720)),          # bytes not its layout's
+    ("abc", (0, 4, 1024, 1024, 0)),             # 1,024 lanes a block
+    ("abc", (1, 1, 4096, 256, 0)),              # not the first version's
+], ids=lambda v: str(v))
+def test_bat_abc_entries_reject_a_geometry_they_cannot_run(
+        cuda, monkeypatch, fam, geo):
+    # The wrapper hands its geometry to the entry, which checks it: one the
+    # kernels cannot run launches nothing and counts nothing.
+    _, mod, geometry, _ = BAT_ABC[fam]
+    tup = port_bat.BatGeometry if fam == "bat" else port_abc.TileGeometry
+    monkeypatch.setattr(mod, geometry, lambda *shape: tup(*geo))
+    kernel, _, args, kw = _bat_abc_case(fam, "sphere", 16384, 30, 2,
+                                        "device", cuda, 4096)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_bat_hoisted_philox_equals_philox4x32_10(cuda):
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    fn = _build.load("bat_fused").dsa_bat_philox_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = np.random.default_rng(2)
+    edges = [0, 1, 2, 2**31 - 1, 2**31, 2**32 - 1]
+    grid = np.array(np.meshgrid(edges, [0, 1, 7, 151, 2**32 - 1],
+                                [0, 1, 2**32 - 1], [0, 2025, 2**32 - 1]),
+                    dtype=np.int64).reshape(4, -1)
+    grid = np.concatenate([grid, g.integers(0, 2**32, (4, 4096))], 1)
+    grid[1, -2048:] = g.integers(0, 8, 2048)     # the groups a run draws
+    cols = [torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(cuda)
+            for c in grid]
+    m = grid.shape[1]
+    out = torch.empty((m, 16), dtype=torch.int32, device=cuda)
+    err = fn(*(c.data_ptr() for c in cols), m, out.data_ptr(),
+             cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    words = out.cpu().numpy().view(np.uint32).astype(np.int64)
+    assert np.array_equal(words[:, :8], words[:, 8:])
+    # ...and both equal the plain version's words (ops/cuda/pso_fused.py):
+    # the eps stream's group, then the row.
+    lane, grp, ctr, seed = (torch.from_numpy(c) for c in grid)
+    eps = torch.stack(port_pf.philox4x32_10(lane, grp, ctr, 0, seed, 0), 1)
+    row = torch.stack(port_pf.philox4x32_10(lane, torch.zeros_like(grp), ctr,
+                                            1, seed, 0), 1)
+    assert np.array_equal(words[:, :4], eps.numpy())
+    assert np.array_equal(words[:, 4:8], row.numpy())
+
+
+@pytest.mark.cuda
+def test_bat_abc_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["bat_fused", "abc_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws, beside
+    # the second variant (and the bat kernel's Philox check).
+    for name, kernel, variants, others in (
+            ("bat_fused", "bat_step_kernel", 80,
+             ("bat_cand_tile_kernel", "philox_check_kernel")),
+            ("abc_fused", "abc_cluster_kernel", 80, ("abc_global_kernel",))):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines()
+                   if "Compiling entry" in ln and kernel in ln]
+        assert len(entries) == variants, (name, len(entries))
+        for other in others:
+            assert other in log, (name, other)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

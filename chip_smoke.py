@@ -325,7 +325,12 @@ LEVY_SOURCES = {"cuckoo": "cuckoo_fused", "hho": "hho_fused",
 #           call and uniform (103), the egg's lane and test (6), rastrigin's
 #           offset; per abandoned element 57 = the walk's draw (28), the walk
 #           and its clip (6), rastrigin (23), and 1 per abandoned lane;
-#   hho     elem 26 = the final clip (3) and rastrigin (23); lane 126 = the
+#   hho     elem 26 = the final clip (3) and rastrigin (23), charged to
+#           every lane but a diving one, whose new position is y or z (their
+#           clips and evaluations are the dive's) or its x kept (whose
+#           fitness the step before computed), save a diving lane that keeps
+#           x at a launch's first step (an x and fitness from the caller);
+#           lane 126 = the
 #           row call and four uniforms (112), t and frac (4), E, |E| and J
 #           (7), rastrigin's offset, the branch tests (2); per exploring
 #           element 63 = two quarter calls and uniforms (56) and the perch
@@ -404,18 +409,28 @@ CUCKOO_MAIN = "cuckoo_cluster_kernelILi2ELi1ELb0E"
 # device draws.
 BAT_MAIN = "bat_step_kernelILi2ELi1ELb0E"
 ABC_MAIN = "abc_cluster_kernelILi2ELi1ELb0E"
+# The main kernels of the redesigned B18 and B13: D mod 4 = 2, rastrigin,
+# device draws.
+PT_MAIN = "pt_step_kernelILi2ELi1ELb0E"
+HHO_MAIN = "hho_sorted_kernelILi2ELi1ELb0E"
 # The redesigns with a second variant, a pair at a time: (family, source,
 # main kernel); the second variants (the first versions, kept) and the
 # geometry functions that reach them.
 REDESIGNED = ((("de", "de_fused", DE_MAIN),
                ("cuckoo", "cuckoo_fused", CUCKOO_MAIN)),
               (("bat", "bat_fused", BAT_MAIN),
-               ("abc", "abc_fused", ABC_MAIN)))
+               ("abc", "abc_fused", ABC_MAIN)),
+              (("pt", "tempering_fused", PT_MAIN),
+               ("hho", "hho_fused", HHO_MAIN)))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
-                   "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel"}
+                   "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
+                   "pt": "pt_cand_tile_kernel",
+                   "hho": "hho_trial_tile_kernel"}
 SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "bat": "candidate_tile_geometry",
-                   "abc": "global_geometry"}
+                   "abc": "global_geometry",
+                   "pt": "candidate_tile_geometry",
+                   "hho": "trial_tile_geometry"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -1355,6 +1370,65 @@ def abc_issue_floor(census, n, d, k_steps, clock_mhz):
     return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
 
 
+# B18's issue floor on one launch, counted as B5's: the chunk loop (four
+# dimensions: the Philox pair, the cosine halves, the moves, the folded
+# terms) D // 4 times a step and the rest of the step loop (the last D mod
+# 4 dimensions, the row, the acceptance, the warp's running best, a round's
+# test, counted at every step), the rounds' swap loop and the running
+# best's copy left out; over the threads of the launch, halos included.
+pt_issue_floor = pso_issue_floor
+
+
+def pt_threads(n, d, k_steps, swap_every, tile_n):
+    """Threads of one B18 launch as its geometry places them: a window a
+    block, ceil(tile_n / own) blocks a tile."""
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        tempering_fused,
+    )
+    geo = tempering_fused.pt_geometry(
+        d, tempering_fused.halo(k_steps, swap_every))
+    return (n // tile_n) * -(-tile_n // geo.own) * geo.window
+
+
+def hho_issue_floor(census, n, d, k_steps, clock_mhz, counts):
+    """B13's issue floor on one launch, every lane advanced in a warp of
+    its own branch (the class boundaries' divergence left out).  A lane
+    issues its branch's chunk loop (four dimensions) D / 4 times, its last
+    D mod 4 dimensions counted at the loop's rate: the dive's loop is the
+    one inside the step loop with the most 32-bit products, the exploring
+    lanes' the mean of the two with fewer (at a perch, below the mean), the
+    besiege's the largest with none; the lanes of each branch come from the
+    plain version's tally of the launch (exploring and diving lanes; the
+    rest besiege).  Every lane also issues what the step loop holds outside
+    its inner loops (the row, the class, the sort, the closes, the dive's
+    pick) less the four branches' last D mod 4 dimensions, (D mod 4) / 4
+    of each chunk loop; the dive's rewrites of y or z and the first step's
+    evaluation of a kept x are left out."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+    drawing = sorted((lp for lp in inner if lp[3] > 0),
+                     key=lambda lp: -lp[3])
+    plain = [lp[2] for lp in inner if lp[3] == 0]
+    if len(drawing) < 3 or not plain:
+        return None, None
+    dive, explore = drawing[0][2], (drawing[1][2] + drawing[2][2]) / 2
+    besiege = max(plain)
+    total = lambda key: int(sum(int(v) for v in counts.get(key, [])))  # noqa
+    lanes_explore, lanes_dive = total("explore"), total("dive")
+    lanes_besiege = k_steps * n - lanes_explore - lanes_dive
+    tails = (d % 4) / 4 * (dive + 2 * explore + besiege)
+    common = outer[2] - sum(lp[2] for lp in inner) - tails
+    instructions = (k_steps * n * common + d / 4 * (
+        lanes_explore * explore + lanes_besiege * besiege
+        + lanes_dive * dive))
+    return (instructions / (k_steps * n * d),
+            issue_floor_ms(instructions, clock_mhz))
+
+
 @contextlib.contextmanager
 def geometry(mod, name, fn):
     """``mod``'s wrapper with ``fn`` in place of its geometry function
@@ -1376,7 +1450,10 @@ def variant_times(fam, mod, kernel, settings, k_steps, smi, knob=None):
     second variant against the plain version where ``want`` is given.
     B10 and B12 at the run's CR or pa and at 0 (no gene crosses, no lane
     walks); B7 at the final state and at the initial one (pulse 0: every
-    bat walks); B17 at the final state and where every lane is probed."""
+    bat walks); B17 at the final state and where every lane is probed; B18
+    at the final state and at swap_every = 1 (the widest halo); B13 at the
+    final state (besiege and dive) and at the first launch's t0 = 0 (three
+    classes)."""
     name = f"{fam}_geometry"
     fn = getattr(mod, SECOND_GEOMETRY[fam])
     out = dict(phase=f"{fam}_variants", shape=[ZOO_DIM, ZOO_N],
@@ -2160,7 +2237,11 @@ def levy_small_shapes(mods, pf, dev):
     every D mod 4, with its lane shifts at the tile's edge, in clusters of
     4 and 16 and in its second variant (a tile of 16,384, D = 227); PT
     with padded lanes (n_real < n) and with the widest halo (swap_every =
-    1)."""
+    1); B18 and B13 at every D mod 4 with a tile's last block partial (PT:
+    17 windows a tile of 4,096, the last owning 128 chains; HHO: blocks of
+    256 hawks across tiles of 1,000) and at each variant's widest D (PT 109
+    the main variant, 360 the first version, which takes over at 110; HHO
+    111 regrouped, 605 the first version)."""
     cases = [
         ("cuckoo", "rastrigin", 512, 8, 1, "host", 128, {}),
         ("cuckoo", "sphere", 480, 30, 8, "device", 96, {}),
@@ -2203,6 +2284,16 @@ def levy_small_shapes(mods, pf, dev):
           for k in range(1, 9)),
         *(("pt", "rastrigin", 4000, 30, k, "device", 1000,
            dict(n_real=3990)) for k in range(1, 17)),
+        *(("pt", "rastrigin", 8192, d, 16, "device", 4096,
+           dict(n_real=8190)) for d in (4, 5, 6, 7)),
+        ("pt", "sphere", 4096, 109, 16, "device", 4096, dict(swap_every=1)),
+        ("pt", "levy", 4096, 110, 16, "device", 4096, dict(swap_every=1)),
+        ("pt", "griewank", 1024, 360, 16, "device", 512,
+         dict(swap_every=1)),
+        *(("hho", "rastrigin", 3000, d, 8, "device", 1000, {})
+          for d in (4, 5, 6, 7)),
+        ("hho", "schwefel", 2048, 111, 8, "device", 1024, {}),
+        ("hho", "zakharov", 1024, 605, 2, "device", 512, {}),
     ]
     scouts = swaps = 0
     for fam, name, n, d, k, rng, tile_n, extra in cases:
@@ -2299,10 +2390,10 @@ def levy_cpu_vs_gpu(mods, dev):
 def levy_bound_ms(fam, n, d, k_steps, counts, rounds=0):
     """Least time for one launch of the family's kernel on this card: the
     operations of ``FAM_OPS`` (the data-dependent ones from ``counts``, the
-    plain version's tally of the same launch: abandoned, exploring and
-    diving, probed and exhausted lanes) over the f32 peak, against the
-    bytes it must move (each input read once, each output written once)
-    over the memory rate."""
+    plain version's tally of the same launch: abandoned, exploring,
+    diving and kept, probed and exhausted lanes) over the f32 peak, against
+    the bytes it must move (each input read once, each output written
+    once) over the memory rate."""
     c = FAM_OPS[fam]
     total = lambda key: int(sum(int(v) for v in counts.get(key, [])))  # noqa
     ops = k_steps * n * (d * c["elem"] + c["lane"])
@@ -2310,9 +2401,11 @@ def levy_bound_ms(fam, n, d, k_steps, counts, rounds=0):
         ops += total("abandoned") * (d * c["abandoned"] + c["abandoned_lane"])
     elif fam == "hho":
         explore, dive = total("explore"), total("dive")
+        kept_first = int(counts["kept"][0])
         ops += (explore * d * c["explore"]
                 + (k_steps * n - explore - dive) * d * c["besiege"]
-                + dive * (d * c["dive"] + c["dive_lane"]))
+                + dive * (d * c["dive"] + c["dive_lane"])
+                - (dive - kept_first) * d * c["elem"])
     elif fam == "abc":
         ops += (total("probed") * (d * c["probed"] + c["probed_lane"])
                 + total("exhausted") * (d * c["exhausted"]
@@ -2438,12 +2531,40 @@ def levy_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
             ("final_state", args, step_kw, want),
             ("every_lane_probed", probed, step_kw, want_probed)], k, smi)
         del want_probed
+    elif fam == "pt":
+        wide = dict(step_kw, swap_every=1)
+        want_wide = getattr(mod, f"fused_{fam}_step_plain")(*args, **wide)
+        variant_times(fam, mod, kernel, [
+            ("final_state", args, step_kw, want),
+            ("swap_every_1", args, wide, want_wide)], k, smi)
+        del want_wide
+    elif fam == "hho":
+        first = list(args)
+        first[0] = args[0].clone()
+        first[0][2] = 0                  # t0 = 0: |E| up to 2, three classes
+        first_counts = {}
+        want_first = getattr(mod, f"fused_{fam}_step_plain")(
+            *first, **step_kw, counts=first_counts)
+        record(phase="hho_first_launch_lanes",
+               explore=[int(v) for v in first_counts["explore"]],
+               dive=[int(v) for v in first_counts["dive"]], particles=ZOO_N)
+        variant_times(fam, mod, kernel, [
+            ("final_state", args, step_kw, want),
+            ("first_launch", first, step_kw, want_first)], k, smi)
+        del want_first
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     issue_floor = {"cuckoo": cuckoo_issue_floor,
                    "abc": abc_issue_floor}.get(fam)
     floor = (issue_floor(census[fam], ZOO_N, ZOO_DIM, k, census["clock_mhz"])
              if issue_floor else (None, None))
+    if fam == "pt":
+        floor = pt_issue_floor(census[fam], pt_threads(
+            ZOO_N, ZOO_DIM, k, opt.swap_every, 4096), ZOO_DIM, k,
+            census["clock_mhz"])
+    elif fam == "hho":
+        floor = hho_issue_floor(census[fam], ZOO_N, ZOO_DIM, k,
+                                census["clock_mhz"], counts)
     rounds = 0
     if fam == "pt":
         it0 = int(opt.state.iteration)

@@ -2,7 +2,9 @@
 // only on the step hoisted out of the per-group calls: philox_pair.cuh's
 // scheme for a single stream s (the DE kernel's crossover, stream 0; the
 // cuckoo kernel's walk and abandonment, streams 2 and 3; the ABC kernel's
-// rows, stream 1; the bat kernel's eps past its first group, stream 0).
+// rows, stream 1; the bat kernel's eps past its first group, stream 0; the
+// tempering kernel's rows, stream 2; the Harris-hawks kernel's dive step,
+// stream 4, and its rows, stream 7).
 //
 // For lane `lane`, group g and global step `ctr` the words are
 // philox4x32_10(lane, g, ctr, s, seed, 0) (philox.cuh).  Round 0 multiplies
@@ -11,8 +13,9 @@
 // the lane, the stream and the step.  So a launch computes three products a
 // lane (PhiloxOneLane), a step two more (PhiloxOneStep), and a group 2 + 7
 // x 2 = 16 where the plain call takes 20.  The words are philox4x32_10's
-// bit for bit; a test holds them together (dsa_de_philox_check in
-// de_fused.cu, dsa_bat_philox_check in bat_fused.cu).
+// bit for bit; tests hold them together (dsa_de_philox_check in
+// de_fused.cu, dsa_bat_philox_check in bat_fused.cu, dsa_pt_philox_check
+// in tempering_fused.cu, dsa_hho_philox_check in hho_fused.cu).
 
 #pragma once
 
@@ -50,10 +53,10 @@ __device__ __forceinline__ PhiloxOneStep philox_one_step(
                        __umulhi(kPhiloxM0, a), kPhiloxM0 * a, seed};
 }
 
-// Stream s (0 or 1) of philox_pair.cuh's hoisted products: what
-// philox_one_lane(lane, s) and philox_one_step(..., ctr, seed) compute, so a
-// kernel that draws a group of both streams draws more groups of one
-// stream without computing them again.
+// Entry s (0 or 1) of philox_pair.cuh's hoisted products, for the stream
+// philox_pair_lane put there: what philox_one_lane and philox_one_step
+// compute for that stream, so a kernel that draws a group of both streams
+// draws more groups of one stream without computing them again.
 __device__ __forceinline__ PhiloxOneLane philox_one_of_pair(
     const PhiloxPairLane& l, int s) {
   return PhiloxOneLane{l.lo_lane, l.hi_s[s], l.lo_s[s]};

@@ -1,10 +1,12 @@
-// The two Philox4x32-10 streams of the grey-wolf kernel (csrc/gwo_fused.cu),
-// with the work that depends only on the lane or only on the step hoisted
-// out of the per-group calls.
+// Two Philox4x32-10 streams drawn together, with the work that depends only
+// on the lane or only on the step hoisted out of the per-group calls: the
+// grey-wolf, PSO, bat, cuckoo and tempering kernels' streams 0 and 1, the
+// Harris-hawks kernel's 0 and 1, 2 and 3, 5 and 6.
 //
-// The kernel draws, for wolf `lane`, group g of four indices and global
-// step `ctr`, the words philox4x32_10(lane, g, ctr, s, seed, 0) of streams
-// s = 0 and 1 (philox.cuh, unchanged: every other kernel includes it).
+// A kernel draws, for particle `lane`, group g of four indices and global
+// step `ctr`, the words philox4x32_10(lane, g, ctr, s, seed, 0) of two
+// streams s = s0 and s1 (philox.cuh, unchanged: every other kernel includes
+// it).
 // Written out, the first three rounds of those two calls share work:
 //
 //   round 0   M0 lane (the lane only) and M1 ctr (the step only);
@@ -16,7 +18,8 @@
 // So a launch computes three products a lane (PhiloxPairLane), a step two
 // more (PhiloxPairStep), and a group of both streams 2 + 7 x 2 x 2 = 30
 // where the two plain calls take 40.  The words are philox4x32_10's bit for
-// bit; a test holds them together (dsa_gwo_philox_check in gwo_fused.cu).
+// bit; tests hold them together (dsa_gwo_philox_check in gwo_fused.cu for
+// streams 0 and 1, dsa_hho_philox_check in hho_fused.cu for the others).
 
 #pragma once
 
@@ -31,6 +34,7 @@ struct PhiloxPairLane {
   uint32_t hi_s[2];   // hi(M1 (hi(M0 lane) ^ s)): round 1, per stream
   uint32_t lo_s[2];   // lo(M1 (hi(M0 lane) ^ s)): round 1's c1, per stream
 };
+// (Entry k of hi_s and lo_s is stream s_k of philox_pair_lane's.)
 
 struct PhiloxPairStep {
   uint32_t c0_base;   // hi(M1 ctr) ^ seed: round 0's c0 without g
@@ -39,14 +43,18 @@ struct PhiloxPairStep {
   uint32_t seed;
 };
 
-__device__ __forceinline__ PhiloxPairLane philox_pair_lane(uint32_t lane) {
+// The lane's products for streams s0 and s1 (by default 0 and 1).
+__device__ __forceinline__ PhiloxPairLane philox_pair_lane(uint32_t lane,
+                                                          uint32_t s0 = 0u,
+                                                          uint32_t s1 = 1u) {
   const uint32_t hi = __umulhi(kPhiloxM0, lane);
   PhiloxPairLane p;
   p.lo_lane = kPhiloxM0 * lane;
+  const uint32_t streams[2] = {s0, s1};
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    p.hi_s[s] = __umulhi(kPhiloxM1, hi ^ static_cast<uint32_t>(s));
-    p.lo_s[s] = kPhiloxM1 * (hi ^ static_cast<uint32_t>(s));
+  for (int k = 0; k < 2; ++k) {
+    p.hi_s[k] = __umulhi(kPhiloxM1, hi ^ streams[k]);
+    p.lo_s[k] = kPhiloxM1 * (hi ^ streams[k]);
   }
   return p;
 }
@@ -66,8 +74,8 @@ __device__ __forceinline__ PhiloxPairStep philox_pair_step(
   return p;
 }
 
-// The words of both streams for group g: out[s] = philox4x32_10(lane, g,
-// ctr, s, seed, 0).
+// The words of both streams for group g: out[k] = philox4x32_10(lane, g,
+// ctr, s_k, seed, 0).
 __device__ __forceinline__ void philox_pair_group(const PhiloxPairLane& l,
                                                   const PhiloxPairStep& st,
                                                   uint32_t g,

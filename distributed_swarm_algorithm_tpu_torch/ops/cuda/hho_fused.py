@@ -14,7 +14,7 @@ The rabbit (the best so far), the population mean and the random hawk's
 view are block-start snapshots (the JAX package's deltas from
 ``ops/hho.py``): the random hawk of lane j in tile i is lane ``j - (l +
 LANE_SHIFTS[step % 8][0])`` of the launch's input tile ``i + s``.  So a
-lane updates only itself, and the kernel runs one thread per lane.
+lane updates only itself.
 
 Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed; r1,
 r2, r3, r4 and the dive's s on streams 0 to 4 and the Box-Muller pair's
@@ -23,22 +23,29 @@ four dimensions, global step, stream); the row uniforms ``u_e0, u_j, u_q,
 u_r`` are the four words of the call (lane, 0, global step, 7).
 ``rng="host"`` takes the eleven draws of ``host_draws`` as operands (one
 step per call): 4 row uniforms, 5 plane uniforms, then 2 plane normals.
+
+Up to D = 111 a block of the kernel holds 256 hawks and, at every step,
+regroups its lanes by branch (:func:`branch_order`), so that a warp's
+threads advance lanes of one branch; wider, up to D = 605, it runs its
+first version, one thread a hawk in the hawks' order (:func:`hho_geometry`
+picks; the kernel's entry checks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..cuckoo import mantegna_sigma
 from ..hho import LEVY_BETA, T_MAX, HHOState
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .family import LANE_SHIFTS, donor_tiles, roll_lanes
 from .fast_math import levy_power, normal_pair
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -74,10 +81,50 @@ def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
 
 
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    three ``[D][block]`` f32 tiles (the hawks and the dive's two trial
-    points) fit a block's shared memory, or 0 (D > 605)."""
+    """Threads per block of the kernel's first version: the largest of 128,
+    64 and 32 whose three ``[D][block]`` f32 tiles (the hawks and the
+    dive's two trial points) fit a block's shared memory, or 0 (D > 605)."""
     return family.pick_block(lambda block: 3 * dim * block * 4)
+
+
+# The main variant's block: 256 hawks, regrouped by branch at every step.
+SORTED_LANES = 256
+# A lane's class at a step, in the order of the regrouping: exploring at a
+# random hawk's perch, exploring below the mean, besieging, diving.
+PERCH, BELOW, BESIEGE, DIVE = range(4)
+
+
+class HhoGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: lanes regrouped by branch; 1: the first version
+    lanes: int      # hawks (threads) a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def sorted_bytes(dim: int) -> int:
+    """Shared memory of a main-variant block: the hawks' positions and the
+    dive's z columns ``[D][256]`` each, the rabbit and the mean (padded to
+    four), four ``[256]`` rows (the fitness, the sorted lanes, their
+    energy and jump) and the warps' class counts ``[2][8]``."""
+    lanes = SORTED_LANES
+    return 4 * (2 * dim * lanes + 2 * ceil_to(dim, 4) + 4 * lanes
+                + 2 * (lanes // 32))
+
+
+def hho_geometry(dim: int) -> HhoGeometry:
+    """Blocks of 256 hawks regrouped by branch where their block fits
+    (D <= 111); wider, the first version (:func:`trial_tile_geometry`)."""
+    shared = sorted_bytes(dim)
+    if shared <= MAX_SHARED_BYTES:
+        return HhoGeometry(0, SORTED_LANES, shared)
+    return trial_tile_geometry(dim)
+
+
+def trial_tile_geometry(dim: int) -> HhoGeometry:
+    """The first version at any D of the envelope: three [D][block] tiles,
+    the block from :func:`kernel_block`."""
+    lanes = kernel_block(dim)
+    return HhoGeometry(1, lanes, 3 * dim * lanes * 4)
 
 
 def hho_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -114,12 +161,54 @@ def branches(u_e0, u_r, frac):
     return explore, ~explore & (u_r < 0.5), abs_e >= 0.5
 
 
+def lane_classes(u_e0, u_q, u_r, frac) -> torch.Tensor:
+    """Per lane its class at a step (int64): ``PERCH`` or ``BELOW`` where
+    it explores (``u_q >= 1/2`` or not), else ``BESIEGE`` or ``DIVE``
+    (:func:`branches`)."""
+    explore, dive, _ = branches(u_e0, u_r, frac)
+    return torch.where(explore, torch.where(u_q >= 0.5, PERCH, BELOW),
+                       torch.where(dive, DIVE, BESIEGE))
+
+
+def branch_order(classes: torch.Tensor,
+                 lanes: int = SORTED_LANES) -> torch.Tensor:
+    """The kernel's order of a step's lanes: within each block of ``lanes``
+    lanes (the last may be short), the block's lanes sorted by class,
+    stably, as a block does it (a count of each class in each warp, a
+    prefix over the classes and the warps, each lane's rank in its warp's
+    ballot).  ``classes`` [N]; returns [N], the lane at each place."""
+    n = classes.numel()
+    out = torch.empty(n, dtype=torch.int64, device=classes.device)
+    for b0 in range(0, n, lanes):
+        cls = classes[b0:b0 + lanes].long()
+        warp = torch.arange(cls.numel(), device=cls.device) // 32
+        n_warps = int(warp[-1]) + 1
+        counts = torch.zeros((4, n_warps), dtype=torch.int64,
+                             device=cls.device)
+        counts.index_put_((cls, warp), torch.ones_like(cls),
+                          accumulate=True)
+        # A class's start, then the counts of the warps before this one.
+        starts = torch.cumsum(counts.sum(1), 0) - counts.sum(1)
+        before = torch.cumsum(counts, 1) - counts
+        rank = torch.zeros_like(cls)
+        for c in range(4):
+            hit = (cls == c).long().reshape(-1)
+            # The lanes of the class below this one in its warp.
+            within = torch.cumsum(hit, 0) - hit
+            first_of_warp = within[warp * 32]
+            rank = torch.where(cls == c, within - first_of_warp, rank)
+        place = starts[cls] + before[cls, warp] + rank
+        out[b0 + place] = b0 + torch.arange(cls.numel(), device=cls.device)
+    return out
+
+
 def hho_steps_plain(scalars, rabbit, mean, pos, fit, draws, objective_name,
                     half_width, t_max, beta, tile_n, k_steps, step0,
                     counts=None):
     """``k_steps`` generations on ``[D, N]``; ``draws is None`` draws from
     Philox.  ``counts`` (a dict) collects each generation's exploring and
-    diving lanes, the work that depends on the data."""
+    diving lanes and the diving lanes that keep their position (neither y
+    nor z beats it), the work that depends on the data."""
     objective_t = OBJECTIVES_T[objective_name]
     d, n = pos.shape
     lb, ub = -half_width, half_width
@@ -157,14 +246,17 @@ def hho_steps_plain(scalars, rabbit, mean, pos, fit, draws, objective_name,
         fz = objective_t(z)
         dive = torch.where(fy < fit, y, torch.where(fz < fit, z, pos))
 
-        exploit = torch.where(u_r >= 0.5, besiege, dive)
-        pos = torch.clamp(torch.where(abs_e >= 1.0, explore, exploit), lb,
-                          ub)
-        fit = objective_t(pos)
         if counts is not None:
             explore_l, dive_l, _ = branches(u_e0, u_r, frac)
             counts.setdefault("explore", []).append(explore_l.sum())
             counts.setdefault("dive", []).append(dive_l.sum())
+            counts.setdefault("kept", []).append(
+                (dive_l & ~(fy < fit) & ~(fz < fit)).sum())
+
+        exploit = torch.where(u_r >= 0.5, besiege, dive)
+        pos = torch.clamp(torch.where(abs_e >= 1.0, explore, exploit), lb,
+                          ub)
+        fit = objective_t(pos)
     return pos, fit
 
 
@@ -195,7 +287,8 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("hho_fused", "dsa_hho_fused_f32", 10,
-                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 4)
+                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 4
+                          + [i] * 3)
     return _fn
 
 
@@ -208,11 +301,12 @@ def fused_hho_step_cuda(
     """Launch the CUDA kernel: ``k_steps`` fused HHO generations on ``pos``
     [D, N] and ``fit`` [1, N] around the rabbit ``best_pos`` and the mean
     ``mean_pos`` [D, 1] (f32, contiguous, one CUDA device; N a multiple of
-    ``tile_n``), one thread per lane.  ``scalars`` is [4] int32 on the
-    device: the seed, the peer tile shift, the iteration before the launch
-    and the peer lane shift; ``step0`` is the global index of the launch's
-    first step.  ``draws`` (``rng="host"``) are ``host_draws``' eleven.
-    Returns new tensors ``(pos, fit)`` without waiting for the kernel."""
+    ``tile_n``), a block as :func:`hho_geometry` says.  ``scalars`` is [4]
+    int32 on the device: the seed, the peer tile shift, the iteration
+    before the launch and the peer lane shift; ``step0`` is the global
+    index of the launch's first step.  ``draws`` (``rng="host"``) are
+    ``host_draws``' eleven.  Returns new tensors ``(pos, fit)`` without
+    waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     _check(rng, draws, k_steps, tile_n, n)
@@ -248,7 +342,7 @@ def fused_hho_step_cuda(
         int(k_steps), int(step0) & _MASK32, OBJECTIVE_IDS[objective_name],
         float(half_width), float(1.0 / t_max),
         float(mantegna_sigma(levy_beta)), float(-1.0 / levy_beta),
-        *family.stream_args(pos),
+        *hho_geometry(d), *family.stream_args(pos),
     )
     family.check_launch(err, "hho")
     LAUNCHES += 1

@@ -27,12 +27,17 @@ proposal is the cosine half of a Box-Muller pair whose uniforms are streams
 global step, stream); ``u_acc`` and ``u_swap`` are words 0 and 1 of the
 call (lane, 0, global step, 2).  ``rng="host"`` takes ``(r_n, r_acc,
 r_swap)`` as operands (one step per call).
+
+A block of the kernel is a window of 256 threads that owns 256 - 2h lanes
+of a tile, h the halo (:func:`halo`), its candidate stored in a second
+plane, up to D = 109; wider, up to D = 360, it runs its first version
+(:func:`pt_geometry` picks; the kernel's entry checks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +68,8 @@ _fn = None   # the C entry, bound at the first launch
 MAX_STEPS_PER_KERNEL = 16
 # Shared memory the kernel keeps for its block reduction.
 STATIC_RESERVE = 1024
+# The main variant's window: threads a block, warps of owned chains.
+WINDOW = 256
 
 
 def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
@@ -81,15 +88,56 @@ def halo(k_steps: int, swap_every: int) -> int:
 
 
 def kernel_block(dim: int, halo_lanes: int = 4) -> int:
-    """Lanes a block of the kernel owns: the largest of 128, 64 and 32
-    whose buffers fit a block's shared memory (two ``[D][W]`` tiles, the
-    window's positions and candidates, W the block and its halos rounded
-    up to a warp; the ``[D][block]`` running bests; three ``[W]`` rows), or
-    0."""
+    """Lanes a block of the kernel's first version owns: the largest of
+    128, 64 and 32 whose buffers fit a block's shared memory (two
+    ``[D][W]`` tiles, the window's positions and candidates, W the block
+    and its halos rounded up to a warp; the ``[D][block]`` running bests;
+    three ``[W]`` rows), or 0."""
     def shared(block):
-        w = ceil_to(block + 2 * halo_lanes, 32)
-        return (2 * w + block) * dim * 4 + 3 * w * 4 + STATIC_RESERVE
+        return first_bytes(dim, block, halo_lanes) + STATIC_RESERVE
     return family.pick_block(shared)
+
+
+def first_bytes(dim: int, own: int, halo_lanes: int) -> int:
+    """Dynamic shared memory of a first-version block owning ``own``
+    lanes."""
+    w = ceil_to(own + 2 * halo_lanes, 32)
+    return (2 * w + own) * dim * 4 + 3 * w * 4
+
+
+class PtGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: warps filled with owned chains; 1: the first version
+    window: int     # threads a block: the own lanes and their halos
+    own: int        # lanes of a tile a block owns (the last block fewer)
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def main_bytes(dim: int) -> int:
+    """Shared memory of a main-variant block: two ``[D][256]`` planes of
+    positions and candidates; the warps' running bests ``[D][8]``; four
+    ``[256]`` rows (fitness, inverse temperature, swap uniform, the plane
+    that holds each lane's position)."""
+    return 4 * (2 * dim * WINDOW + dim * (WINDOW // 32) + 4 * WINDOW)
+
+
+def pt_geometry(dim: int, halo_lanes: int) -> PtGeometry:
+    """Windows of 256 threads owning 256 - 2h lanes where their two planes
+    fit (D <= 109); wider, the first version
+    (:func:`candidate_tile_geometry`)."""
+    shared = main_bytes(dim)
+    own = WINDOW - 2 * halo_lanes
+    if own <= 0 or shared + STATIC_RESERVE > family.MAX_SHARED_BYTES:
+        return candidate_tile_geometry(dim, halo_lanes)
+    return PtGeometry(0, WINDOW, own, shared)
+
+
+def candidate_tile_geometry(dim: int, halo_lanes: int) -> PtGeometry:
+    """The first version at any D of the envelope: the block from
+    :func:`kernel_block` (own 0 where none fits)."""
+    own = kernel_block(dim, halo_lanes)
+    return PtGeometry(1, ceil_to(own + 2 * halo_lanes, 32), own,
+                      first_bytes(dim, own, halo_lanes))
 
 
 def pt_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -200,7 +248,8 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("tempering_fused", "dsa_pt_fused_f32", 12,
-                          [i, i, i, i, ctypes.c_uint, i, i, i, fl])
+                          [i, i, i, i, ctypes.c_uint, i, i, i, fl]
+                          + [i] * 4)
     return _fn
 
 
@@ -231,13 +280,13 @@ def fused_pt_step_cuda(
              r_n=(r_n, (d, n)), r_acc=(r_acc, (1, n)),
              r_swap=(r_swap, (1, n))))
     h = halo(k_steps, swap_every)
-    block = kernel_block(d, h)
-    if block == 0:
+    if kernel_block(d, h) == 0:
         raise ValueError(
             f"fused_pt_step_cuda: D = {d} is outside the kernel's envelope "
             f"(its buffers at 32 lanes and a halo of {h} must fit "
             f"{family.MAX_SHARED_BYTES} bytes of shared memory)")
-    blocks = (n // tile_n) * -(-tile_n // block)
+    geo = pt_geometry(d, h)
+    blocks = (n // tile_n) * -(-tile_n // geo.own)
     pos_out, fit_out = torch.empty_like(pos), torch.empty_like(fit)
     block_fit = torch.empty(blocks, dtype=torch.float32, device=pos.device)
     block_pos = torch.empty((d, blocks), dtype=torch.float32,
@@ -249,7 +298,8 @@ def fused_pt_step_cuda(
         pos_out.data_ptr(), fit_out.data_ptr(), block_fit.data_ptr(),
         block_pos.data_ptr(), n, d, int(tile_n),
         int(k_steps), int(step0) & _MASK32, OBJECTIVE_IDS[objective_name],
-        int(swap_every), h, float(half_width), *family.stream_args(pos),
+        int(swap_every), h, float(half_width), *geo,
+        *family.stream_args(pos),
     )
     family.check_launch(err, "pt")
     LAUNCHES += 1

@@ -2953,3 +2953,246 @@ def test_bat_abc_redesign_builds_spill_no_registers(cuda):
         spills = [ln for ln in log.splitlines() if "spill" in ln]
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# The redesigned parallel-tempering kernel (B18: windows of 256 threads
+# owning 256 - 2h chains, the Philox pair hoisted, the candidate stored in a
+# second plane, the running best kept per warp) and Harris-hawks
+# kernel (B13: lanes regrouped by branch inside each block), in every
+# variant, against their plain versions under torch.equal (ackley within
+# its expf band, as above), and their hoisted Philox.
+# --------------------------------------------------------------------------
+
+PT_HHO_WIDTHS = [1, 4, 5, 30, 31]        # D mod 4 = 1, 0, 1, 2, 3
+# fam -> (module, geometry function, {variant: its geometry function},
+# the launch's steps with device draws).
+PT_HHO = {"pt": (port_pt, "pt_geometry",
+                 {"main": port_pt.pt_geometry,
+                  "second": port_pt.candidate_tile_geometry}, 16),
+          "hho": (port_hho, "hho_geometry",
+                  {"main": port_hho.hho_geometry,
+                   "second": port_hho.trial_tile_geometry}, 8)}
+PT_HHO_VARIANTS = [(fam, v) for fam, spec in PT_HHO.items()
+                   for v in spec[2]]
+
+
+def _pt_hho_equal(monkeypatch, fam, variant, name, n, d, k, rng, device,
+                  tile_n, step0=None, **extra):
+    """Both launches of one case equal the plain version's; returns the
+    case's arguments."""
+    mod, geometry, variants, _ = PT_HHO[fam]
+    monkeypatch.setattr(mod, geometry, variants[variant])
+    kernel, plain, args, kw = _levy_case(fam, name, n, d, k, rng, device,
+                                         tile_n, **extra)
+    if step0 is not None:
+        kw["step0"] = step0
+    before = mod.LAUNCHES
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    assert mod.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal(name, got, want)
+    _assert_family_equal(name, again, want)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,variant", PT_HHO_VARIANTS,
+                         ids=[f"{f}-{v}" for f, v in PT_HHO_VARIANTS])
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("rng", ["host", "device"])
+@pytest.mark.parametrize("d", PT_HHO_WIDTHS)
+def test_pt_hho_redesign_equals_plain_across_widths(cuda, monkeypatch, fam,
+                                                   variant, name, rng, d):
+    # Four tiles of 1,000 lanes (PT: four blocks of 248 chains a tile and
+    # a partial fifth, the last three chains padding; HHO: blocks of 256
+    # hawks across the tiles, the last one ragged); k = 1 with the draws
+    # handed in, else the family's cap with device draws, the global step
+    # wrapping at 2^32.
+    k = 1 if rng == "host" else PT_HHO[fam][3]
+    extra = dict(n_real=3997) if fam == "pt" else {}
+    _pt_hho_equal(monkeypatch, fam, variant, name, 4000, d, k, rng, cuda,
+                  1000, seed=d, step0=2**32 - 5, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(PT_HHO["pt"][2]))
+@pytest.mark.parametrize("swap_every", [1, 5])
+@pytest.mark.parametrize("n,tile_n,n_real", [(16384, 4096, 16384),
+                                             (16384, 4096, 16000),
+                                             (2000, 1000, 1993),
+                                             (512, 128, 500)])
+def test_pt_redesign_rounds_and_padding(cuda, monkeypatch, variant,
+                                        swap_every, n, tile_n, n_real):
+    # The widest halo (swap_every = 1: 16 rounds, windows owning 224
+    # chains) and the main path's (5: 248); a tile of 4,096 in 17 blocks,
+    # one of 1,000, and one of 128 that a single window holds with room to
+    # spare; padded chains (n_real < n) never exchange.
+    args, kw = _pt_hho_equal(monkeypatch, "pt", variant, "rastrigin", n, 30,
+                             16, "device", cuda, tile_n,
+                             swap_every=swap_every, n_real=n_real)
+    counts = {}
+    port_pt.fused_pt_step_plain(*args, **kw, counts=counts)
+    assert int(sum(counts["swapped"])) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(PT_HHO["hho"][2]))
+@pytest.mark.parametrize("klass", ["perch", "below", "besiege", "dive"])
+def test_hho_redesign_every_lane_in_one_class(cuda, monkeypatch, variant,
+                                              klass):
+    # Rows chosen so that every hawk takes one branch (|E| = 1.9 explores,
+    # 0 exploits; u_q and u_r pick within): the sort puts every lane in one
+    # class and no warp diverges.
+    mod = port_hho
+    monkeypatch.setattr(mod, "hho_geometry", PT_HHO["hho"][2][variant])
+    kernel, plain, args, kw = _levy_case("hho", "rastrigin", 4000, 30, 1,
+                                         "host", cuda, 1000)
+    rows = {"perch": (0.99, 0.25, 0.75, 0.0), "below": (0.99, 0.25, 0.25, 0.0),
+            "besiege": (0.5, 0.25, 0.0, 0.75),
+            "dive": (0.5, 0.25, 0.0, 0.25)}[klass]
+    draws = list(args[-1])
+    draws[:4] = [torch.full_like(draws[0], v) for v in rows]
+    args[-1] = tuple(draws)
+    args[0][2] = 0                             # t0: frac = 1 / t_max
+    counts = {}
+    want = plain(*args, **kw, counts=counts)
+    explore, dive = int(counts["explore"][0]), int(counts["dive"][0])
+    assert (explore, dive) == {"perch": (4000, 0), "below": (4000, 0),
+                               "besiege": (0, 0), "dive": (0, 4000)}[klass]
+    frac = port_hho.step_fraction(args[0][2].cpu(), 0, kw["t_max"])
+    cls = port_hho.lane_classes(*(torch.tensor([v]) for v in
+                                  (rows[0], rows[2], rows[3])), frac)
+    assert int(cls) == getattr(port_hho, klass.upper())
+    _assert_family_equal("rastrigin", kernel(*args, **kw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,name,n,d,k,rng,tile_n,extra,want", [
+    ("pt", "rastrigin", 4096, 109, 16, "device", 4096,
+     dict(swap_every=1), (0,)),                    # two planes, the widest
+    ("pt", "sphere", 4096, 110, 16, "device", 4096,
+     dict(swap_every=1), (1,)),                    # past them: the first
+    ("pt", "schwefel", 2048, 215, 4, "device", 1024,
+     dict(swap_every=1), (1,)),                    # version
+    ("pt", "levy", 1024, 360, 16, "device", 512,
+     dict(swap_every=1), (1,)),                    # 32 lanes a block
+    ("pt", "zakharov", 512, 64, 1, "host", 128, {}, (0,)),
+    ("hho", "rastrigin", 4096, 111, 8, "device", 1024, {}, (0,)),
+    ("hho", "ackley", 2048, 112, 8, "device", 1024, {}, (1,)),
+    ("hho", "styblinski_tang", 1024, 605, 2, "device", 512, {}, (1,)),
+    ("hho", "michalewicz", 1000, 2, 8, "device", 200, {}, (0,)),
+    ("hho", "levy", 512, 64, 1, "host", 256, {}, (0,)),
+], ids=lambda v: str(v))
+def test_pt_hho_redesign_geometries(cuda, monkeypatch, fam, name, n, d, k,
+                                    rng, tile_n, extra, want):
+    mod, geometry, _, _ = PT_HHO[fam]
+    geo = (getattr(mod, geometry)(d, port_pt.halo(k, extra.get(
+        "swap_every", 5))) if fam == "pt" else getattr(mod, geometry)(d))
+    assert tuple(geo[:len(want)]) == want
+    _pt_hho_equal(monkeypatch, fam, "main", name, n, d, k, rng, cuda,
+                  tile_n, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,geo", [
+    # k = 2 steps, swap_every = 5: a halo of 1, windows owning 254 chains.
+    ("pt", (0, 128, 126, 4 * (2 * 30 * 256 + 240 + 1024))),     # not 256
+    ("pt", (0, 256, 248, 4 * (2 * 30 * 256 + 240 + 1024))),     # not 256-2h
+    ("pt", (0, 256, 254, 4 * (30 * 256 + 240 + 1024))),         # bytes
+    ("pt", (1, 96, 64, 4 * ((2 * 96 + 64) * 30 + 288))),        # not its
+    ("pt", (2, 256, 254, 0)),                                   # no variant
+    ("hho", (0, 128, 4 * (2 * 30 * 128 + 64 + 512 + 8))),       # not 256
+    ("hho", (0, 256, 30720)),                                   # bytes
+    ("hho", (1, 64, 3 * 30 * 64 * 4)),                          # not its
+    ("hho", (2, 256, 0)),                                       # no variant
+], ids=lambda v: str(v))
+def test_pt_hho_entries_reject_a_geometry_they_cannot_run(
+        cuda, monkeypatch, fam, geo):
+    # The wrapper hands its geometry to the entry, which checks it: one the
+    # kernels cannot run launches nothing and counts nothing.
+    mod, geometry, _, _ = PT_HHO[fam]
+    tup = port_pt.PtGeometry if fam == "pt" else port_hho.HhoGeometry
+    monkeypatch.setattr(mod, geometry, lambda *shape: tup(*geo))
+    kernel, _, args, kw = _levy_case(fam, "sphere", 16384, 30, 2, "device",
+                                     cuda, 4096)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert mod.LAUNCHES == before
+
+
+def _philox_check_words(cuda, source, entry, width):
+    """The check entry's words [m, width] for counters (lane, group, step,
+    seed) at the edges of 32 bits and drawn, and those counters."""
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    fn = getattr(_build.load(source), entry)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = np.random.default_rng(3)
+    edges = [0, 1, 2, 2**31 - 1, 2**31, 2**32 - 1]
+    grid = np.array(np.meshgrid(edges, [0, 1, 7, 151, 2**32 - 1],
+                                [0, 1, 2**32 - 1], [0, 2025, 2**32 - 1]),
+                    dtype=np.int64).reshape(4, -1)
+    grid = np.concatenate([grid, g.integers(0, 2**32, (4, 4096))], 1)
+    grid[1, -2048:] = g.integers(0, 8, 2048)     # the groups a run draws
+    cols = [torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(cuda)
+            for c in grid]
+    m = grid.shape[1]
+    out = torch.empty((m, width), dtype=torch.int32, device=cuda)
+    err = fn(*(c.data_ptr() for c in cols), m, out.data_ptr(),
+             cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    words = out.cpu().numpy().view(np.uint32).astype(np.int64)
+    return words, [torch.from_numpy(c) for c in grid]
+
+
+@pytest.mark.cuda
+def test_pt_hho_hoisted_philox_equals_philox4x32_10(cuda):
+    # PT: streams 0 and 1 from the pair call, the row (stream 2) from
+    # philox_one.cuh.  HHO: the generalised pair for streams 0 and 1, 2 and
+    # 3, 5 and 6, stream 4 and the row (stream 7) from philox_one.cuh.
+    # Each beside philox4x32_10's words on the card, and those beside the
+    # plain version's (ops/cuda/pso_fused.py).
+    for source, entry, width, streams in (
+            ("tempering_fused", "dsa_pt_philox_check", 24, (0, 1, 2)),
+            ("hho_fused", "dsa_hho_philox_check", 64,
+             (0, 1, 2, 3, 5, 6, 4, 7))):
+        words, (lane, grp, ctr, seed) = _philox_check_words(
+            cuda, source, entry, width)
+        half = width // 2
+        assert np.array_equal(words[:, :half], words[:, half:]), source
+        for k, s in enumerate(streams):
+            # The row, last, takes group 0.
+            g = torch.zeros_like(grp) if k == len(streams) - 1 else grp
+            want = torch.stack(port_pf.philox4x32_10(lane, g, ctr, s, seed,
+                                                     0), 1)
+            assert np.array_equal(words[:, 4 * k:4 * k + 4],
+                                  want.numpy()), (source, s)
+
+
+@pytest.mark.cuda
+def test_pt_hho_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["tempering_fused", "hho_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws, beside
+    # the second variant and the Philox check.
+    for name, kernel, variants, others in (
+            ("tempering_fused", "pt_step_kernel", 80,
+             ("pt_cand_tile_kernel", "philox_check_kernel")),
+            ("hho_fused", "hho_sorted_kernel", 80,
+             ("hho_trial_tile_kernel", "philox_check_kernel"))):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines()
+                   if "Compiling entry" in ln and kernel in ln]
+        assert len(entries) == variants, (name, len(entries))
+        for other in others:
+            assert other in log, (name, other)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

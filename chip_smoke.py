@@ -21,8 +21,11 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    whose step loops give the issue floors of phases 12 and 13; and so for
    B7's and B17's (the bat step with no candidate tile, the ABC tile on
    chip across a cluster), whose loops give the issue floors of phases 11
-   and 13 (``redesigned_census``, records ``redesigned_builds_de_cuckoo``
-   and ``redesigned_builds_bat_abc``);
+   and 13, B18's and B13's, and B15's (the GA tile on chip across a
+   cluster), whose loops give the issue floor of phase 12
+   (``redesigned_census``, records ``redesigned_builds_de_cuckoo``,
+   ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho`` and
+   ``redesigned_builds_ga``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -125,10 +128,16 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    at the final state against its plain version, timed beside it and its
    bound (B10 also beside its issue floor, and in both its variants at CR
    = 0.9 and at CR = 0, where no gene crosses and the first version reads
-   no donor, the second variant held against the plain version too).  Phase 3 holds the four kernels at
-   small ragged shapes (4 tiles or more, 1 and k steps, GA at every k from
-   1 to 8, draws handed in and made in the kernel; DE past 32 genes, in its
-   second variant at D = 200, and with windows longer than the tile) and
+   no donor, the second variant held against the plain version too; B15
+   beside its issue floor and in both its variants at the final state, with
+   the clusters the card holds at once and its bound both ways: delta
+   charged to the mutating elements, which its kernel skips elsewhere, and
+   to every element).
+   Phase 3 holds the four kernels at small ragged shapes (4 tiles or more,
+   1 and k steps, GA at every k from 1 to 8, draws handed in and made in
+   the kernel; DE past 32 genes, in its second variant at D = 200, and with
+   windows longer than the tile; GA in clusters of 1, 4 and 16 blocks, of
+   256 and 512 lanes, and in its second variant at a tile of 16,384) and
    phase 4 three launches of each on the CPU and on the card;
 13. full width, cuckoo search, Harris hawks, the artificial bee colony and
    parallel tempering, each at its JAX bench's configuration, Rastrigin-30D
@@ -207,6 +216,7 @@ It exits non-zero at once where no CUDA device is available.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -293,13 +303,25 @@ ROT_TPU_KERNELS = {"de": "de_fused.py:125", "shade": "shade_fused.py:122",
 #         (6), the gate (2), delta (43), the mutation and the clip (5),
 #         rastrigin (23); 150 = the gate's call and bits (103), the two
 #         tournaments (16), the argmin and argmax with their share of the
-#         reductions (30), rastrigin's offset;
+#         reductions (30), rastrigin's offset.  GA's bound charges the
+#         work that depends on the data only where the function needs it,
+#         from the plain version's tallies on the same inputs: delta and
+#         stream 1's uniform (GA_DELTA_OPS, GA_UNIFORM_OPS) at the mutating
+#         elements, stream 1's quarter call (GA_QUARTER_CALL_OPS) at the
+#         elements of a group of four dimensions that holds one, and
+#         stream 0's draw, beta and c1 or c2 (GA_CROSS_OPS) in the crossing
+#         lanes (a draw of 28 is a quarter of a call of 100 and a uniform
+#         of 3, as the gate's 103 is a call and its bits);
 #   mfo   101 = the draw (28), l (3), the flame select (1), |flame - x| (2),
 #         2^(b l log2 e) (20), cos 2 pi l (17), the spiral and the clip (5),
 #         rastrigin (23), the flame update (2); 3 = the own test, the flame
 #         fitness test and its select.
 ROT_OPS = {"de": (58, 12), "shade": (63, 128), "ga": (207, 150),
            "mfo": (101, 3)}
+GA_DELTA_OPS = 43
+GA_UNIFORM_OPS = 3
+GA_QUARTER_CALL_OPS = 25
+GA_CROSS_OPS = 28 + 44 + 6
 # SHADE's generations profiled for the device's busy share.
 SHADE_PROFILED = 16
 # The Levy-flight and multi-evaluation families, each at its JAX bench's
@@ -413,6 +435,9 @@ ABC_MAIN = "abc_cluster_kernelILi2ELi1ELb0E"
 # device draws.
 PT_MAIN = "pt_step_kernelILi2ELi1ELb0E"
 HHO_MAIN = "hho_sorted_kernelILi2ELi1ELb0E"
+# The main kernel of the redesigned B15: D mod 4 = 2, rastrigin, device
+# draws.
+GA_MAIN = "ga_cluster_kernelILi2ELi1ELb0E"
 # The redesigns with a second variant, a pair at a time: (family, source,
 # main kernel); the second variants (the first versions, kept) and the
 # geometry functions that reach them.
@@ -421,16 +446,19 @@ REDESIGNED = ((("de", "de_fused", DE_MAIN),
               (("bat", "bat_fused", BAT_MAIN),
                ("abc", "abc_fused", ABC_MAIN)),
               (("pt", "tempering_fused", PT_MAIN),
-               ("hho", "hho_fused", HHO_MAIN)))
+               ("hho", "hho_fused", HHO_MAIN)),
+              (("ga", "ga_fused", GA_MAIN),))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
                    "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
                    "pt": "pt_cand_tile_kernel",
-                   "hho": "hho_trial_tile_kernel"}
+                   "hho": "hho_trial_tile_kernel",
+                   "ga": "ga_global_kernel"}
 SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "bat": "candidate_tile_geometry",
                    "abc": "global_geometry",
                    "pt": "candidate_tile_geometry",
-                   "hho": "trial_tile_geometry"}
+                   "hho": "trial_tile_geometry",
+                   "ga": "global_geometry"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -1181,6 +1209,16 @@ def pso_bound_ms(n, d, k_steps, gbest_cols):
         "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
 
 
+@functools.lru_cache(maxsize=None)
+def sass_dump(tool, library):
+    """(return code, stdout, stderr) of ``cuobjdump -sass`` on a library,
+    once a library: a redesign's census reads its main kernel and its
+    second variant from one dump."""
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=120)
+    return out.returncode, out.stdout, out.stderr
+
+
 def sass_census(build, name, function):
     """Opcode counts of the SASS of the first function of ``name``'s library
     whose mangled name holds ``function`` (``cuobjdump -sass``), and its
@@ -1197,20 +1235,22 @@ def sass_census(build, name, function):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return {"error": "cuobjdump not found"}
-    out = subprocess.run([tool, "-sass", str(build.library_path(name))],
-                         capture_output=True, text=True, timeout=120)
-    if out.returncode != 0:
-        return {"error": out.stderr[-300:]}
+    returncode, stdout, stderr = sass_dump(tool,
+                                           str(build.library_path(name)))
+    if returncode != 0:
+        return {"error": stderr[-300:]}
     counts, inside, loops, products = {}, False, [], []
-    for line in out.stdout.splitlines():
+    for line in stdout.splitlines():
         if "Function :" in line:
             if inside:
                 break
             inside = function in line
             continue
+        if not inside:
+            continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)", line)
-        if inside and m:
+        if m:
             op = m.group(2)
             key = next((k for k in ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV",
                                     "IMAD.SHL", "IMAD")
@@ -1325,6 +1365,31 @@ def cuckoo_issue_floor(census, n, d, k_steps, clock_mhz):
     if len(inner) < 2:
         return None, None
     per_step = (d // 4) * (inner[0] + inner[1]) + outer - sum(inner)
+    return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
+
+
+def ga_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B15's issue floor on one launch: the chunk loop (unrolled twice:
+    eight dimensions, each the parents' loads, the Philox pair and stream
+    2, the uniforms, beta and delta, SBX, the mutation and the clip, the
+    folded term; the loop inside the generation loop with the most 32-bit
+    products) (D // 4) // 2 times a generation, plus what the generation
+    loop holds outside its inner loops (an odd chunk, the last D mod 4
+    dimensions, the gate, the tournaments, the objective's close, the
+    reductions and the barriers), the elite's copy (one warp a cluster)
+    left out; delta counted at every warp-element, though a warp with no
+    mutating lane skips it.  Only predicated branches back make loops, as
+    in ``abc_issue_floor``."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+    if not inner:
+        return None, None
+    chunk = max(inner, key=lambda lp: (lp[3], lp[2]))[2]
+    per_step = (d // 4) // 2 * chunk + outer[2] - sum(lp[2] for lp in inner)
     return per_step / d, issue_floor_ms(per_step * n * k_steps, clock_mhz)
 
 
@@ -1449,8 +1514,9 @@ def variant_times(fam, mod, kernel, settings, k_steps, smi, knob=None):
     milliseconds at each setting ``(label, args, keywords, want)``, and the
     second variant against the plain version where ``want`` is given.
     B10 and B12 at the run's CR or pa and at 0 (no gene crosses, no lane
-    walks); B7 at the final state and at the initial one (pulse 0: every
-    bat walks); B17 at the final state and where every lane is probed; B18
+    walks); B15 at the final state; B7 at the final state and at the
+    initial one (pulse 0: every bat walks); B17 at the final state and
+    where every lane is probed; B18
     at the final state and at swap_every = 1 (the widest halo); B13 at the
     final state (besiege and dive) and at the first launch's t0 = 0 (three
     classes)."""
@@ -1910,10 +1976,11 @@ def rot_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0):
 def rot_small_shapes(mods, pf, dev):
     """Phase 3's part for DE, SHADE, GA and MFO: each kernel against its
     plain version at ragged shapes, with 4 or more tiles, 1 and k steps,
-    both rng modes; GA at every k from 1 to 8 (the tile kept in step); DE
-    at the main path's tile, past 32 genes (a mask word in shared memory),
-    in its second variant (D = 200) and with windows longer than the tile
-    (96 lanes)."""
+    both rng modes; GA at every k from 1 to 8 (the tile kept in step), in
+    clusters of 1, 4 and 16 blocks (of 256 and 512 lanes) and in its second
+    variant (a tile of 16,384); DE at the main path's tile, past 32 genes
+    (a mask word in shared memory), in its second variant (D = 200) and
+    with windows longer than the tile (96 lanes)."""
     cases = [
         ("de", "rastrigin", 512, 8, 1, "host", 128),
         ("de", "sphere", 480, 30, 32, "device", 96),
@@ -1933,6 +2000,9 @@ def rot_small_shapes(mods, pf, dev):
         ("ga", "ackley", 16384, 30, 8, "device", 4096),
         *(("ga", "rastrigin", 16384, 30, k, "device", 4096)
           for k in range(1, 9)),
+        ("ga", "sphere", 4096, 30, 8, "device", 1024),       # 4 x 256
+        ("ga", "levy", 32768, 30, 8, "device", 8192),        # 16 x 512
+        ("ga", "griewank", 32768, 30, 3, "device", 16384),   # no cluster
         ("mfo", "rastrigin", 512, 8, 1, "host", 128),
         ("mfo", "styblinski_tang", 1000, 30, 8, "device", 200),
         ("mfo", "rosenbrock", 77, 1, 32, "device", 77),
@@ -1944,8 +2014,10 @@ def rot_small_shapes(mods, pf, dev):
         before = mods[fam].LAUNCHES
         got = kernel(*args, **kw)
         check(mods[fam].LAUNCHES == before + 1, "launch not counted")
+        geo = (f" geometry={tuple(mods[fam].ga_geometry(d, tile_n))}"
+               if fam == "ga" else "")
         compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
-                       f"tile_n={tile_n}", got, plain(*args, **kw), k)
+                       f"tile_n={tile_n}{geo}", got, plain(*args, **kw), k)
 
 
 def rot_cpu_vs_gpu(mods, dev):
@@ -2013,13 +2085,22 @@ def rot_cpu_vs_gpu(mods, dev):
               f"fused {fam} run differs CPU vs GPU: {devs}")
 
 
-def rot_bound_ms(fam, n, d, k_steps):
+def rot_bound_ms(fam, n, d, k_steps, needed=None):
     """Least time for one launch of a rotational family's kernel on this
     card: its operations (``ROT_OPS``) over the f32 peak, against the bytes
     it must move (each input read once, each output written once) over the
-    memory rate."""
+    memory rate.  ``needed`` (GA: the plain version's tallies, summed over
+    the launch) charges the work that depends on the data only where the
+    function needs it; a tally it lacks charges that work at every
+    element."""
     per_elem, per_particle = ROT_OPS[fam]
     ops = k_steps * n * (d * per_elem + per_particle)
+    if needed is not None:
+        elems = k_steps * n * d
+        skipped = lambda key: elems - needed.get(key, elems)  # noqa: E731
+        ops -= (GA_DELTA_OPS + GA_UNIFORM_OPS) * skipped("mutated")
+        ops -= GA_QUARTER_CALL_OPS * skipped("mutating_group_elements")
+        ops -= GA_CROSS_OPS * skipped("crossing_elements")
     nbytes = {"de": 4 * (2 * d + 2) * n,
               "shade": 4 * (3 * d + 4) * n + 4 * 128 * d,
               "ga": 4 * (2 * d + 2) * n,
@@ -2071,8 +2152,8 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     """Phase 12 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked (SHADE's device busy share from a
     trace of more generations); then one launch at the final state against
-    its plain version, timed beside it and its bound (DE also beside its
-    issue floor, and in both variants)."""
+    its plain version, timed beside it and its bound (DE and GA also beside
+    their issue floors, and in both variants)."""
     steps, k, t_max = ROT[fam]
     mod = mods[fam]
     model = {"de": dsa.DE, "shade": dsa.SHADE, "ga": dsa.GA,
@@ -2139,26 +2220,40 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
                    **extra)
     kernel = getattr(mod, f"fused_{fam}_step_cuda")
     got = kernel(*args, **step_kw)
+    counts = {}
+    plain_kw = dict(step_kw, counts=counts) if fam == "ga" else step_kw
     want, plain_ms = timed(
-        lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
+        lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **plain_kw))
+    needed = ({key: int(sum(int(v) for v in vals))
+               for key, vals in counts.items()} if fam == "ga" else None)
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
     if fam == "de":
         knob, settings = knob_settings(fam, args, step_kw, want)
         variant_times(fam, mod, kernel, settings, k, smi, knob)
+    elif fam == "ga":
+        variant_times(fam, mod, kernel,
+                      [("final_state", args, step_kw, want)], k, smi)
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
-    bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k)
-    floor = (de_issue_floor(census["de"], ZOO_N, ZOO_DIM, k,
-                            census["clock_mhz"]) if fam == "de"
-             else (None, None))
+    bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k,
+                                                needed)
+    extra = {}
+    if fam == "ga":
+        extra = dict(needed_elements=needed,
+                     bound_ms_every_element=rot_bound_ms(
+                         fam, ZOO_N, ZOO_DIM, k)[0],
+                     geometry=tuple(mod.ga_geometry(ZOO_DIM, 4096)))
+    floors = {"de": de_issue_floor, "ga": ga_issue_floor}
+    floor = (floors[fam](census[fam], ZOO_N, ZOO_DIM, k, census["clock_mhz"])
+             if fam in floors else (None, None))
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
            bound_by=bound_by, operations=ops, bytes=nbytes,
            instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
            ptxas=census.get(f"{fam}_ptxas"),
            kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
-           smi=smi, seconds_so_far=time.perf_counter() - t_start)
+           smi=smi, seconds_so_far=time.perf_counter() - t_start, **extra)
     return dict(name=f"{fam}_fused", route="cuda",
                 source=f"distributed_swarm_algorithm_tpu_torch/csrc/"
                        f"{fam}_fused.cu",

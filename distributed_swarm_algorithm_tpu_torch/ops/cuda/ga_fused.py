@@ -18,8 +18,17 @@ tiles ``i + ts_a`` and ``i + ts_b``; one child per lane from SBX (c1 or c2
 by a lane gate, else parent A) and polynomial mutation, the powers through
 the bit-field ``log2`` and ``2^x`` polynomials; then the tile's best
 current individual replaces its worst child where strictly better.  So
-every lane of a tile reads the whole tile's previous generation: the
-kernel runs one block per tile and synchronizes it at every generation.
+every lane of a tile reads the whole tile's previous generation, and the
+kernel keeps a tile in step: across a thread-block cluster whose blocks
+hold two generations of the tile in shared memory for the whole launch,
+or, where they do not fit 16 blocks, in one block through global scratch
+(:func:`ga_geometry` picks; the kernel's entry checks).  The cluster
+variant raises beta and delta once a draw on a selected argument, crosses
+with selected coefficients and follows the elite from generation to
+generation without a rescan; each gives the plain version's bits
+(``tests/test_torch_ga_geometry.py`` holds PyTorch models of these forms
+against :func:`sbx_beta`, :func:`mutation_delta`, :func:`sbx_child` and
+``torch.argmin``).
 
 Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed, the
 SBX, mutation and mutation-test uniforms on streams 0, 1 and 2 over the
@@ -42,7 +51,7 @@ from ..nsga2 import ETA_C, ETA_M, P_CROSS
 from . import family
 from .common import cyclic_pad_rows
 from .fast_math import LOG2_C, exp2_fast, log2_fast  # noqa: F401
-from .family import LANE_SHIFTS, donor_tiles, roll_lanes
+from .family import LANE_SHIFTS, TileGeometry, donor_tiles, roll_lanes
 from .pso_fused import (
     OBJECTIVE_IDS,
     OBJECTIVES_T,
@@ -63,8 +72,16 @@ _fn = None   # the C entry, bound at the first launch
 # The JAX package's cap on steps_per_kernel for this family
 # (ops/pallas/ga_fused.py:318).
 MAX_STEPS_PER_KERNEL = 8
-# Threads of the block that runs one tile (each holds tile_n / 512 lanes).
+# Threads of the block that runs one tile in the global-scratch variant
+# (each holds tile_n / 512 lanes).
 TILE_THREADS = 512
+# The cluster variant's slots a block, in 4-byte words: each warp's (max,
+# lane) and (min, lane) for up to 16 warps, two inboxes of every block's
+# (max, lane, min, lane) for up to 16 blocks, the block's six constants
+# (the snapshot tiles, the lane shifts, the seed) and the elite of
+# generations of each parity.
+CLUSTER_SLOT_WORDS = (4 * (family.CLUSTER_MAX_LANES // 32)
+                      + 2 * 4 * max(family.CLUSTER_SIZES) + 6 + 4)
 
 
 def pow_fast(x: torch.Tensor, inv_eta: float) -> torch.Tensor:
@@ -87,15 +104,39 @@ def host_draws(gen: torch.Generator, pos_shape, fit_shape, device):
 def ga_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
     """True if the fused kernel covers this config (else use the portable
     path): a named objective, float32 and michalewicz within its phase
-    bound.  The kernel keeps no per-dimension state in shared memory, so D
-    is free.  The name is the JAX package's."""
+    bound.  D is free: a tile too large for a cluster runs through global
+    scratch.  The name is the JAX package's."""
     return family.family_supported(objective_name, dtype, dim, lambda d: 1)
 
 
 def tile_threads(tile_n: int) -> int:
-    """Threads of the block that runs one tile: 512, or the tile rounded up
-    to a warp where it is smaller."""
+    """Threads of the block that runs one tile through global scratch: 512,
+    or the tile rounded up to a warp where it is smaller."""
     return min(TILE_THREADS, -(-tile_n // 32) * 32)
+
+
+def cluster_bytes(dim: int, lanes: int) -> int:
+    """Shared memory of a cluster block of ``lanes`` lanes: two generations
+    of their positions and fitness, then the reduction slots."""
+    return 4 * (2 * dim * lanes + 2 * lanes + CLUSTER_SLOT_WORDS)
+
+
+def ga_geometry(dim: int, tile_n: int) -> TileGeometry:
+    """The smallest cluster whose blocks, ``ceil(tile_n / cluster)`` lanes
+    each, at most 256 (else 512), hold two generations of their lanes
+    within a block's shared memory (16 blocks of 256 lanes at 4,096 x 30);
+    where none does (an explicit tile above 8,192 lanes, a tile of 8,192
+    past D = 55, or D past 3,618 at the smallest tile), one block a tile
+    through global scratch."""
+    return (family.cluster_geometry(tile_n,
+                                    lambda lanes: cluster_bytes(dim, lanes))
+            or global_geometry(dim, tile_n))
+
+
+def global_geometry(dim: int, tile_n: int) -> TileGeometry:
+    """The global-scratch variant (the first version) at any shape: one
+    block a tile."""
+    return TileGeometry(1, 1, tile_n, tile_threads(tile_n), 0)
 
 
 def _constants(half_width, eta_c, eta_m, p_cross, p_mut):
@@ -106,10 +147,52 @@ def _constants(half_width, eta_c, eta_m, p_cross, p_mut):
                 width=2.0 * half_width)
 
 
+def sbx_beta(u, inv_c):
+    """SBX's spread factor, the plain version's two arms."""
+    return torch.where(
+        u <= 0.5, pow_fast(2.0 * u + 1e-12, inv_c),
+        pow_fast(rdiv(1.0, 2.0 * (1.0 - u) + 1e-12), inv_c))
+
+
+def mutation_delta(um, inv_m):
+    """The polynomial mutation's step, the plain version's two arms."""
+    return torch.where(
+        um < 0.5, pow_fast(2.0 * um + 1e-12, inv_m) - 1.0,
+        1.0 - pow_fast(2.0 * (1.0 - um) + 1e-12, inv_m))
+
+
+def sbx_child(beta, uc, parent_a, parent_b, cross_lo, cross_hi):
+    """The crossover's child, the plain version's three arms: c1 where
+    ``uc < cross_lo``, c2 where ``uc < cross_hi``, else parent A."""
+    c1 = 0.5 * ((1.0 + beta) * parent_a + (1.0 - beta) * parent_b)
+    c2 = 0.5 * ((1.0 - beta) * parent_a + (1.0 + beta) * parent_b)
+    return torch.where(uc < cross_lo, c1,
+                       torch.where(uc < cross_hi, c2, parent_a))
+
+
+def tally_needed(counts, mutates, crossing):
+    """Add one generation's data-dependent work to ``counts``: ``mutates``
+    is the ``[D, N]`` mask of mutating elements, ``crossing`` the lanes'
+    crossover mask (``N`` elements)."""
+    d, n = mutates.shape
+    groups = torch.nn.functional.pad(mutates, (0, 0, 0, -d % 4))
+    held = groups.reshape(-1, 4, n).any(dim=1)
+    sizes = (d - 4 * torch.arange(held.shape[0], device=mutates.device)
+             ).clamp(max=4)
+    for key, v in (("mutated", mutates.sum()),
+                   ("mutating_group_elements", (held.sum(1) * sizes).sum()),
+                   ("crossing_elements", crossing.sum() * d)):
+        counts.setdefault(key, []).append(v)
+
+
 def ga_steps_plain(scalars, pos, fit, draws, objective_name, half_width,
-                   consts, tile_n, k_steps, step0):
+                   consts, tile_n, k_steps, step0, counts=None):
     """``k_steps`` generations on ``[D, N]``; ``draws is None`` draws from
-    Philox."""
+    Philox.  ``counts`` (a dict) collects, for each generation, the work
+    that depends on the data: the mutating elements (``ud < p_mut``), the
+    elements of the groups of four dimensions (4 q .. 4 q + 3, a Philox
+    call's words) that hold one, and the elements of the crossing lanes
+    (``uc < cross_hi``)."""
     objective_t = OBJECTIVES_T[objective_name]
     d, n = pos.shape
     n_tiles = n // tile_n
@@ -138,20 +221,15 @@ def ga_steps_plain(scalars, pos, fit, draws, objective_name, half_width,
             uc = philox_uniforms(seed, n, 1, step0 + step, 3)
         else:
             u, uc, um, ud = draws
-        beta = torch.where(
-            u <= 0.5, pow_fast(2.0 * u + 1e-12, inv_c),
-            pow_fast(rdiv(1.0, 2.0 * (1.0 - u) + 1e-12), inv_c))
-        c1 = 0.5 * ((1.0 + beta) * parent_a + (1.0 - beta) * parent_b)
-        c2 = 0.5 * ((1.0 - beta) * parent_a + (1.0 + beta) * parent_b)
-        child = torch.where(uc < consts["cross_lo"], c1,
-                            torch.where(uc < consts["cross_hi"], c2,
-                                        parent_a))
-        delta = torch.where(
-            um < 0.5, pow_fast(2.0 * um + 1e-12, inv_m) - 1.0,
-            1.0 - pow_fast(2.0 * (1.0 - um) + 1e-12, inv_m))
-        child = child + torch.where(ud < consts["p_mut"],
-                                    delta * consts["width"],
+        beta = sbx_beta(u, inv_c)
+        child = sbx_child(beta, uc, parent_a, parent_b, consts["cross_lo"],
+                          consts["cross_hi"])
+        delta = mutation_delta(um, inv_m)
+        mutates = ud < consts["p_mut"]
+        child = child + torch.where(mutates, delta * consts["width"],
                                     torch.zeros_like(delta))
+        if counts is not None:
+            tally_needed(counts, mutates, uc < consts["cross_hi"])
         child = torch.clamp(child, -half_width, half_width)
         cfit = objective_t(child)
 
@@ -183,10 +261,11 @@ def fused_ga_step_plain(
     objective_name: str, half_width: float = 5.12, eta_c: float = ETA_C,
     eta_m: float = ETA_M, p_cross: float = P_CROSS,
     p_mut: float = 1.0 / 30.0, tile_n: int = 4096, rng: str = "device",
-    k_steps: int = 1, step0: int = 0,
+    k_steps: int = 1, step0: int = 0, counts=None,
 ):
     """The plain PyTorch version of :func:`fused_ga_step_cuda`, on any
-    device; same arguments and results."""
+    device; same arguments and results (``counts``: see
+    :func:`ga_steps_plain`)."""
     draws = (r_sbx, r_gate, r_mut, r_do)
     _check(rng, draws, k_steps, tile_n, pos.shape[1])
     return ga_steps_plain(scalars, pos, fit,
@@ -194,7 +273,7 @@ def fused_ga_step_plain(
                           half_width,
                           _constants(half_width, eta_c, eta_m, p_cross,
                                      p_mut),
-                          tile_n, k_steps, step0)
+                          tile_n, k_steps, step0, counts)
 
 
 def _kernel():
@@ -202,7 +281,8 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("ga_fused", "dsa_ga_fused_f32", 11,
-                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 7)
+                          [i, i, i, i, ctypes.c_uint, i] + [fl] * 7
+                          + [i] * 5)
     return _fn
 
 
@@ -215,10 +295,11 @@ def fused_ga_step_cuda(
 ):
     """Launch the CUDA kernel: ``k_steps`` fused GA generations on ``pos``
     [D, N] and ``fit`` [1, N] (f32, contiguous, one CUDA device; N a
-    multiple of ``tile_n``), one block per tile.  ``scalars`` is [6] int32
-    on the device: the seed, the two parent-B tile shifts and the three
-    lane shifts; ``step0`` is the global index of the launch's first step.
-    Returns new tensors ``(pos, fit)`` without waiting for the kernel."""
+    multiple of ``tile_n``), a tile as :func:`ga_geometry` says.
+    ``scalars`` is [6] int32 on the device: the seed, the two parent-B tile
+    shifts and the three lane shifts; ``step0`` is the global index of the
+    launch's first step.  Returns new tensors ``(pos, fit)`` without
+    waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     draws = (r_sbx, r_gate, r_mut, r_do)
@@ -230,22 +311,25 @@ def fused_ga_step_cuda(
         dict(fit=(fit, (1, n)), r_sbx=(r_sbx, (d, n)),
              r_gate=(r_gate, (1, n)), r_mut=(r_mut, (d, n)),
              r_do=(r_do, (d, n))))
+    geo = ga_geometry(d, int(tile_n))
     pos_out = torch.empty_like(pos)
     fit_out = torch.empty_like(fit)
-    # The generations between the first and the last ping-pong between the
-    # outputs and one scratch pair.
-    scratch_pos = torch.empty_like(pos) if k_steps > 1 else pos_out
-    scratch_fit = torch.empty_like(fit) if k_steps > 1 else fit_out
+    scratch_pos = scratch_fit = None
+    if geo.variant == 1:
+        # The generations between the first and the last ping-pong between
+        # the outputs and one scratch pair.
+        scratch_pos = torch.empty_like(pos) if k_steps > 1 else pos_out
+        scratch_fit = torch.empty_like(fit) if k_steps > 1 else fit_out
     c = _constants(half_width, eta_c, eta_m, p_cross, p_mut)
     err = _kernel()(
         scalars.data_ptr(), pos.data_ptr(), fit.data_ptr(),
         *(family.ptr(r) for r in (r_sbx, r_gate, r_mut, r_do)),
-        pos_out.data_ptr(), fit_out.data_ptr(), scratch_pos.data_ptr(),
-        scratch_fit.data_ptr(), n, d, int(tile_n), int(k_steps),
+        pos_out.data_ptr(), fit_out.data_ptr(), family.ptr(scratch_pos),
+        family.ptr(scratch_fit), n, d, int(tile_n), int(k_steps),
         int(step0) & _MASK32, OBJECTIVE_IDS[objective_name],
         float(half_width), *(float(c[k]) for k in (
             "inv_c", "inv_m", "cross_lo", "cross_hi", "p_mut", "width")),
-        *family.stream_args(pos),
+        *geo, *family.stream_args(pos),
     )
     family.check_launch(err, "ga")
     LAUNCHES += 1

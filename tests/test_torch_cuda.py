@@ -1073,16 +1073,18 @@ def test_rotational_kernel_equals_plain(cuda, fam, name, n, d, k, rng,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", range(1, 9))
-def test_ga_kernel_keeps_each_tile_in_step(cuda, k):
+def test_ga_kernel_keeps_each_tile_in_step(cuda, monkeypatch, k):
     # Parent A reads the tile's current generation and the elitism its
     # argmin and argmax at every step: k generations in one launch equal
-    # the plain version's k, at 4 tiles of 4,096 lanes (512 threads of 8
-    # lanes each) and at a tile of 1,000 lanes.
-    for n, tile_n in ((16384, 4096), (4000, 1000)):
-        kernel, plain, args, kw = _rot_case("ga", "rastrigin", n, 30, k,
-                                            "device", cuda, tile_n)
-        _assert_family_equal("rastrigin", kernel(*args, **kw),
-                             plain(*args, **kw))
+    # the plain version's k, at 4 tiles of 4,096 lanes (clusters of 16
+    # blocks of 256 lanes) and at tiles of 1,000 lanes (4 blocks of 250),
+    # rastrigin and griewank, in both variants.
+    for second in (False, True):
+        for n, tile_n, name in ((16384, 4096, "rastrigin"),
+                                (4000, 1000, "rastrigin"),
+                                (4000, 1000, "griewank")):
+            with monkeypatch.context() as m:
+                _ga_equal(m, second, name, n, 30, k, "device", cuda, tile_n)
 
 
 @pytest.mark.cuda
@@ -1116,6 +1118,14 @@ def test_rotational_kernels_read_their_draws_and_reject_bad_operands(cuda):
     threads.argtypes, threads.restype = [ctypes.c_int], ctypes.c_int
     for tile_n in (77, 128, 1000, 4096, 8192):
         assert threads(tile_n) == port_ga.tile_threads(tile_n)
+    # The GA entry's geometry check takes what ga_geometry picks, and the
+    # first version at any shape.
+    ok = _build.load("ga_fused").dsa_ga_fused_geometry_ok
+    ok.argtypes, ok.restype = [ctypes.c_int] * 7, ctypes.c_int
+    for d in (1, 4, 30, 31, 55, 56, 226, 227, 1000, 3618, 3619):
+        for tile_n in (77, 96, 100, 128, 1000, 4096, 8192, 16384):
+            assert ok(*port_ga.ga_geometry(d, tile_n), tile_n, d) == 1
+            assert ok(*port_ga.global_geometry(d, tile_n), tile_n, d) == 1
     with pytest.raises(ValueError, match="multiple"):
         _, _, args, kw = _rot_case("shade", "sphere", 480, 4, 1, "device",
                                    cuda, 96)
@@ -3196,3 +3206,165 @@ def test_pt_hho_redesign_builds_spill_no_registers(cuda):
         spills = [ln for ln in log.splitlines() if "spill" in ln]
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# The redesigned GA kernel (B15: a tile's two generations on chip across a
+# thread-block cluster, the Philox streams hoisted, one power a draw) in
+# both its variants against its plain version under torch.equal (ackley
+# within its expf band, as above), the geometries its entry takes and
+# refuses, its builds.
+# --------------------------------------------------------------------------
+
+GA_WIDTHS = [1, 4, 5, 30, 31]             # D mod 4 = 1, 0, 1, 2, 3
+GA_STEPS = [(1, "host"), (8, "device")]
+
+
+def _ga_equal(monkeypatch, second, name, n, d, k, rng, device, tile_n,
+              seed=0, lanes=None, **extra):
+    """Two launches of the GA kernel (the second variant where ``second``)
+    equal to the plain version's one, each counted once."""
+    if second:
+        monkeypatch.setattr(port_ga, "ga_geometry", port_ga.global_geometry)
+    kernel, plain, args, kw = _rot_case("ga", name, n, d, k, rng, device,
+                                        tile_n, seed=seed)
+    if lanes is not None:      # the three lane shifts, in place of the drawn
+        args[0][-3:] = torch.tensor(lanes, dtype=torch.int32)
+    kw.update(extra)
+    before = port_ga.LAUNCHES
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    assert port_ga.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal(name, got, want)
+    _assert_family_equal(name, again, want)
+    assert float(got[0].abs().max()) <= np.float32(kw["half_width"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("k,rng", GA_STEPS)
+@pytest.mark.parametrize("d", GA_WIDTHS)
+def test_ga_redesign_equals_plain_across_widths(cuda, monkeypatch, second,
+                                                name, k, rng, d):
+    # Four tiles of 4,096 lanes, each across a cluster of 16 blocks of 256
+    # lanes; the global step wraps at 2^32.
+    _ga_equal(monkeypatch, second, name, 16384, d, k, rng, cuda, 4096,
+              seed=d, step0=2**32 - 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n,cluster,lanes", [
+    (128, 1, 128), (512, 2, 256), (1000, 4, 250), (2048, 8, 256),
+    (4096, 16, 256), (8192, 16, 512)])
+@pytest.mark.parametrize("d", [30, 31])
+def test_ga_redesign_every_cluster_size(cuda, monkeypatch, tile_n, cluster,
+                                        lanes, d):
+    # Variant 0 in clusters of 1 to 16 blocks; a tile of 1,000 leaves six
+    # threads of each block of 250 lanes idle, a block not a whole number of
+    # warps' lanes.
+    assert port_ga.ga_geometry(d, tile_n)[:3] == (0, cluster, lanes)
+    _ga_equal(monkeypatch, False, "rastrigin", 4 * tile_n, d, 8, "device",
+              cuda, tile_n)
+    _ga_equal(monkeypatch, False, "sphere", 4 * tile_n, d, 1, "host", cuda,
+              tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [False, True], ids=["main", "second"])
+@pytest.mark.parametrize("n,d,tile_n", [(16384, 30, 4096), (4000, 33, 1000),
+                                        (512, 8, 128), (32768, 30, 8192)])
+def test_ga_redesign_lane_shifts_at_the_tile_edge(cuda, monkeypatch, second,
+                                                 n, d, tile_n):
+    # Every lane shift at tile_n - 1, then past the tile and below 0, so each
+    # roll wraps at the tile's edge: in a cluster's first and last blocks,
+    # and where the tile is a block of its own.
+    for lanes in ([tile_n - 1] * 3, [2 * tile_n - 1, 0, -1]):
+        with monkeypatch.context() as m:
+            _ga_equal(m, second, "rastrigin", n, d, 8, "device", cuda,
+                      tile_n, lanes=lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,d,k,rng,tile_n,variant", [
+    ("rastrigin", 32768, 55, 2, "device", 8192, 0),   # 225 KB blocks
+    ("levy", 32768, 56, 2, "device", 8192, 1),        # past them
+    ("griewank", 65536, 30, 3, "device", 16384, 1),   # no cluster
+    ("michalewicz", 500, 3, 8, "device", 100, 0),     # one block
+    ("rosenbrock", 512, 226, 2, "device", 128, 0),    # 2 blocks of 64
+    ("sphere", 512, 3618, 1, "device", 128, 0),       # 16 blocks of 8
+    ("schwefel", 512, 3619, 1, "device", 128, 1),     # past them
+    ("zakharov", 2048, 31, 1, "host", 512, 0),
+], ids=lambda v: str(v))
+def test_ga_redesign_geometries(cuda, monkeypatch, name, n, d, k, rng,
+                                tile_n, variant):
+    assert port_ga.ga_geometry(d, tile_n).variant == variant
+    _ga_equal(monkeypatch, False, name, n, d, k, rng, cuda, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [
+    (0, 3, 1366, 1376, 0),              # a cluster of 3
+    (0, 16, 250, 256, 4 * (2 * 30 * 250 + 500 + 202)),  # short of the tile
+    (0, 16, 256, 256, 61440),           # bytes not its layout's
+    (0, 4, 1024, 1024, 0),              # 1,024 lanes a block
+    (1, 1, 4096, 256, 0),               # not the first version's threads
+    (2, 1, 4096, 512, 0),               # no such variant
+], ids=lambda v: str(v))
+def test_ga_entry_rejects_a_geometry_it_cannot_run(cuda, monkeypatch, geo):
+    # The wrapper hands its geometry to the entry, which checks it: one the
+    # kernels cannot run launches nothing and counts nothing.
+    monkeypatch.setattr(port_ga, "ga_geometry",
+                        lambda *shape: port_ga.TileGeometry(*geo))
+    kernel, _, args, kw = _rot_case("ga", "sphere", 16384, 30, 2, "device",
+                                    cuda, 4096)
+    before = port_ga.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert port_ga.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_ga_reciprocal_equals_the_ieee_division(cuda):
+    # beta's second arm divides 1 by 2 (1 - u) + 1e-12 without the IEEE
+    # division's slow-path branch (csrc/ga_fused.cu: recip_rn): bit for bit
+    # the division's quotient on every float u in (1/2, 1), the kernel's
+    # own and the plain version's on the CPU.
+    import ctypes
+
+    from distributed_swarm_algorithm_tpu_torch.ops._numerics import rdiv
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    fn = _build.load("ga_fused").dsa_ga_recip_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    u = torch.arange(0x3F000001, 0x3F800000, dtype=torch.int32).view(
+        torch.float32)
+    out = torch.empty((u.numel(), 2), dtype=torch.float32, device=cuda)
+    err = fn(u.to(cuda).data_ptr(), out.data_ptr(), u.numel(),
+             cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    got = out.cpu()
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(got[:, 0]), bits(got[:, 1]))
+    assert torch.equal(bits(got[:, 0]),
+                       bits(rdiv(1.0, 2.0 * (1.0 - u) + 1e-12)))
+
+
+@pytest.mark.cuda
+def test_ga_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["ga_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws, beside
+    # the second variant and the reciprocal's check.
+    log = _build.build_log("ga_fused")
+    entries = [ln for ln in log.splitlines()
+               if "Compiling entry" in ln and "ga_cluster_kernel" in ln]
+    assert len(entries) == 80, len(entries)
+    assert "ga_global_kernel" in log and "recip_check_kernel" in log
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert spills
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills

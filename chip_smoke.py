@@ -22,10 +22,12 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    B7's and B17's (the bat step with no candidate tile, the ABC tile on
    chip across a cluster), whose loops give the issue floors of phases 11
    and 13, B18's and B13's, and B15's (the GA tile on chip across a
-   cluster), whose loops give the issue floor of phase 12
+   cluster), whose loops give the issue floor of phase 12, and B9's and
+   B11's (the salp chain in one staged buffer, the whale's lanes regrouped
+   by branch), whose loops give the issue floors of phase 11
    (``redesigned_census``, records ``redesigned_builds_de_cuckoo``,
-   ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho`` and
-   ``redesigned_builds_ga``);
+   ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho``,
+   ``redesigned_builds_ga`` and ``redesigned_builds_salp_woa``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -106,14 +108,19 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    a warm-up launch, timed with CUDA events: the launch count, no
    incumbent (gwo: no leader) rising, every position inside the domain;
    then one launch of the kernel at the final state against its plain
-   version, timed beside it and its bound (B7 also beside its issue floor,
-   and in both its variants at the final state and at the initial one,
-   where the pulse is 0 and every bat walks, the second variant held
-   against the plain version at both).  Phase 3 holds the four kernels
-   at small ragged shapes (several tiles for salp and whale, 1 and k
-   steps, draws handed in and made in the kernel; B7 at every D mod 4 and
-   in both variants) and phase 4 three launches of each on the CPU and on
-   the card;
+   version, timed beside it and its bound (B7, B9 and B11 also beside
+   their issue floors; B7 in both its variants at the final state and at
+   the initial one, where the pulse is 0 and every bat walks, the second
+   variant held against the plain version at both; B9 with blocks of 512
+   and 256 lanes; B11 in both its variants at the final state and with
+   the iteration at 0, where the peers are read, its bound charging A's
+   and C's draws to the contracting elements the plain version tallies,
+   beside the bound charging every element).  Phase 3 holds the four
+   kernels at small ragged shapes (several tiles for salp and whale, 1
+   and k steps, draws handed in and made in the kernel; B7 at every D mod
+   4 and in both variants; B9 at every block size, at D = 452 and with its
+   winner at a block's first lane; B11 in both variants at their edges)
+   and phase 4 three launches of each on the CPU and on the card;
 12. full width, differential evolution, SHADE, the genetic algorithm and
    moth-flame optimization, each at its JAX bench's configuration,
    Rastrigin-30D at 1,048,576 in 256 tiles of 4,096 lanes
@@ -268,15 +275,27 @@ ZOO_TPU_KERNELS = {"bat": "bat_fused.py:138", "gwo": "gwo_fused.py:98",
 #   gwo   198 = per leader, A's and C's draws (2 x 28) and the attraction
 #         term (8), times 3, the sum (3), /3 and the clip (3); 6 = the
 #         schedule a; then rastrigin once (23 and 1);
-#   salp  28 = the follower (2), the clip (2), rastrigin (23), the running
-#         best's select (1); 3 = its test, the fit select, the offset;
-#   whale 75 = A's and C's draws (56), A and C (3), the explore test and
-#         select (3), the contraction (5), the spiral (5), the select and
-#         the clip (3); 147 = the row call and two uniforms (106), a (6),
-#         l (2), e^{b l} (11), cos 2 pi l (17), the peer's lane (5); then
-#         rastrigin once (23 and 1).
+#   salp  27 = the follower (2), the clip (2), rastrigin (23); 3 = the
+#         running best's test, the fit select, the offset (the best
+#         position is needed for the launch's winner alone, so no select of
+#         it is charged);
+#   whale what every whale needs: 2 = the clip; 107 = the row call and two
+#         uniforms (106), the branch test (1); then rastrigin once (23 and
+#         1); the rest by branch (WOA_BRANCH_OPS), at the contracting
+#         elements from the plain version's tally on the same inputs and
+#         the spiralling ones (the rest), and the schedule a once a step.
 ZOO_OPS = {"bat": (64, 134, 0, 0), "gwo": (198, 6, 23, 1),
-           "salp": (28, 3, 0, 0), "woa": (75, 147, 23, 1)}
+           "salp": (27, 3, 0, 0), "woa": (2, 107, 23, 1)}
+# The whale's branches: (per element, per whale) and step.  Contracting: A
+# and C (3), the explore test and select (3), the contraction (5), A's and
+# C's draws (56: two quarter calls and their uniforms); the peer's lane
+# (5).  Spiralling: the spiral (5); l (2), e^{b l} (11), cos 2 pi l (17).
+WOA_BRANCH_OPS = {"contract": (67, 5), "spiral": (5, 30)}
+WOA_SCHEDULE_OPS = 6
+# The whale's operations as counted before its kernel ran one branch a
+# lane, both branches charged to every whale, A's and C's draws (56) at the
+# contracting elements or at every one: the bounds recorded beside its own.
+WOA_BOTH_BRANCHES_OPS, WOA_DRAW_OPS = (19, 147), 56
 # The bat and whale runs on the CPU against the card: a last-bit
 # difference of exp (and of the bat's mean loudness) carried three steps.
 ZOO_CPU_BAND = {"pos": dict(rtol=1e-5, atol=1e-5),
@@ -438,6 +457,10 @@ HHO_MAIN = "hho_sorted_kernelILi2ELi1ELb0E"
 # The main kernel of the redesigned B15: D mod 4 = 2, rastrigin, device
 # draws.
 GA_MAIN = "ga_cluster_kernelILi2ELi1ELb0E"
+# The main kernels of the redesigned B9 and B11: D mod 4 = 2, rastrigin,
+# device draws.  B9 has no second variant (its design covers D <= 452).
+SALP_MAIN = "salp_chain_kernelILi2ELi1ELb0E"
+WOA_MAIN = "woa_sorted_kernelILi2ELi1ELb0E"
 # The redesigns with a second variant, a pair at a time: (family, source,
 # main kernel); the second variants (the first versions, kept) and the
 # geometry functions that reach them.
@@ -447,18 +470,20 @@ REDESIGNED = ((("de", "de_fused", DE_MAIN),
                ("abc", "abc_fused", ABC_MAIN)),
               (("pt", "tempering_fused", PT_MAIN),
                ("hho", "hho_fused", HHO_MAIN)),
-              (("ga", "ga_fused", GA_MAIN),))
+              (("ga", "ga_fused", GA_MAIN),),
+              (("salp", "salp_fused", SALP_MAIN),
+               ("woa", "woa_fused", WOA_MAIN)))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
                    "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
                    "pt": "pt_cand_tile_kernel",
                    "hho": "hho_trial_tile_kernel",
-                   "ga": "ga_global_kernel"}
+                   "ga": "ga_global_kernel", "woa": "woa_lane_kernel"}
 SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "bat": "candidate_tile_geometry",
                    "abc": "global_geometry",
                    "pt": "candidate_tile_geometry",
                    "hho": "trial_tile_geometry",
-                   "ga": "global_geometry"}
+                   "ga": "global_geometry", "woa": "lane_geometry"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -1226,10 +1251,11 @@ def sass_census(build, name, function):
     number of instructions in it (16 bytes an instruction), of its 32-bit
     products (``IMAD.HI``, ``IMAD.WIDE``: the Philox rounds') and whether
     its branch is predicated (an unconditional branch back is a divergence
-    handler's return into a loop, not a loop), outermost first; or why
-    there are none."""
+    handler's return into a loop, not a loop), outermost first; the
+    addresses of its barriers (``BAR``); and its jumps, each [address,
+    target or None, whether predicated] (``BRA``, ``BRX``, ``JMP``,
+    ``EXIT``, ``RET``); or why there are none."""
     import os
-    import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1239,7 +1265,14 @@ def sass_census(build, name, function):
                                            str(build.library_path(name)))
     if returncode != 0:
         return {"error": stderr[-300:]}
-    counts, inside, loops, products = {}, False, [], []
+    return parse_sass(stdout, name, function)
+
+
+def parse_sass(stdout, name, function):
+    """``sass_census`` of ``function`` in ``cuobjdump -sass`` output."""
+    import re
+    counts, inside, loops, products, barriers = {}, False, [], [], []
+    jumps = []
     for line in stdout.splitlines():
         if "Function :" in line:
             if inside:
@@ -1259,11 +1292,17 @@ def sass_census(build, name, function):
             at = int(m.group(1), 16)
             if key in ("IMAD.HI", "IMAD.WIDE"):
                 products.append(at)
+            if key == "BAR":
+                barriers.append(at)
+            predicated = int(bool(re.search(r"\*/\s+@", line)))
             b = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", line)
+            if key in ("BRA", "BRX", "JMP", "EXIT", "RET"):
+                jumps.append([at, int(b.group(1), 16) if b else None,
+                              predicated])
             if b and int(b.group(1), 16) < at:
                 start = int(b.group(1), 16)
                 loops.append([start, at, (at - start) // 16 + 1,
-                              int(bool(re.search(r"\*/\s+@", line)))])
+                              predicated])
     if not counts:
         return {"error": f"no function {function} in {name}"}
     for lp in loops:
@@ -1271,7 +1310,43 @@ def sass_census(build, name, function):
     loops.sort(key=lambda lp: (lp[0], -lp[1]))
     return dict(function=function, total=sum(counts.values()),
                 opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])),
-                loops=loops)
+                loops=loops, barriers=barriers, jumps=jumps)
+
+
+def exclusive_code(census, loop, head):
+    """The instructions of ``loop`` (a census loop) that only the path
+    through address ``head`` runs: in the loop's control flow, entered at
+    its start (each instruction to the next unless it is an unconditional
+    jump, each branch to its target inside the loop, no edge back to the
+    start), the instructions dominated by that path's first one, the
+    earliest instruction that dominates ``head`` and not the branch back;
+    or None."""
+    start, end = loop[0], loop[1]
+    jumps = {j[0]: j for j in census.get("jumps") or []}
+
+    def successors(at):
+        j = jumps.get(at)
+        out = [at + 16] if j is None or j[2] else []
+        if j is not None and j[1] is not None:
+            out.append(j[1])
+        return [b for b in out if start < b <= end]
+
+    def reached(without):
+        seen, todo = {start}, [start]
+        while todo:
+            for b in successors(todo.pop()):
+                if b != without and b not in seen:
+                    seen.add(b)
+                    todo.append(b)
+        return seen
+
+    every = reached(None)
+    cut = {x: every - reached(x) for x in every if x != start}
+    first = [x for x, lost in cut.items()
+             if head in lost and end not in lost and x != head]
+    first.append(head)
+    best = max(first, key=lambda x: len(cut[x]))
+    return len(cut[best])
 
 
 def step_loop(census):
@@ -1494,6 +1569,90 @@ def hho_issue_floor(census, n, d, k_steps, clock_mhz, counts):
             issue_floor_ms(instructions, clock_mhz))
 
 
+def salp_issue_floor(census, n, d, k_steps, clock_mhz, lanes):
+    """B9's issue floor on one launch.  The step loop (the outermost loop
+    that holds a barrier) branches to one of two paths: every warp's but
+    the leader's, whose chunk loop (four dimensions: the column's loads,
+    the shuffles, the published slot, the means and clips, the stores, the
+    folded terms) is the step loop's largest inner loop with no 32-bit
+    product, and the leader warp's, whose chunk loop (its Philox) has the
+    most.  A warp issues its own path's chunk loop D // 4 times a step and
+    the rest of the step loop less the other path's own code
+    (``exclusive_code``): its last D mod 4 dimensions, the close, the
+    running best, the barrier.  The other warps are counted over their
+    lanes, halo threads and the half warp included (n / lanes blocks of
+    ceil((lanes + 16) / 32) warps), the leader's once; k steps.  The
+    winner's replay after the step loop is left out.  Only predicated
+    branches back make loops, as in ``abc_issue_floor``."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    bars = census.get("barriers") or []
+    holding = [lp for lp in loops
+               if any(lp[0] <= at <= lp[1] for at in bars)]
+    steps = [lp for lp in holding
+             if not any(o is not lp and o[0] <= lp[0] and lp[1] <= o[1]
+                        for o in holding)]
+    if len(steps) != 1:
+        return None, None
+    step = steps[0]
+    inner = [lp for lp in loops if lp is not step
+             and step[0] <= lp[0] and lp[1] <= step[1]]
+    plain = [lp for lp in inner if lp[3] == 0]
+    drawing = [lp for lp in inner if lp[3] > 0]
+    if not plain or not drawing:
+        return None, None
+    plain = max(plain, key=lambda lp: lp[2])
+    lead = max(drawing, key=lambda lp: lp[3])
+    only_plain = exclusive_code(census, step, plain[0])
+    only_lead = exclusive_code(census, step, lead[0])
+    per_other = (d // 4 - 1) * plain[2] + step[2] - only_lead
+    per_lead = (d // 4 - 1) * lead[2] + step[2] - only_plain
+    threads = (n // lanes) * 32 * -(-(lanes + 16) // 32)
+    instructions = k_steps * (per_other * (threads - 32) + per_lead * 32)
+    return (instructions / (n * d * k_steps),
+            issue_floor_ms(instructions, clock_mhz),
+            dict(step_loop=step[2], chunk_loops=[plain[2], lead[2]],
+                 only_other=only_plain, only_leader=only_lead,
+                 per_warp_step=[per_other, per_lead]))
+
+
+def woa_issue_floor(census, n, d, k_steps, clock_mhz, contracting):
+    """B11's issue floor on one launch, every lane advanced in a warp of
+    its own branch (the class boundary's divergence left out).  A lane
+    issues its branch's chunk loop (four dimensions) D / 4 times, its last
+    D mod 4 dimensions counted at the loop's rate: the contracting lanes'
+    loop is the one inside the step loop with the most 32-bit products
+    (the Philox pair), the spiralling lanes' the largest with none; the
+    contracting lane-steps come from the plain version's tally
+    (``contracting`` elements over D), the rest spiral.  Every lane also
+    issues what the step loop holds outside its inner loops (the row, the
+    class, the sort, the spiral's e^{b l} and cos 2 pi l, the Philox pair's
+    lane and step products) less the two branches' last D mod 4 dimensions,
+    and once a launch the last pass (the loop after the step loop: the
+    positions written out, the folded terms) D // 4 times."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+    drawing = [lp for lp in inner if lp[3] > 0]
+    plain = [lp[2] for lp in inner if lp[3] == 0]
+    after = [lp[2] for lp in loops if lp[0] > outer[1]]
+    if not drawing or not plain or not after:
+        return None, None
+    contract = max(drawing, key=lambda lp: lp[3])[2]
+    spiral = max(plain)
+    lanes_contract = contracting / d
+    lanes_spiral = k_steps * n - lanes_contract
+    tails = (d % 4) / 4 * (contract + spiral)
+    common = outer[2] - sum(lp[2] for lp in inner) - tails
+    instructions = (k_steps * n * common + d / 4 * (
+        lanes_contract * contract + lanes_spiral * spiral)
+        + n * (d // 4) * max(after))
+    return (instructions / (k_steps * n * d),
+            issue_floor_ms(instructions, clock_mhz))
+
+
 @contextlib.contextmanager
 def geometry(mod, name, fn):
     """``mod``'s wrapper with ``fn`` in place of its geometry function
@@ -1556,13 +1715,14 @@ def redesigned_census(build, census, group):
         census[fam] = sass_census(build, source, function)
         log = build.build_log(source)
         census[f"{fam}_ptxas"] = ptxas_of(log, function)
+        second = SECOND_VARIANTS.get(fam)
         record(phase=phase, kernel=function,
                ptxas=census[f"{fam}_ptxas"], census=census[fam],
                loops_inside_the_step_loop=inner_loops(census[fam]),
-               second_variant=SECOND_VARIANTS[fam],
-               second_variant_ptxas=ptxas_of(log, SECOND_VARIANTS[fam]),
-               second_variant_census=sass_census(build, source,
-                                                 SECOND_VARIANTS[fam]))
+               second_variant=second,
+               second_variant_ptxas=second and ptxas_of(log, second),
+               second_variant_census=second and sass_census(build, source,
+                                                            second))
 
 
 def reset_launches(kernels):
@@ -1670,7 +1830,9 @@ def zoo_small_shapes(mods, pf, dev):
     """Phase 3's zoo part: each family kernel against its plain version at
     ragged shapes, 1 and k steps, both rng modes, several tiles; B7 at
     every D mod 4, with no chunk of four, at the widest main variant, in its
-    first version past it and, by its geometry, at D = 30."""
+    first version past it and, by its geometry, at D = 30; B9 at every
+    block size and its envelope's edge, its winner at a block's first lane;
+    B11's variants at their edges."""
     cases = [
         ("bat", "rastrigin", 300, 8, 1, "host", None),
         ("bat", "sphere", 1000, 30, 8, "device", None),
@@ -1697,6 +1859,21 @@ def zoo_small_shapes(mods, pf, dev):
         ("woa", "sphere", 1024, 30, 8, "device", 128),
         ("woa", "michalewicz", 256, 1, 8, "device", 256),
         ("woa", "ackley", 640, 30, 8, "device", 128),
+        # B9's blocks of 512, 256 and 128 lanes over several tiles, every D
+        # mod 4, and its envelope's edge (D = 452, 64 lanes); B11's sorted
+        # variant with a half-empty block, at its last D (224) and the first
+        # version past it.
+        ("salp", "rastrigin", 8192, 30, 16, "device", 4096),
+        ("salp", "sphere", 2048, 30, 1, "host", 512),
+        ("salp", "levy", 1024, 31, 16, "device", 256),
+        ("salp", "griewank", 1024, 5, 16, "device", 1024),
+        ("salp", "michalewicz", 512, 4, 16, "device", 128),
+        ("salp", "schwefel", 2048, 452, 16, "device", 512),
+        ("woa", "rastrigin", 4096, 30, 8, "device", 1024),
+        ("woa", "griewank", 4096, 4, 1, "host", 1024),
+        ("woa", "rosenbrock", 384, 31, 8, "device", 128),
+        ("woa", "schwefel", 1024, 224, 8, "device", 256),
+        ("woa", "styblinski_tang", 1024, 225, 8, "device", 256),
     ]
     for fam, name, n, d, k, rng, tile_n in cases:
         kernel, plain, args, kw = zoo_case(mods, pf, fam, name, n, d, k, rng,
@@ -1706,6 +1883,15 @@ def zoo_small_shapes(mods, pf, dev):
         check(mods[fam].LAUNCHES == before + 1, "launch not counted")
         compare_family(fam, name, f"n={n} D={d} k={k} rng={rng} "
                        f"tile_n={tile_n}", got, plain(*args, **kw), k)
+    # B9's winner at a block's first lane with its best at the launch's
+    # start (its window in the block before): the replay of 0 steps.
+    kernel, plain, args, kw = zoo_case(mods, pf, "salp", "rastrigin", 4096,
+                                       30, 16, "device", dev, 1024)
+    args[3] = args[3].clone()
+    args[3][0, 1536] = -1.0
+    compare_family("salp", "rastrigin", "n=4096 D=30 k=16, the winner at a "
+                   "block's first lane, step 0", kernel(*args, **kw),
+                   plain(*args, **kw), 16)
     # B7's first version at the main path's width, reached by its geometry.
     mod = mods["bat"]
     with geometry(mod, "bat_geometry", mod.candidate_tile_geometry):
@@ -1777,14 +1963,44 @@ def zoo_cpu_vs_gpu(dsa, mods, dev):
               f"fused {fam} run differs CPU vs GPU: {devs}")
 
 
-def zoo_bound_ms(fam, n, d, k_steps):
+def zoo_operations(fam, n, d, k_steps):
+    """A family launch's operations from ``ZOO_OPS`` (the whale's common
+    part)."""
+    per_elem, per_particle, elem_once, particle_once = ZOO_OPS[fam]
+    return (k_steps * n * (d * per_elem + per_particle)
+            + n * (d * elem_once + particle_once))
+
+
+def woa_operations(n, d, k_steps, contracting):
+    """B11's operations on one launch that its function needs: the common
+    part, each branch's (``WOA_BRANCH_OPS``) at its elements and whales
+    (``contracting`` elements from the plain version's tally, the rest
+    spiralling) and the schedule once a step."""
+    spiralling = k_steps * n * d - contracting
+    ops = zoo_operations("woa", n, d, k_steps) + WOA_SCHEDULE_OPS * k_steps
+    for elements, key in ((contracting, "contract"), (spiralling, "spiral")):
+        per_elem, per_whale = WOA_BRANCH_OPS[key]
+        ops += elements * per_elem + elements // d * per_whale
+    return ops
+
+
+def woa_operations_both_branches(n, d, k_steps, drawing):
+    """B11's operations as counted before its kernel ran one branch a lane:
+    both branches at every whale, A's and C's draws at ``drawing``
+    elements."""
+    per_elem, per_whale = WOA_BOTH_BRANCHES_OPS
+    return (k_steps * n * (d * per_elem + per_whale) + n * (23 * d + 1)
+            + WOA_DRAW_OPS * drawing)
+
+
+def zoo_bound_ms(fam, n, d, k_steps, ops=None):
     """Least time for one launch of a family kernel on this card: its
-    operations (``ZOO_OPS``) over the f32 peak, against the bytes it must
+    operations (``zoo_operations``, or ``ops`` where they depend on the
+    data, as the whale's) over the f32 peak, against the bytes it must
     move (each state array read once and each output written once) over
     the memory rate."""
-    per_elem, per_particle, elem_once, particle_once = ZOO_OPS[fam]
-    ops = (k_steps * n * (d * per_elem + per_particle)
-           + n * (d * elem_once + particle_once))
+    if ops is None:
+        ops = zoo_operations(fam, n, d, k_steps)
     nbytes = {"bat": 8 * (2 * d + 3) * n + 4 * d + 12,
               "gwo": 4 * (2 * d + 1) * n + 12 * d + 8,
               "salp": 4 * (2 * d + 2) * n + 4 * d + 8,
@@ -1825,9 +2041,10 @@ def zoo_launch_args(fam, state, seed, dev):
 def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev, census):
     """Phase 11 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked; then one launch at the final
-    state against its plain version, timed beside it and its bound (bat
-    also beside its issue floor, and in both variants at the final and at
-    the initial state)."""
+    state against its plain version, timed beside it and its bound (bat,
+    salp and whale also beside their issue floors; bat in both variants at
+    the final and at the initial state, the whale in both at the final
+    state and with the iteration at 0)."""
     steps, k, t_max = ZOO[fam]
     model = {"bat": dsa.Bat, "gwo": dsa.GWO, "salp": dsa.Salp,
              "woa": dsa.WOA}[fam]
@@ -1882,6 +2099,19 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev, census):
         lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **step_kw))
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
+    counts, extra = {}, {}
+    if fam == "woa":
+        # The contracting elements, which alone draw A and C; and B11 in
+        # both variants at the final state (a = 0) and with the launch's
+        # iteration at 0, where |A| >= 1 at about half of them.
+        mod.fused_woa_step_plain(*args, **step_kw, counts=counts)
+        args0 = [args[0].clone(), *args[1:]]
+        args0[0][2] = 0
+        variant_times(fam, mod, kernel, [
+            ("final_state", args, step_kw, want),
+            ("t0_0", args0, step_kw,
+             mod.fused_woa_step_plain(*args0, **step_kw))], k, smi)
+        del args0
     if fam == "bat":
         args0 = [t.to(dev) for t in initial]
         check(bool((args0[7] == 0).all()), "bat: an initial pulse > 0")
@@ -1893,15 +2123,34 @@ def zoo_full_width(dsa, fam, mod, kernels, smi, t_start, dev, census):
         del args0
     del got, want, initial
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
-    bound, bound_by, ops, nbytes = zoo_bound_ms(fam, ZOO_N, ZOO_DIM, k)
-    floor = (bat_issue_floor(census["bat"], ZOO_N, ZOO_DIM, k,
-                             census["clock_mhz"]) if fam == "bat"
-             else (None, None))
+    clock = census["clock_mhz"]
+    ops, contracting = None, 0
+    if fam == "woa":
+        contracting = int(sum(int(c) for c in counts["contract"]))
+        ops = woa_operations(ZOO_N, ZOO_DIM, k, contracting)
+        extra.update(contracting_elements=contracting, **{
+            f"bound_ms_both_branches_{name}": zoo_bound_ms(
+                fam, ZOO_N, ZOO_DIM, k, woa_operations_both_branches(
+                    ZOO_N, ZOO_DIM, k, drawing))[0]
+            for name, drawing in (("draws_contracting", contracting),
+                                  ("draws_everywhere",
+                                   k * ZOO_N * ZOO_DIM))})
+    bound, bound_by, ops, nbytes = zoo_bound_ms(fam, ZOO_N, ZOO_DIM, k, ops)
+    floor = (bat_issue_floor(census["bat"], ZOO_N, ZOO_DIM, k, clock)
+             if fam == "bat" else
+             salp_issue_floor(census["salp"], ZOO_N, ZOO_DIM, k, clock,
+                              mod.salp_geometry(ZOO_DIM, 4096).lanes)
+             if fam == "salp" else
+             woa_issue_floor(census["woa"], ZOO_N, ZOO_DIM, k, clock,
+                             contracting)
+             if fam == "woa" else (None, None))
+    if len(floor) > 2:
+        extra["issue_floor_count"] = floor[2]
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
            bound_by=bound_by, operations=ops, bytes=nbytes,
            instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
-           ptxas=census.get(f"{fam}_ptxas"),
+           ptxas=census.get(f"{fam}_ptxas"), **extra,
            kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
            smi=smi, seconds_so_far=time.perf_counter() - t_start)
     return dict(name=f"{fam}_fused", route="cuda",

@@ -143,6 +143,40 @@ def roll_lanes(tiles: torch.Tensor, shift) -> torch.Tensor:
     return tiles.index_select(2, (lanes - shift) % tile_n).reshape(d, -1)
 
 
+def branch_order(classes: torch.Tensor, lanes: int = 256) -> torch.Tensor:
+    """The order in which a kernel that regroups its lanes by branch (the
+    Harris-hawks and whale kernels) advances a step's lanes: within each
+    block of ``lanes`` lanes (the last may be short), the block's lanes
+    sorted by class, stably, as a block does it (a count of each class in
+    each warp, a prefix over the classes and the warps, each lane's rank in
+    its warp's ballot).  ``classes`` [N], small integers from 0; returns
+    [N], the lane at each place."""
+    n = classes.numel()
+    n_classes = int(classes.max()) + 1 if n else 0
+    out = torch.empty(n, dtype=torch.int64, device=classes.device)
+    for b0 in range(0, n, lanes):
+        cls = classes[b0:b0 + lanes].long()
+        warp = torch.arange(cls.numel(), device=cls.device) // 32
+        n_warps = int(warp[-1]) + 1
+        counts = torch.zeros((n_classes, n_warps), dtype=torch.int64,
+                             device=cls.device)
+        counts.index_put_((cls, warp), torch.ones_like(cls),
+                          accumulate=True)
+        # A class's start, then the counts of the warps before this one.
+        starts = torch.cumsum(counts.sum(1), 0) - counts.sum(1)
+        before = torch.cumsum(counts, 1) - counts
+        rank = torch.zeros_like(cls)
+        for c in range(n_classes):
+            hit = (cls == c).long().reshape(-1)
+            # The lanes of the class below this one in its warp.
+            within = torch.cumsum(hit, 0) - hit
+            first_of_warp = within[warp * 32]
+            rank = torch.where(cls == c, within - first_of_warp, rank)
+        place = starts[cls] + before[cls, warp] + rank
+        out[b0 + place] = b0 + torch.arange(cls.numel(), device=cls.device)
+    return out
+
+
 def pick_block(shared_bytes: Callable[[int], int]) -> int:
     """The largest of 128, 64 and 32 threads whose shared memory
     (``shared_bytes(block)``) fits a block, or 0 when none does."""

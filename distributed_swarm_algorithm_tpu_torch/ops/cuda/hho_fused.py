@@ -42,7 +42,12 @@ from ..cuckoo import mantegna_sigma
 from ..hho import LEVY_BETA, T_MAX, HHOState
 from . import family
 from .common import ceil_to, cyclic_pad_rows
-from .family import LANE_SHIFTS, donor_tiles, roll_lanes
+from .family import (  # noqa: F401  (branch_order: the kernel's order)
+    LANE_SHIFTS,
+    branch_order,
+    donor_tiles,
+    roll_lanes,
+)
 from .fast_math import levy_power, normal_pair
 from .pso_fused import (
     MAX_SHARED_BYTES,
@@ -168,38 +173,6 @@ def lane_classes(u_e0, u_q, u_r, frac) -> torch.Tensor:
     explore, dive, _ = branches(u_e0, u_r, frac)
     return torch.where(explore, torch.where(u_q >= 0.5, PERCH, BELOW),
                        torch.where(dive, DIVE, BESIEGE))
-
-
-def branch_order(classes: torch.Tensor,
-                 lanes: int = SORTED_LANES) -> torch.Tensor:
-    """The kernel's order of a step's lanes: within each block of ``lanes``
-    lanes (the last may be short), the block's lanes sorted by class,
-    stably, as a block does it (a count of each class in each warp, a
-    prefix over the classes and the warps, each lane's rank in its warp's
-    ballot).  ``classes`` [N]; returns [N], the lane at each place."""
-    n = classes.numel()
-    out = torch.empty(n, dtype=torch.int64, device=classes.device)
-    for b0 in range(0, n, lanes):
-        cls = classes[b0:b0 + lanes].long()
-        warp = torch.arange(cls.numel(), device=cls.device) // 32
-        n_warps = int(warp[-1]) + 1
-        counts = torch.zeros((4, n_warps), dtype=torch.int64,
-                             device=cls.device)
-        counts.index_put_((cls, warp), torch.ones_like(cls),
-                          accumulate=True)
-        # A class's start, then the counts of the warps before this one.
-        starts = torch.cumsum(counts.sum(1), 0) - counts.sum(1)
-        before = torch.cumsum(counts, 1) - counts
-        rank = torch.zeros_like(cls)
-        for c in range(4):
-            hit = (cls == c).long().reshape(-1)
-            # The lanes of the class below this one in its warp.
-            within = torch.cumsum(hit, 0) - hit
-            first_of_warp = within[warp * 32]
-            rank = torch.where(cls == c, within - first_of_warp, rank)
-        place = starts[cls] + before[cls, warp] + rank
-        out[b0 + place] = b0 + torch.arange(cls.numel(), device=cls.device)
-    return out
 
 
 def hho_steps_plain(scalars, rabbit, mean, pos, fit, draws, objective_name,

@@ -21,19 +21,26 @@ Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed; only
 global lane 0 draws, c2 with the counter (0, block of four dimensions,
 global step, 0), c3 on stream 1.  ``rng="host"`` takes them as operands
 ``r2``, ``r3`` [D, 1] (one step per call).
+
+A block of the kernel owns ``lanes`` lanes of one tile and runs ``lanes +
+16`` threads, the 16 halo columns its own (:func:`salp_geometry` picks the
+block, the kernel's entry checks it); it keeps each lane's best fitness
+and step only, and rebuilds the block's winner at its best step by
+replaying the chain from the launch's input (:func:`winner_replay` is the
+same replay in PyTorch).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .._numerics import div
 from ..salp import T_MAX, SalpState
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .fast_math import (  # noqa: F401  (the old names stay importable)
     LOG2E as _LOG2E,
     exp2_fast,
@@ -41,6 +48,7 @@ from .fast_math import (  # noqa: F401  (the old names stay importable)
     exp_fast as _exp_fast,
 )
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -60,32 +68,56 @@ _fn = None   # the C entry, bound at the first launch
 # (csrc/salp_fused.cu: kHalo), and the JAX package's cap on
 # steps_per_kernel.
 MAX_STEPS_PER_KERNEL = 16
-# Dynamic shared memory the kernel may take (it keeps 1 KB for its
-# candidate reduction).
-_MAX_DYNAMIC_SHARED = 226 * 1024
+# The widest D the kernel takes (the first version's envelope, kept).
+MAX_DIM = 452
+# Lanes a block may own, most first: a power of two that divides the tile.
+SALP_LANES = (512, 256, 128, 64, 32)
 
 # --------------------------------------------------------------------------
 # The step: plain version, kernel wrapper, entry
 # --------------------------------------------------------------------------
 
 
+class SalpGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    lanes: int      # lanes a block owns; it runs lanes + 16 threads
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def chain_bytes(dim: int, lanes: int) -> int:
+    """Shared memory of a block owning ``lanes`` lanes: the window's
+    columns ``[D][lanes + 16]``, each warp's published column for the next
+    warp, by the step's parity ``[2][warps][D]`` (rows padded to four),
+    and the winner's reduction ``[3][32]``."""
+    width = lanes + MAX_STEPS_PER_KERNEL
+    warps = -(-width // 32)
+    return 4 * (dim * width + 2 * warps * ceil_to(dim, 4) + 3 * 32)
+
+
+def salp_geometry(dim: int, tile_n: int) -> Optional[SalpGeometry]:
+    """The most lanes a block can own (:data:`SALP_LANES`) that divide
+    ``tile_n`` and whose bytes fit a block, or None past the envelope (D >
+    452).  512 at the main path (D = 30, tiles of 4,096)."""
+    if not 0 < dim <= MAX_DIM:
+        return None
+    for lanes in SALP_LANES:
+        shared = chain_bytes(dim, lanes)
+        if tile_n % lanes == 0 and shared <= MAX_SHARED_BYTES:
+            return SalpGeometry(lanes, shared)
+    return None
+
+
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    buffers (two ``[D][block + 16]`` chain buffers and the ``[D][block]``
-    best positions, f32) fit a block's dynamic shared memory, or 0 (D >
-    452)."""
-    for block in family.BLOCKS:
-        if ((2 * (block + MAX_STEPS_PER_KERNEL) + block) * dim * 4
-                <= _MAX_DYNAMIC_SHARED):
-            return block
-    return 0
+    """Lanes a block of the kernel owns at this D in a tile that any block
+    divides, or 0 outside the envelope (D > 452)."""
+    geo = salp_geometry(dim, SALP_LANES[0])
+    return 0 if geo is None else geo.lanes
 
 
 def salp_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
     """True if the fused kernel covers this config (else use the portable
     path): a named objective, float32, michalewicz within its phase bound,
-    and D <= 452, where the kernel's buffers at 32 threads still fit a
-    block's shared memory.  The name is the JAX package's."""
+    and D <= 452.  The name is the JAX package's."""
     return family.family_supported(objective_name, dtype, dim, kernel_block)
 
 
@@ -134,6 +166,42 @@ def salp_steps_plain(scalars, food, pos, fit, r2, r3, objective_name,
             rb_pos.index_select(1, j))
 
 
+def winner_replay(scalars, food, pos, r2, r3, half_width, t_max, tile_n,
+                  step0, lane: int, steps: int) -> torch.Tensor:
+    """[D]: lane ``lane``'s position after ``steps`` steps of the launch
+    (``salp_steps_plain``'s arguments), rebuilt as the kernel rebuilds its
+    block's winner: from the launch's input over a window of 17 lanes, the
+    lane and the 16 before it in its tile, the one before the tile holding
+    the chain link, global lane 0 taking the leader's move, the window's
+    first lane reading itself (``__shfl_up_sync``'s lane 0)."""
+    d, n = pos.shape
+    n_tiles = n // tile_n
+    tile, jw = divmod(lane, tile_n)
+    link = (tile - 1) % n_tiles * tile_n + tile_n - 1
+    jr = torch.arange(jw - MAX_STEPS_PER_KERNEL, jw + 1, device=pos.device)
+    cols = pos[:, (tile * tile_n + jr).clamp(min=0)]
+    v = torch.where(jr >= 0, cols,
+                    torch.where(jr == -1, pos[:, link:link + 1], 0.0))
+    moves = jr >= 0
+    lb, ub = -half_width, half_width
+    seed = scalars[0:1]
+    for step in range(steps):
+        prev = torch.cat([v[:, :1], v[:, :-1]], dim=1)
+        v = torch.where(moves, torch.clamp(0.5 * (v + prev), lb, ub), v)
+        if tile == 0 and jw <= MAX_STEPS_PER_KERNEL:
+            # The window holds the leader.
+            c1 = leader_c1(scalars[1], step, t_max)
+            if r2 is None:
+                c2 = philox_uniforms(seed, 1, d, step0 + step, 0)
+                c3 = philox_uniforms(seed, 1, d, step0 + step, 1)
+            else:
+                c2, c3 = r2, r3
+            sign = torch.where(c3 >= 0.5, 1.0, -1.0).to(torch.float32)
+            leader = food + sign * c1 * ((ub - lb) * c2 + lb)
+            v[:, MAX_STEPS_PER_KERNEL - jw] = torch.clamp(leader, lb, ub)[:, 0]
+    return v[:, -1]
+
+
 def _check(rng, r2, r3, k_steps, tile_n, n):
     family.check_rng(rng, (r2, r3), k_steps)
     if n % tile_n:
@@ -160,7 +228,7 @@ def _kernel():
     if _fn is None:
         i, f = ctypes.c_int, ctypes.c_float
         _fn = family.bind("salp_fused", "dsa_salp_fused_f32", 10,
-                          [i, i, i, i, ctypes.c_uint, i, f, f, f, f])
+                          [i, i, i, i, ctypes.c_uint, i, f, f, f, f, i, i])
     return _fn
 
 
@@ -177,7 +245,7 @@ def fused_salp_step_cuda(
     global index of the launch's first step.  Returns new tensors
     ``(pos, fit, best_fit [1, 1], best_pos [D, 1])``, the best being the
     least fitness seen at any step of the launch (or at its start), without
-    waiting for the kernel."""
+    waiting for the kernel.  A block as :func:`salp_geometry` says."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     _check(rng, r2, r3, k_steps, tile_n, n)
@@ -193,15 +261,14 @@ def fused_salp_step_cuda(
     if k_steps > MAX_STEPS_PER_KERNEL:
         raise ValueError(f"fused_salp_step_cuda: k_steps ({k_steps}) is "
                          f"above the kernel's {MAX_STEPS_PER_KERNEL}")
-    block = kernel_block(d)
-    if block == 0:
+    geo = salp_geometry(d, tile_n)
+    if geo is None:
         raise ValueError(
             f"fused_salp_step_cuda: D = {d} is outside the kernel's envelope "
-            "(two [D][48] and one [D][32] f32 buffers must fit "
-            f"{_MAX_DYNAMIC_SHARED} bytes of shared memory)")
+            f"(D <= {MAX_DIM})")
     pos_out = torch.empty_like(pos)
     fit_out = torch.empty_like(fit)
-    blocks = n // block
+    blocks = n // geo.lanes
     block_fit = torch.empty(blocks, dtype=torch.float32, device=pos.device)
     block_pos = torch.empty((d, blocks), dtype=torch.float32,
                             device=pos.device)
@@ -212,7 +279,7 @@ def fused_salp_step_cuda(
         int(tile_n), int(k_steps), int(step0) & _MASK32,
         OBJECTIVE_IDS[objective_name], float(t_max),
         float(half_width - (-half_width)), float(-half_width),
-        float(half_width), *family.stream_args(pos),
+        float(half_width), *geo, *family.stream_args(pos),
     )
     family.check_launch(err, "salp")
     LAUNCHES += 1

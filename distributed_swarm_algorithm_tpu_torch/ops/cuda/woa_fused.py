@@ -22,21 +22,28 @@ uniforms on stream 0 and C's on stream 1 over the dimensions, counter
 (lane, block of four dimensions, global step, stream); p and l are words 0
 and 1 of the call (lane, 0, global step, 2).  ``rng="host"`` takes the four
 as operands (one step per call).
+
+Up to D = 224 a block of the kernel holds 256 whales and, at every step,
+regroups its lanes by branch (:func:`branch_order`), so that a warp's
+threads advance lanes of one branch and only contracting whales draw A and
+C; wider, up to D = 1,816, it runs its first version, one thread a whale in
+the whales' order (:func:`woa_geometry` picks; the kernel's entry checks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .._numerics import div
 from ..woa import SPIRAL_B, WOAState
 from . import family
-from .common import cyclic_pad_rows
-from .family import LANE_SHIFTS
+from .common import ceil_to, cyclic_pad_rows
+from .family import LANE_SHIFTS, branch_order  # noqa: F401  (the kernel's)
 from .pso_fused import (
+    MAX_SHARED_BYTES,
     OBJECTIVE_IDS,
     OBJECTIVES_T,
     _MASK32,
@@ -59,10 +66,53 @@ MAX_STEPS_PER_KERNEL = 32
 
 
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    ``[D][block]`` f32 tile fits a block's shared memory, or 0 (D >
-    1816)."""
+    """Threads per block of the kernel's first version: the largest of 128,
+    64 and 32 whose ``[D][block]`` f32 tile fits a block's shared memory,
+    or 0 (D > 1816)."""
     return family.pick_block(lambda block: dim * block * 4)
+
+
+# The main variant's block: 256 whales, regrouped by branch at every step.
+SORTED_LANES = 256
+# A lane's class at a step, in the order of the regrouping.
+CONTRACT, SPIRAL = range(2)
+
+
+class WoaGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: lanes regrouped by branch; 1: the first version
+    lanes: int      # whales (threads) a block
+    shared: int     # dynamic shared memory a block, bytes
+
+
+def sorted_bytes(dim: int) -> int:
+    """Shared memory of a main-variant block: the whales' positions
+    ``[D][256]``, the best (padded to four), two ``[256]`` rows (the sorted
+    lanes and their u_l) and the warps' class counts ``[8]``."""
+    lanes = SORTED_LANES
+    return 4 * (dim * lanes + ceil_to(dim, 4) + 2 * lanes + lanes // 32)
+
+
+def woa_geometry(dim: int) -> WoaGeometry:
+    """Blocks of 256 whales regrouped by branch where their block fits
+    (D <= 224); wider, the first version (:func:`lane_geometry`)."""
+    shared = sorted_bytes(dim)
+    if shared <= MAX_SHARED_BYTES:
+        return WoaGeometry(0, SORTED_LANES, shared)
+    return lane_geometry(dim)
+
+
+def lane_geometry(dim: int) -> WoaGeometry:
+    """The first version at any D of the envelope: one [D][block] tile,
+    the block from :func:`kernel_block`."""
+    lanes = kernel_block(dim)
+    return WoaGeometry(1, lanes, dim * lanes * 4)
+
+
+def lane_classes(u_p: torch.Tensor) -> torch.Tensor:
+    """Per lane its class at a step (int64): ``CONTRACT`` where ``u_p <
+    1/2``, else ``SPIRAL``."""
+    return torch.where(u_p < 0.5, CONTRACT, SPIRAL)
 
 
 def woa_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -74,9 +124,11 @@ def woa_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
 
 
 def woa_steps_plain(scalars, best, pos, draws, objective_name, half_width,
-                    t_max, spiral_b, tile_n, k_steps, step0):
+                    t_max, spiral_b, tile_n, k_steps, step0, counts=None):
     """``k_steps`` pod updates on ``[D, N]``, then the fitness once;
-    ``draws is None`` draws from Philox."""
+    ``draws is None`` draws from Philox.  ``counts`` (a dict) collects each
+    step's contracting elements (lanes with ``u_p < 1/2``, times D), the
+    only ones that read A's and C's draws."""
     d, n = pos.shape
     n_tiles = n // tile_n
     seed = scalars[0:1]
@@ -109,6 +161,8 @@ def woa_steps_plain(scalars, best, pos, draws, objective_name, half_width,
         spiral = dist_best * torch.exp(spiral_b * l) * _cos2pi(l) + best
         pos = torch.clamp(torch.where(u_p < 0.5, contract, spiral),
                           -half_width, half_width)
+        if counts is not None:
+            counts.setdefault("contract", []).append((u_p < 0.5).sum() * d)
     return pos, OBJECTIVES_T[objective_name](pos)
 
 
@@ -122,16 +176,17 @@ def fused_woa_step_plain(
     scalars, best_pos, pos, r_a=None, r_c=None, r_p=None, r_l=None, *,
     objective_name: str, half_width: float = 5.12, t_max: int = 500,
     spiral_b: float = SPIRAL_B, tile_n: int = 4096, rng: str = "device",
-    k_steps: int = 1, step0: int = 0,
+    k_steps: int = 1, step0: int = 0, counts=None,
 ):
     """The plain PyTorch version of :func:`fused_woa_step_cuda`, on any
-    device; same arguments and results."""
+    device; same arguments and results (``counts``: see
+    :func:`woa_steps_plain`)."""
     draws = (r_a, r_c, r_p, r_l)
     _check(rng, draws, k_steps, tile_n, pos.shape[1])
     return woa_steps_plain(scalars, best_pos, pos,
                            draws if rng == "host" else None, objective_name,
                            half_width, t_max, spiral_b, tile_n, k_steps,
-                           step0)
+                           step0, counts)
 
 
 def _kernel():
@@ -139,7 +194,7 @@ def _kernel():
     if _fn is None:
         i, f = ctypes.c_int, ctypes.c_float
         _fn = family.bind("woa_fused", "dsa_woa_fused_f32", 9,
-                          [i, i, i, i, ctypes.c_uint, i, f, f, f])
+                          [i, i, i, i, ctypes.c_uint, i, f, f, f, i, i, i])
     return _fn
 
 
@@ -154,8 +209,8 @@ def fused_woa_step_cuda(
     toward ``best_pos`` [D, 1], held fixed.  ``scalars`` is [4] int32 on the
     device: the seed, the peer tile shift, the iteration at the launch's
     start and the lane shift; ``step0`` is the global index of the launch's
-    first step.  Returns new tensors ``(pos, fit [1, N])`` without waiting
-    for the kernel."""
+    first step.  A block as :func:`woa_geometry` says.  Returns new tensors
+    ``(pos, fit [1, N])`` without waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     draws = (r_a, r_c, r_p, r_l)
@@ -180,7 +235,8 @@ def fused_woa_step_cuda(
         *(family.ptr(r) for r in (r_a, r_c, r_p, r_l)), pos_out.data_ptr(),
         fit_out.data_ptr(), n, d, int(tile_n), int(k_steps),
         int(step0) & _MASK32, OBJECTIVE_IDS[objective_name], float(t_max),
-        float(spiral_b), float(half_width), *family.stream_args(pos),
+        float(spiral_b), float(half_width), *woa_geometry(d),
+        *family.stream_args(pos),
     )
     family.check_launch(err, "woa")
     LAUNCHES += 1

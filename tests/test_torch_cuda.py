@@ -3368,3 +3368,232 @@ def test_ga_redesign_builds_spill_no_registers(cuda):
     assert spills
     assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in spills), spills
+
+
+# --------------------------------------------------------------------------
+# The redesigned salp kernel (B9: blocks owning up to 512 lanes with their
+# 16 halo columns on threads of their own, one staged buffer, one barrier a
+# step, the winner rebuilt by a replay) and whale kernel (B11: lanes
+# regrouped by branch inside each block, A and C drawn only where a whale
+# contracts), against their plain versions under torch.equal (ackley within
+# its expf band, as above).
+# --------------------------------------------------------------------------
+
+from test_torch_salp_woa_geometry import winner_case  # noqa: E402
+
+SALP_WOA_WIDTHS = [1, 4, 5, 30, 31]        # D mod 4 = 1, 0, 1, 2, 3
+# fam -> the launch's steps with device draws.
+SALP_WOA_STEPS = {"salp": 16, "woa": 8}
+
+
+def _salp_woa_equal(fam, name, n, d, k, rng, device, tile_n, seed=0,
+                    step0=None, edit=None):
+    """Both launches of one case equal the plain version's; returns the
+    case's arguments.  ``edit(args, kw)`` changes the inputs first."""
+    mod = FAMILIES[fam]
+    kernel, plain, args, kw = _family_case(fam, name, n, d, k, rng, device,
+                                           tile_n, seed)
+    if step0 is not None:
+        kw["step0"] = step0
+    if edit is not None:
+        edit(args, kw)
+    before = mod.LAUNCHES
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    assert mod.LAUNCHES == before + 2
+    want = plain(*args, **kw)
+    _assert_family_equal(name, got, want)
+    _assert_family_equal(name, again, want)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(SALP_WOA_STEPS))
+@pytest.mark.parametrize("name", PSO_NAMES)
+@pytest.mark.parametrize("rng", ["host", "device"])
+@pytest.mark.parametrize("d", SALP_WOA_WIDTHS)
+def test_salp_woa_redesign_equals_plain_across_widths(cuda, fam, name, rng,
+                                                     d):
+    # Four tiles of 1,024 lanes (salp: two blocks of 512 a tile; whale: 16
+    # blocks of 256); k = 1 with the draws handed in, else the family's
+    # main-path steps with device draws, the global step wrapping at 2^32.
+    k = 1 if rng == "host" else SALP_WOA_STEPS[fam]
+    _salp_woa_equal(fam, name, 4096, d, k, rng, cuda, 1024, seed=d,
+                    step0=2**32 - 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile_n,lanes", [
+    (512, 128, 128), (1024, 256, 256), (2048, 512, 512), (4096, 1024, 512),
+    (8192, 4096, 512), (384, 384, 128)])
+@pytest.mark.parametrize("k,rng", [(1, "host"), (1, "device"),
+                                   (16, "device")])
+def test_salp_redesign_blocks_and_tiles(cuda, n, tile_n, lanes, k, rng):
+    # Several tiles at every block size the main path's tiles give (the
+    # first block of each tile holding the link in its halo, the first of
+    # the launch the leader), and one tile of three blocks of 128.
+    assert port_salp.salp_geometry(30, tile_n).lanes == lanes
+    for name in ("rastrigin", "rosenbrock"):
+        _salp_woa_equal("salp", name, n, 30, k, rng, cuda, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["step0", "step1", "stepk", "link",
+                                  "leader"])
+def test_salp_redesign_rebuilds_the_winner_at_its_step(cuda, kind):
+    # The winner at a block's first lane (its window in the block before),
+    # at a tile's lane 0 (through the link) and at the leader, its best at
+    # steps 0, 1, 2 and 16 (tests/test_torch_salp_woa_geometry.py holds
+    # where each case puts it): its position rebuilt bit for bit.
+    args, kw, _, step = winner_case(kind, cuda)
+    before = port_salp.LAUNCHES
+    got = port_salp.fused_salp_step_cuda(*args, **kw)
+    assert port_salp.LAUNCHES == before + 1
+    want = port_salp.fused_salp_step_plain(*args, **kw)
+    _assert_family_equal("sphere", got, want)
+    if kind != "step0":
+        assert float(got[2]) == 0.0
+    if kind not in ("step0", "leader"):     # the leader's move is ~1e-27
+        assert not bool(got[3].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,name,n,d,k,rng,tile_n,want", [
+    ("salp", "styblinski_tang", 2048, 452, 16, "device", 512, 64),
+    ("salp", "rastrigin", 1024, 200, 16, "device", 256, 256),
+    ("salp", "griewank", 1024, 201, 3, "device", 1024, 128),
+    ("woa", "rastrigin", 1024, 224, 8, "device", 256, (0, 256)),
+    ("woa", "ackley", 1024, 225, 8, "device", 256, (1, 128)),
+    ("woa", "zakharov", 256, 1816, 2, "device", 128, (1, 32)),
+    ("woa", "levy", 384, 3, 1, "host", 128, (0, 256)),
+], ids=lambda v: str(v))
+def test_salp_woa_redesign_geometries(cuda, fam, name, n, d, k, rng, tile_n,
+                                      want):
+    # The envelopes' edges: salp at D = 452 (64 lanes a block) and where
+    # 256 lanes still fit; the whale's sorted variant at its last D (224)
+    # and the first version past it (128 threads), to D = 1,816 (32); a
+    # whale block half empty (384 lanes).
+    if fam == "salp":
+        assert port_salp.salp_geometry(d, tile_n).lanes == want
+    else:
+        assert tuple(port_woa.woa_geometry(d)[:2]) == want
+    _salp_woa_equal(fam, name, n, d, k, rng, cuda, tile_n)
+
+
+def _woa_rows(args, u_p, t0):
+    """The whale case's host draws with u_p set (a float or a [1, N]
+    tensor) and the launch's iteration t0."""
+    r_a, r_c, r_p, r_l = args[-4:]
+    args[-2] = (torch.full_like(r_p, u_p) if isinstance(u_p, float)
+                else u_p.to(r_p.device))
+    args[0][2] = t0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["main", "second"])
+@pytest.mark.parametrize("klass", ["contract", "spiral", "mixed"])
+@pytest.mark.parametrize("t0", [0, 400])
+def test_woa_redesign_lane_classes(cuda, monkeypatch, variant, klass, t0):
+    # Rows chosen so that every whale contracts, every whale spirals, or
+    # the classes alternate in runs of 1 to 40 (every warp at a class
+    # boundary); at t0 = 0, a = 2 and |A| >= 1 at about half of the
+    # contracting elements, whose peers are read; at 400 none.
+    if variant == "second":
+        monkeypatch.setattr(port_woa, "woa_geometry", port_woa.lane_geometry)
+    n, d = 4096, 30
+    g = torch.Generator().manual_seed(t0)
+    runs = torch.randint(1, 41, (n,), generator=g).cumsum(0)
+    mixed = (torch.searchsorted(runs, torch.arange(n), right=True) % 2
+             ).float().reshape(1, n) * 0.5 + 0.25
+    u_p = {"contract": 0.25, "spiral": 0.75, "mixed": mixed}[klass]
+    args, kw = _salp_woa_equal(
+        "woa", "rastrigin", n, d, 1, "host", cuda, 1024,
+        edit=lambda a, k: _woa_rows(a, u_p, t0))
+    counts = {}
+    port_woa.fused_woa_step_plain(*args, **kw, counts=counts)
+    contracting = int(counts["contract"][0])
+    assert contracting == {"contract": n * d, "spiral": 0}.get(
+        klass, int((mixed < 0.5).sum()) * d)
+    a = 2.0 * (1.0 - min(t0 / kw["t_max"], 1.0))
+    explore = (torch.abs(2 * a * args[-4] - a) >= 1.0) & (args[-2] < 0.5)
+    assert bool(explore.any()) == (t0 == 0 and klass != "spiral")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["main", "second"])
+@pytest.mark.parametrize("name", ["rastrigin", "ackley", "michalewicz"])
+def test_woa_redesign_early_in_the_schedule(cuda, monkeypatch, variant,
+                                            name):
+    # The first launches of a run (t0 = 0 .. 7): |A| >= 1 at about half the
+    # contracting elements, so the peers are read, over 8 steps of device
+    # draws with the tile and lane shifts at their edges.
+    if variant == "second":
+        monkeypatch.setattr(port_woa, "woa_geometry", port_woa.lane_geometry)
+
+    def early(args, kw):
+        args[0][1] = 3                    # the last of four tiles
+        args[0][2] = 0
+        args[0][3] = 1023                 # the lane shift at the tile's end
+    _salp_woa_equal("woa", name, 4096, 30, 8, "device", cuda, 1024,
+                    edit=early)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,geo", [
+    ("salp", (1024, 4 * (30 * 1040 + 2 * 33 * 32 + 96))),   # too many lanes
+    ("salp", (96, 4 * (30 * 112 + 2 * 4 * 32 + 96))),      # not a power of 2
+    ("salp", (512, 4 * (30 * 528 + 2 * 17 * 30 + 96))),    # bytes
+    ("salp", (16, 4 * (30 * 32 + 2 * 1 * 32 + 96))),       # too few lanes
+    ("woa", (0, 128, 4 * (30 * 128 + 32 + 256 + 4))),      # not 256
+    ("woa", (0, 256, 30720)),                              # bytes
+    ("woa", (1, 64, 30 * 64 * 4)),                         # not its block
+    ("woa", (2, 256, 0)),                                  # no variant
+], ids=lambda v: str(v))
+def test_salp_woa_entries_reject_a_geometry_they_cannot_run(cuda,
+                                                            monkeypatch,
+                                                            fam, geo):
+    # The wrapper hands its geometry to the entry, which checks it: one the
+    # kernel cannot run launches nothing and counts nothing.
+    mod = FAMILIES[fam]
+    if fam == "salp":
+        monkeypatch.setattr(mod, "salp_geometry",
+                            lambda *shape: port_salp.SalpGeometry(*geo))
+    else:
+        monkeypatch.setattr(mod, "woa_geometry",
+                            lambda *shape: port_woa.WoaGeometry(*geo))
+    kernel, _, args, kw = _family_case(fam, "sphere", 16384, 30, 2,
+                                       "device", cuda, 4096)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert mod.LAUNCHES == before
+    # A tile that the block does not divide.
+    if fam == "salp":
+        monkeypatch.setattr(mod, "salp_geometry", lambda *shape: (
+            port_salp.SalpGeometry(512, port_salp.chain_bytes(30, 512))))
+        kernel, _, args, kw = _family_case(fam, "sphere", 1024, 30, 2,
+                                           "device", cuda, 256)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernel(*args, **kw)
+        assert mod.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_salp_woa_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["salp_fused", "woa_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws; the
+    # whale's beside its second variant.
+    for name, kernel, others in (
+            ("salp_fused", "salp_chain_kernel", ()),
+            ("woa_fused", "woa_sorted_kernel", ("woa_lane_kernel",))):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines()
+                   if "Compiling entry" in ln and kernel in ln]
+        assert len(entries) == 80, (name, len(entries))
+        for other in others:
+            assert other in log, (name, other)
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert len(spills) >= len(entries), (name, spills)
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), (name, spills)

@@ -263,7 +263,7 @@ def test_step_rejects_bad_arguments():
     assert tsf.LAUNCHES == before
     assert tsf.salp_pallas_supported("rastrigin", torch.float32, 452)
     assert not tsf.salp_pallas_supported("rastrigin", torch.float32, 453)
-    assert tsf.kernel_block(30) == 128 and tsf.kernel_block(200) == 64
+    assert tsf.kernel_block(30) == 512 and tsf.kernel_block(200) == 256
     # The JAX package's tile pick: 4,096 lanes at D = 30, capped by N.
     assert family.lane_tiling(1_048_576, None, 30) == (4096, 1_048_576)
     assert family.lane_tiling(500, 128, 5) == (128, 512)

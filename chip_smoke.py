@@ -22,17 +22,22 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    B7's and B17's (the bat step with no candidate tile, the ABC tile on
    chip across a cluster), whose loops give the issue floors of phases 11
    and 13, B18's and B13's, and B15's (the GA tile on chip across a
-   cluster), whose loops give the issue floor of phase 12, and B9's and
+   cluster), whose loops give the issue floor of phase 12, B9's and
    B11's (the salp chain in one staged buffer, the whale's lanes regrouped
-   by branch), whose loops give the issue floors of phase 11
-   (``redesigned_census``, records ``redesigned_builds_de_cuckoo``,
-   ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho``,
-   ``redesigned_builds_ga`` and ``redesigned_builds_salp_woa``);
+   by branch), whose loops give the issue floors of phase 11, and B14's
+   and B4's (the SHADE generation with x and the trial on chip, the window
+   pass with a square-root-free cut and a warp queue of near pairs, its
+   first version's global-memory kernel beside it), whose loops give the
+   issue floors of phases 12 and 6 (``redesigned_census``, records
+   ``redesigned_builds_de_cuckoo``, ``redesigned_builds_bat_abc``,
+   ``redesigned_builds_pt_hho``, ``redesigned_builds_ga``,
+   ``redesigned_builds_salp_woa`` and ``redesigned_builds_shade_window``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
    a co-located trio, a crowded swarm, N = 65,536), the window-separation
-   kernel against its own at five (W = 600 and W = 3000 included), the hashgrid
+   kernel against its own, bit for bit, at eleven (W = 600, 1,500 and 3,000,
+   every shift near, 90% and all dead, W = 40, a partial warp), the hashgrid
    slot kernel at four (R = 1, R = 2, past the cap, a stale skinned plan)
    and the candidate kernel at four (skin 0, stale, after partial
    refreshes, truncated tables); the fused PSO kernel at N not a multiple
@@ -58,11 +63,17 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
 6. full width, "window": the JAX package's 1M flagship row
    (benchmarks/bench_swarm_tpu.py:55, 1,048,576 agents, sort_every=8) in
    the same scenario through ``VectorSwarm`` for 800 ticks, the leader
-   killed after tick 400; the window kernel must launch once per tick, the
-   leader go 1048575 -> 1048574; a ``torch.profiler`` trace of 16 more
-   ticks gives the device's busy time per tick and its heaviest kernels;
-   then the window kernel is timed beside its plain version at the final
-   state;
+   killed after tick 400, its chunks (a re-sort and 8 ticks) replayed from
+   one captured CUDA graph; the window kernel must launch once per tick,
+   the leader go 1048575 -> 1048574; the span before the kill pays the
+   capture, the span after replays it alone (``window_replay``); a
+   ``torch.profiler`` trace of 16 more ticks gives the device's busy time
+   per tick and its heaviest kernels; from the final state the replayed
+   rollout and the eager one (16 ticks, the leader killed, 21 more) must
+   end equal in every field (``window_replay_vs_eager``); then the window
+   kernel is timed beside its plain version at the final state, back to
+   back and from a CUDA graph, with its bound, its warps' queue counts and
+   its issue floor;
 7. full width, "hashgrid": the JAX package's bounded-arena rows
    (benchmarks/bench_swarm_tpu.py:43 and :49, 65,536 agents spawned in
    +-250 m on the torus [-256, 256)^2, cap 16, rescue budget 1024, no
@@ -130,10 +141,15 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    launch, ``GA`` and ``MFO`` for 256 in launches of 8 (MFO re-sorting its
    flames every 8 launches and at the end), each after a warm-up launch,
    timed with CUDA events: the launch count, no incumbent (MFO: no best
-   flame) rising, every position inside the domain; SHADE's device busy
-   share from a trace of 16 more generations; then one launch of the kernel
+   flame) rising, every position inside the domain; SHADE's generations
+   replayed two at a time from one captured CUDA graph (the run pays the
+   capture; 64 more replay it alone), its device busy share from a trace of
+   16 more, and 9 generations replayed and eager from the final state equal
+   in every field (``shade_replay_vs_eager``); then one launch of the kernel
    at the final state against its plain version, timed beside it and its
-   bound (B10 also beside its issue floor, and in both its variants at CR
+   bound (B14 also beside its issue floor, its four-stream floor, its time
+   from a CUDA graph and with the generation read from the device; B10
+   also beside its issue floor, and in both its variants at CR
    = 0.9 and at CR = 0, where no gene crosses and the first version reads
    no donor, the second variant held against the plain version too; B15
    beside its issue floor and in both its variants at the final state, with
@@ -343,6 +359,8 @@ GA_QUARTER_CALL_OPS = 25
 GA_CROSS_OPS = 28 + 44 + 6
 # SHADE's generations profiled for the device's busy share.
 SHADE_PROFILED = 16
+SHADE_REPLAYED = 64     # generations replayed alone, after the run
+SHADE_COMPARED = 9      # generations of the replayed and eager runs compared
 # The Levy-flight and multi-evaluation families, each at its JAX bench's
 # configuration (bench_cuckoo_1m.py:16-24, bench_hho_1m.py:15-23 with t_max
 # 256, bench_abc_1m.py:16-24 with limit n * dim, bench_pt_1m.py:18-26):
@@ -461,6 +479,11 @@ GA_MAIN = "ga_cluster_kernelILi2ELi1ELb0E"
 # device draws.  B9 has no second variant (its design covers D <= 452).
 SALP_MAIN = "salp_chain_kernelILi2ELi1ELb0E"
 WOA_MAIN = "woa_sorted_kernelILi2ELi1ELb0E"
+# The main kernels of the redesigned B14 (D mod 4 = 2, rastrigin, device
+# draws) and B4 (the staged halo; the first version's global-memory kernel,
+# kept for halos past the shared-memory budget, is its second variant).
+SHADE_MAIN = "shade_staged_kernelILi2ELi1ELb0E"
+WINDOW_MAIN = "window_staged_kernel"
 # The redesigns with a second variant, a pair at a time: (family, source,
 # main kernel); the second variants (the first versions, kept) and the
 # geometry functions that reach them.
@@ -472,12 +495,15 @@ REDESIGNED = ((("de", "de_fused", DE_MAIN),
                ("hho", "hho_fused", HHO_MAIN)),
               (("ga", "ga_fused", GA_MAIN),),
               (("salp", "salp_fused", SALP_MAIN),
-               ("woa", "woa_fused", WOA_MAIN)))
+               ("woa", "woa_fused", WOA_MAIN)),
+              (("shade", "shade_fused", SHADE_MAIN),
+               ("window", "window_separation", WINDOW_MAIN)))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
                    "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
                    "pt": "pt_cand_tile_kernel",
                    "hho": "hho_trial_tile_kernel",
-                   "ga": "ga_global_kernel", "woa": "woa_lane_kernel"}
+                   "ga": "ga_global_kernel", "woa": "woa_lane_kernel",
+                   "window": "window_global_kernel"}
 SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "bat": "candidate_tile_geometry",
                    "abc": "global_geometry",
@@ -648,19 +674,98 @@ def window_pair_counts(pos, alive):
 
 
 def window_bound_ms(pos, alive):
-    """Least time for one window-kernel call on this card: each tested
-    pair's distance (two differences, two products, a sum, a square root,
-    the clamp and the cut: 8 operations) and each near pair's force (dc^2,
-    a division for k/dc^2, per axis a product, a division and a sum: 8),
+    """Least time for one window-kernel call on this card, by the work the
+    function needs: each tested pair's cut (two differences, two products,
+    a sum and the comparison with the squared cut: 6 operations) and, for a
+    near pair only, the square root, the clamp and the force (dc^2, a
+    division for k/dc^2, per axis a product, a division and a sum: 10),
     over the f32 peak; against positions and alive flags read once and the
     force written once over the memory rate."""
     n = pos.shape[0]
     tests, near = window_pair_counts(pos, alive)
-    ops = tests * 8 + near * 8
+    ops = tests * 6 + near * 10
     nbytes = n * (8 + 1) + n * 8
     by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(by_ops, by_bytes), (
         "operations" if by_ops >= by_bytes else "bytes"), tests, near
+
+
+def window_queue_counts(pos, alive):
+    """Per warp of 32 receivers, the staged kernel's work on a Morton-sorted
+    state at W = 16 (one group of 32 tests), as ``near_pair_queue`` counts
+    it, on the card: ``(total, most, crowded, rounds, sums)`` int64 [warps]
+    (near pairs, the most one lane holds, whether the warp adds lane by
+    lane, the queue's rounds, the receivers' add-loop iterations)."""
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda.window_separation \
+        import cut_threshold
+    n = pos.shape[0]
+    warps = -(-n // 32)
+    cut = cut_threshold(R)
+    nan = torch.full_like(pos, float("nan"))
+    staged = torch.where(alive.bool()[:, None], pos, nan)
+    count = torch.zeros(warps * 32, dtype=torch.int64, device=pos.device)
+    ids = torch.arange(n, device=pos.device)
+    for k in range(32):
+        shift = k // 2 + 1
+        j = ids + (shift if k & 1 else -shift)
+        inside = (j >= 0) & (j < n)
+        partner = staged[j.clamp(0, n - 1)]
+        d = staged - partner
+        s = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+        count[:n] += (inside & (s < cut)).long()
+    count = count.reshape(warps, 32)
+    total, most = count.sum(1), count.max(1).values
+    rounds = -(-total // 32)
+    crowded = (total > 0) & (rounds >= most)
+    off = torch.cumsum(count, 1) - count
+    sums = torch.zeros_like(total)
+    for r in range(32):
+        lo = torch.clamp(off, min=32 * r)
+        hi = torch.clamp(off + count, max=32 * r + 32)
+        sums += torch.where(r < rounds, (hi - lo).clamp(min=0).max(1).values,
+                            0)
+    rounds = torch.where(crowded, 0, rounds)
+    sums = torch.where(crowded, 0, sums)
+    return total, most, crowded.long(), rounds, sums
+
+
+def window_issue_floor(census, counts, span, clock_mhz):
+    """B4's issue floor on one call from the staged kernel's SASS census and
+    the warps' queue counts (``window_queue_counts``): per warp, what lies
+    outside the group loop in the function's body (the prologue and the
+    stores; the staging loop, ceil(span / 256) times), the group loop's own
+    instructions (the 32 tests, the prefix sum, the choice) once, and its
+    inner loops as often as the warp runs
+    them: a crowded warp its own-pairs loop ``most`` times; a queued warp
+    the queue's write loop ``most`` times, the rounds loop ``rounds`` times
+    and the receivers' add loop ``sums`` times.  The inner loops are read
+    in address order (own pairs, writes, rounds with the adds inside);
+    None where the census does not show that shape."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = sorted((lp for lp in loops if lp is not outer
+                    and outer[0] <= lp[0] and lp[1] <= outer[1]),
+                   key=lambda lp: lp[0])
+    before = [lp for lp in loops if lp[1] < outer[0]]
+    if len(inner) != 4 or not (inner[2][0] <= inner[3][0]
+                               and inner[3][1] <= inner[2][1]) or not before:
+        return None, None
+    own, writes, rounds_lp, adds = (lp[2] for lp in inner)
+    staging = max(before, key=lambda lp: lp[2])[2]
+    outside = body_instructions(census) - outer[2] - staging
+    group = outer[2] - own - writes - rounds_lp
+    total, most, crowded, rounds, sums = counts
+    per_warp = (outside + staging * -(-span // 256) + group
+                + crowded * most * own
+                + (1 - crowded) * (most * writes + rounds * (rounds_lp - adds)
+                                   + sums * adds))
+    lanes = 32 * int(per_warp.sum())
+    return (dict(outside=outside, staging=staging, group=group, own=own,
+                 writes=writes, rounds=rounds_lp - adds, adds=adds,
+                 instructions_per_receiver=lanes / (32 * total.numel())),
+            issue_floor_ms(lanes, clock_mhz))
 
 
 def compare_window(win, nb, pos, alive, window, presorted, label):
@@ -690,8 +795,53 @@ def compare_window(win, nb, pos, alive, window, presorted, label):
     record(**out)
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite force")
     check(ratio <= 1.0, f"{label}: kernel outside its band of plain")
+    check(out["bitwise_equal"], f"{label}: kernel differs from plain")
     check(bool((got[~alive.bool()] == 0).all()), f"{label}: dead agent moved")
     return got, out
+
+
+@contextlib.contextmanager
+def replaying(module, replay):
+    """``module``'s runs replayed from CUDA graphs on the card (its own
+    choice) or, with ``replay`` false, eager: the module's
+    ``replays_graphs`` refusing every device for the block."""
+    chosen = module.replays_graphs
+    if not replay:
+        module.replays_graphs = lambda device: False
+    try:
+        yield
+    finally:
+        module.replays_graphs = chosen
+
+
+def window_replay_vs_eager(dsa, state, cfg, dev, ticks=(16, 21)):
+    """The replayed window rollout against the eager one from the same
+    full-width state, each on its own copy of the generator: ``ticks[0]``
+    ticks, the leader killed, ``ticks[1]`` more; every state field equal
+    bit for bit (the leaders included)."""
+    from distributed_swarm_algorithm_tpu_torch.models import swarm
+    from distributed_swarm_algorithm_tpu_torch.state import TENSOR_FIELDS
+    outs, leaders = {}, {}
+    for replay in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.set_state(state.gen.get_state())
+        st = state.replace(gen=gen)
+        with replaying(swarm, replay):
+            st = dsa.swarm_rollout(st, None, cfg, ticks[0])
+            lid = int(dsa.current_leader(st)[0])
+            st = dsa.kill(st, [lid])
+            st = dsa.swarm_rollout(st, None, cfg, ticks[1])
+        outs[replay] = st
+        leaders[replay] = [lid, int(dsa.current_leader(st)[0])]
+    unequal = [f for f in TENSOR_FIELDS
+               if not torch.equal(getattr(outs[False], f),
+                                  getattr(outs[True], f))]
+    record(phase="window_replay_vs_eager", agents=state.n_agents,
+           ticks=list(ticks), leaders=leaders[True],
+           unequal_fields=unequal)
+    check(not unequal and leaders[True] == leaders[False],
+          f"the replayed window rollout differs from the eager one: "
+          f"{unequal}")
 
 
 def morton_sorted(nb, pos, alive):
@@ -1272,7 +1422,7 @@ def parse_sass(stdout, name, function):
     """``sass_census`` of ``function`` in ``cuobjdump -sass`` output."""
     import re
     counts, inside, loops, products, barriers = {}, False, [], [], []
-    jumps = []
+    jumps, exits = [], []
     for line in stdout.splitlines():
         if "Function :" in line:
             if inside:
@@ -1294,6 +1444,8 @@ def parse_sass(stdout, name, function):
                 products.append(at)
             if key == "BAR":
                 barriers.append(at)
+            if key == "EXIT":
+                exits.append(at)
             predicated = int(bool(re.search(r"\*/\s+@", line)))
             b = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", line)
             if key in ("BRA", "BRX", "JMP", "EXIT", "RET"):
@@ -1310,7 +1462,16 @@ def parse_sass(stdout, name, function):
     loops.sort(key=lambda lp: (lp[0], -lp[1]))
     return dict(function=function, total=sum(counts.values()),
                 opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])),
-                loops=loops, barriers=barriers, jumps=jumps)
+                loops=loops, barriers=barriers, jumps=jumps, exits=exits)
+
+
+def body_instructions(census):
+    """Instructions of a census's function up to its last ``EXIT``: what
+    follows are the subroutines of the IEEE division's and square root's
+    slow paths, which in-range operands never call (all of them where
+    the census lists no ``EXIT``)."""
+    exits = census.get("exits") or []
+    return exits[-1] // 16 + 1 if exits else census["total"]
 
 
 def exclusive_code(census, loop, head):
@@ -2244,6 +2405,12 @@ def rot_small_shapes(mods, pf, dev):
         ("shade", "griewank", 1280, 30, 1, "device", 256),
         ("shade", "levy", 512, 1, 1, "device", 128),
         ("shade", "schwefel", 768, 100, 1, "device", 128),
+        ("shade", "rastrigin", 16384, 30, 1, "device", 4096),
+        ("shade", "sphere", 640, 4, 1, "device", 128),
+        ("shade", "zakharov", 1024, 3, 1, "host", 256),
+        ("shade", "ackley", 2048, 31, 1, "device", 512),
+        ("shade", "michalewicz", 512, 10, 1, "device", 128),
+        ("shade", "rosenbrock", 384, 363, 1, "device", 128),
         ("ga", "rastrigin", 512, 8, 1, "host", 128),
         ("ga", "zakharov", 500, 3, 8, "device", 100),
         ("ga", "ackley", 16384, 30, 8, "device", 4096),
@@ -2359,6 +2526,50 @@ def rot_bound_ms(fam, n, d, k_steps, needed=None):
         "operations" if by_ops >= by_bytes else "bytes"), ops, nbytes
 
 
+def shade_issue_floor(census, n, d, k_steps, clock_mhz):
+    """B14's issue floor on one launch: the gene chunk loop (four genes:
+    the loads, the Philox group, the mutants, the selects, the tiles'
+    stores, the folded terms; the loop with the 32-bit products) and the
+    write loop (four genes from a tile) D // 4 times a lane, plus the
+    kernel's instructions outside its loops (the lane's setup and source
+    draw, the last D mod 4 genes, the close, the acceptance; the
+    function's body, ``body_instructions``), over N lanes."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if len(loops) < 2:
+        return None, None
+    chunk = max(loops, key=lambda lp: (lp[3], lp[2]))
+    rest = [lp for lp in loops if lp is not chunk]
+    write = max(rest, key=lambda lp: lp[2])
+    outside = body_instructions(census) - sum(lp[2] for lp in loops)
+    per_lane = (d // 4) * (chunk[2] + write[2]) + outside
+    return per_lane / d, issue_floor_ms(per_lane * n * k_steps, clock_mhz)
+
+
+def shade_replay_vs_eager(mod, state, half_width, dev, steps=SHADE_COMPARED):
+    """The replayed SHADE run against the eager loop from the same
+    full-width state, each on its own copy of the generator: every state
+    field equal bit for bit."""
+    from distributed_swarm_algorithm_tpu_torch.ops.shade import (
+        SHADE_TENSOR_FIELDS,
+    )
+    outs = {}
+    for replay in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.set_state(state.gen.get_state())
+        with replaying(mod, replay):
+            outs[replay] = mod.fused_shade_run(state.replace(gen=gen),
+                                               "rastrigin", steps,
+                                               half_width=half_width)
+    unequal = [f for f in SHADE_TENSOR_FIELDS
+               if not torch.equal(getattr(outs[False], f),
+                                  getattr(outs[True], f))]
+    record(phase="shade_replay_vs_eager", particles=ZOO_N,
+           generations=steps, unequal_fields=unequal,
+           best=float(outs[True].best_fit))
+    check(not unequal, f"the replayed SHADE run differs from the eager "
+                       f"loop: {unequal}")
+
+
 def rot_incumbent(fam, state):
     """The family's incumbent best as a tensor: MFO's best flame."""
     return (state.flame_fit[0] if fam == "mfo" else state.best_fit).clone()
@@ -2449,19 +2660,31 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
         check(bool((state.flame_fit[1:] >= state.flame_fit[:-1]).all()),
               "mfo: the flames are not in rank order")
     if fam == "shade":
+        # The run above paid the capture of two generations; these replay
+        # it alone.
+        _, replay_ms = timed(lambda: opt.run(SHADE_REPLAYED))
+        # CUPTI reports each kernel a graph launches as its own kernel
+        # activity, so the trace's sums are the device's busy time.
         busy, ops, top = device_time(lambda: opt.run(SHADE_PROFILED),
                                      SHADE_PROFILED)
         ms_per_gen = run_ms / steps
+        replay_per_gen = replay_ms / SHADE_REPLAYED
         record(phase="shade_generation_breakdown", particles=ZOO_N,
                profiled_generations=SHADE_PROFILED,
                ms_per_generation=ms_per_gen,
+               ms_per_generation_replays_alone=replay_per_gen,
+               particle_steps_per_sec_replays_alone=ZOO_N / (
+                   replay_per_gen / 1e3),
                device_busy_ms_per_generation=busy,
                device_busy_share=(None if busy is None
                                   else busy / ms_per_gen),
                device_idle_share=(None if busy is None
                                   else 1.0 - busy / ms_per_gen),
+               device_idle_share_replays_alone=(
+                   None if busy is None else 1.0 - busy / replay_per_gen),
                device_ops_per_generation=ops, top_device_ops=top, smi=smi)
         state = opt.state
+        shade_replay_vs_eager(mod, state, opt.half_width, dev)
 
     seed = torch.tensor([2026], dtype=torch.int32, device=dev)
     args, extra = rot_launch_args(mods, fam, state, seed, dev)
@@ -2483,17 +2706,30 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     elif fam == "ga":
         variant_times(fam, mod, kernel,
                       [("final_state", args, step_kw, want)], k, smi)
+    extra = {}
+    if fam == "shade":
+        # The generation from a counter on the device, as a replayed run
+        # hands it, draws what the int does.
+        step_t = torch.tensor([step_kw["step"]], dtype=torch.int32,
+                              device=dev)
+        again = kernel(*args, **dict(step_kw, step=step_t))
+        check(all(torch.equal(a, b) for a, b in zip(again, got)),
+              "shade: the step from the device draws other numbers")
+        extra = dict(
+            kernel_graph_ms=graph_ms(lambda: kernel(*args, **step_kw), 10),
+            four_stream_floor_ms=1e3 * 4 * 4 * ZOO_DIM * ZOO_N
+            / PEAK_HBM_BYTES)
     del got, want
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k,
                                                 needed)
-    extra = {}
     if fam == "ga":
         extra = dict(needed_elements=needed,
                      bound_ms_every_element=rot_bound_ms(
                          fam, ZOO_N, ZOO_DIM, k)[0],
                      geometry=tuple(mod.ga_geometry(ZOO_DIM, 4096)))
-    floors = {"de": de_issue_floor, "ga": ga_issue_floor}
+    floors = {"de": de_issue_floor, "ga": ga_issue_floor,
+              "shade": shade_issue_floor}
     floor = (floors[fam](census[fam], ZOO_N, ZOO_DIM, k, census["clock_mhz"])
              if fam in floors else (None, None))
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
@@ -3705,6 +3941,14 @@ def main():
         ("n=4096, W=600 (staged halo)", 4096, 20.0, 0.0, False, 600, True),
         ("n=4096, W=3000 (global reads)", 4096, 20.0, 0.0, False, 3000,
          True),
+        ("n=4096 crowded, every shift near", 4096, 0.4, 0.0, False, 16,
+         True),
+        ("n=20000, 90% dead", 20000, 20.0, 0.9, False, 16, True),
+        ("n=5000, all dead", 5000, 2.0, 1.01, False, 16, True),
+        ("n=7777, W=40 (three groups)", 7777, 25.0, 0.1, False, 40, True),
+        ("n=6000, W=1500 (the widest staged halo)", 6000, 60.0, 0.0, False,
+         1500, True),
+        ("n=37 (a partial warp)", 37, 1.0, 0.0, False, 16, True),
     ):
         pos, alive = random_swarm(n, 2, n, box, dead, co, dev)
         p0 = pos[0].clone()
@@ -3833,14 +4077,30 @@ def main():
     )
     hashgrid_launch_check(launches, "window_separation", WIN_TICKS)
     win_launches = launches["window_separation"]
+    # The first span pays the chunk's capture, the second (after the kill,
+    # the same swarm) replays it alone.
+    replay_ms_per_tick = spans[1] / (WIN_TICKS - WIN_KILL_AFTER)
+    record(phase="window_replay", agents=WIN_N, sort_every=WIN_SORT_EVERY,
+           ms_per_tick_capture_span=spans[0] / WIN_KILL_AFTER,
+           ms_per_tick_replay_span=replay_ms_per_tick,
+           agent_steps_per_sec_replay_span=WIN_N / (replay_ms_per_tick / 1e3),
+           smi=smi)
+    # The trace of 16 more ticks: two replayed chunks.  CUPTI reports each
+    # kernel a graph launches as its own kernel activity, so the sums are
+    # the device's busy time as in an eager trace.
     busy_ms, kernels_per_tick, top = device_breakdown(sw, 2 * WIN_SORT_EVERY)
     record(phase="window_tick_breakdown", agents=WIN_N,
            profiled_ticks=2 * WIN_SORT_EVERY, ms_per_tick=ms_per_tick,
+           ms_per_tick_replay_span=replay_ms_per_tick,
            device_busy_ms_per_tick=busy_ms,
            device_idle_share=(None if busy_ms is None
                               else 1.0 - busy_ms / ms_per_tick),
+           device_idle_share_replay_span=(
+               None if busy_ms is None
+               else 1.0 - busy_ms / replay_ms_per_tick),
            device_ops_per_tick=kernels_per_tick, top_device_ops=top, smi=smi)
     state = sw.state
+    window_replay_vs_eager(dsa, state, wcfg, dev)
 
     # The window kernel at the main path's shape and order (the final
     # state, sorted at most 8 ticks ago).
@@ -3849,14 +4109,36 @@ def main():
                                 "main path, final state")
     win_ms = cuda_ms(lambda: win.separation_window_cuda(
         pos, alive, K_SEP, R, EPS, WINDOW), 50)
+    win_graph_ms = graph_ms(lambda: win.separation_window_cuda(
+        pos, alive, K_SEP, R, EPS, WINDOW), 50)
     win_plain_ms = cuda_ms(lambda: nb.separation_window(
         pos, alive, K_SEP, R, EPS, CELL, WINDOW, presorted=True), 5)
     win_bound_ms, win_bound_by, tests, near = window_bound_ms(pos, alive)
+    counts = window_queue_counts(pos, alive)
+    # The card's counts are the numpy model's on a slice of the state.
+    part = 32 * 640
+    _, model = win.near_pair_queue(pos[:part].cpu().numpy(),
+                                   alive[:part].cpu().numpy(), K_SEP, R, EPS,
+                                   WINDOW)
+    mine = window_queue_counts(pos[:part], alive[:part])
+    check(all(np.array_equal(a.cpu().numpy(), b[:, 0])
+              for a, b in zip(mine, model)),
+          "the queue counts on the card differ from the numpy model's")
+    win_floor = window_issue_floor(census["window"], counts,
+                                   256 + 2 * WINDOW, census["clock_mhz"])
+    total, most, crowded, rounds, sums = counts
     record(phase="window_timing", shape=[WIN_N, 2], window=WINDOW,
-           kernel_ms=win_ms, plain_ms=win_plain_ms, bound_ms=win_bound_ms,
+           kernel_ms=win_ms, kernel_graph_ms=win_graph_ms,
+           plain_ms=win_plain_ms, bound_ms=win_bound_ms,
            bound_by=win_bound_by, pair_tests=tests, near_pairs=near,
-           kernel_share_of_tick=win_ms / ms_per_tick, smi=smi,
-           seconds_so_far=time.perf_counter() - t_start)
+           warps=int(total.numel()), crowded_warps=int(crowded.sum()),
+           queue_rounds=int(rounds.sum()), most_per_lane_mean=float(
+               most.double().mean()),
+           issue_floor=win_floor[0], issue_floor_ms=win_floor[1],
+           ptxas=census.get("window_ptxas"),
+           kernel_share_of_tick=win_ms / ms_per_tick,
+           kernel_share_of_replayed_tick=win_ms / replay_ms_per_tick,
+           smi=smi, seconds_so_far=time.perf_counter() - t_start)
 
     del sw, state, pos, alive
 

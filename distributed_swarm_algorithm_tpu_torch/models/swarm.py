@@ -10,21 +10,32 @@ the host only enqueues work until someone reads a value.  Two exceptions:
 a lone ``swarm_tick`` in window mode with ``sort_every > 1`` reads the
 tick counter to keep its re-sort cadence, and a hashgrid rollout that
 carries a Verlet plan (``hashgrid_skin > 0``) reads the plan's refresh
-decision once per tick.
+decision once per tick.  A window-mode rollout on the card replays its
+chunks (a re-sort and ``sort_every`` ticks) from one captured CUDA graph
+(``_replayed_rollout``), so the host launches one graph a chunk where it
+would launch some 200 operations a tick.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops.allocation import allocation_step, task_status_view
 from ..ops.coordination import coordination_step, current_leader, kill, revive
+from ..ops.cuda import window_separation as _cuda_window
+from ..ops.cuda.common import capture_graph, replays_graphs
 from ..ops.neighbors import morton_keys
 from ..ops.physics import build_tick_plan, physics_step, physics_step_plan
-from ..state import SwarmState, make_swarm, sort_agents_by_key, with_tasks
+from ..state import (
+    TENSOR_FIELDS,
+    SwarmState,
+    make_swarm,
+    sort_agents_by_key,
+    with_tasks,
+)
 from ..utils.config import DEFAULT_CONFIG, SwarmConfig
 from ..utils.platform import DeviceLike
 from ._checkpoint import CheckpointMixin
@@ -97,6 +108,118 @@ def _swarm_tick_plan(
     return physics_step_plan(state, obstacles, cfg, plan)
 
 
+def _chunk_ticks(
+    state: SwarmState,
+    obstacles: Optional[torch.Tensor],
+    cfg: SwarmConfig,
+    n_ticks: int,
+    jitter: Optional[torch.Tensor],
+) -> SwarmState:
+    """One chunk of a window-mode rollout: the Morton re-sort, then
+    ``n_ticks`` ticks without the in-tick re-sort, tick k with the jitter
+    row ``jitter[k]`` (or drawn from the state's generator)."""
+    state = _morton_sorted(state, cfg)
+    for k in range(n_ticks):
+        state = swarm_tick(state, obstacles, cfg,
+                           None if jitter is None else jitter[k],
+                           sort_in_tick=False)
+    return state
+
+
+class _Chunk(NamedTuple):
+    """A captured chunk: its graph, the static state it reads and writes
+    (its generator is the rollout's), the static jitter rows it reads (or
+    None), the obstacles it read, the launches of the window kernel its
+    capture recorded, and what it was captured for (the config, the
+    fields' shapes and dtypes, the jitter's dtype)."""
+
+    graph: torch.cuda.CUDAGraph
+    static: SwarmState
+    jitter: Optional[torch.Tensor]
+    obstacles: Optional[torch.Tensor]
+    launches: int
+    key: tuple
+
+
+# The last captured chunk, replayed by the next rollout whose state has the
+# same generator, obstacles and key (a swarm's later rollouts).
+_chunk: Optional[_Chunk] = None
+
+
+def _capture_chunk(state, obstacles, cfg, jitter_dtype, key) -> _Chunk:
+    """Capture one chunk (``_chunk_ticks`` of ``sort_every`` ticks) into a
+    CUDA graph over static copies of every tensor field, with the state's
+    generator registered (the election jitter draws from it).  Raises if
+    the capture fails or did not record one window-kernel launch a
+    tick."""
+    dev = state.device
+    static = state.replace(**{f: getattr(state, f).clone()
+                              for f in TENSOR_FIELDS})
+    jit = (None if jitter_dtype is None else torch.empty(
+        (cfg.sort_every, state.n_agents), dtype=jitter_dtype, device=dev))
+
+    def body():
+        out = _chunk_ticks(static, obstacles, cfg, cfg.sort_every, jit)
+        for f in TENSOR_FIELDS:
+            if getattr(out, f) is not getattr(static, f):
+                getattr(static, f).copy_(getattr(out, f))
+
+    _cuda_window._captured = 0
+    graph = capture_graph(body, state.gen, dev)
+    launches = _cuda_window._captured
+    if launches != cfg.sort_every:
+        raise RuntimeError(
+            f"a captured chunk of {cfg.sort_every} ticks must launch the "
+            f"window kernel once a tick, got {launches}")
+    return _Chunk(graph, static, jit, obstacles, launches, key)
+
+
+def _replayed_rollout(
+    state: SwarmState,
+    obstacles: Optional[torch.Tensor],
+    cfg: SwarmConfig,
+    n_steps: int,
+    jitter: Optional[torch.Tensor],
+) -> SwarmState:
+    """A window-mode rollout on the card: every full chunk replayed from
+    the graph of one captured chunk (captured anew unless the last one was
+    captured for this generator, these obstacles and this key), a shorter
+    last chunk eagerly.
+
+    The generator is registered with the graph, so a replay draws the
+    election jitter from the generator's offset at that replay and
+    advances it as the eager ticks do: the rollout equals the eager one
+    bit for bit.  Given ``jitter`` rows are copied into the graph's static
+    rows before each replay.  The state is copied into the graph's static
+    tensors and the result copied out of them, so the caller's tensors are
+    never written.  Each replay adds the window-kernel launches its
+    capture recorded."""
+    global _chunk
+    se = cfg.sort_every
+    jdt = None if jitter is None else jitter.dtype
+    key = (cfg, jdt, tuple((tuple(getattr(state, f).shape),
+                            getattr(state, f).dtype) for f in TENSOR_FIELDS))
+    r = _chunk
+    if (r is None or r.static.gen is not state.gen
+            or r.obstacles is not obstacles or r.key != key):
+        _chunk = r = None           # the old graph's memory goes first
+        r = _chunk = _capture_chunk(state, obstacles, cfg, jdt, key)
+    for f in TENSOR_FIELDS:
+        getattr(r.static, f).copy_(getattr(state, f))
+    full, rem = divmod(n_steps, se)
+    for c in range(full):
+        if jitter is not None:
+            r.jitter.copy_(jitter[c * se:(c + 1) * se])
+        r.graph.replay()
+        _cuda_window.LAUNCHES += r.launches
+    state = state.replace(**{f: getattr(r.static, f).clone()
+                             for f in TENSOR_FIELDS})
+    if rem:
+        state = _chunk_ticks(state, obstacles, cfg, rem,
+                             None if jitter is None else jitter[full * se:])
+    return state
+
+
 def swarm_rollout(
     state: SwarmState,
     obstacles: Optional[torch.Tensor],
@@ -122,13 +245,20 @@ def swarm_rollout(
     ``sort_every`` (the last chunk may be shorter), each opening with one
     unconditional Morton re-sort of the whole state, and the ticks inside
     run without the in-tick re-sort: the cadence is known here, so no
-    tick waits for the device."""
+    tick waits for the device.  On a card without ``record``, the full
+    chunks are replayed from one captured CUDA graph
+    (``_replayed_rollout``); the CPU, ``record``, ``step(1)`` and the
+    other modes run eagerly."""
     if jitter is not None and jitter.shape != (n_steps, state.n_agents):
         raise ValueError(
             f"jitter must be [{n_steps}, {state.n_agents}], got "
             f"{tuple(jitter.shape)}"
         )
     permuting = _permuting(cfg)
+    if (permuting and not record and replays_graphs(state.device)
+            and n_steps >= cfg.sort_every):
+        out = _replayed_rollout(state, obstacles, cfg, n_steps, jitter)
+        return (out, None) if return_plan else out
     plan = None
     if cfg.separation_mode == "hashgrid" and cfg.hashgrid_skin > 0:
         plan = build_tick_plan(state, cfg)

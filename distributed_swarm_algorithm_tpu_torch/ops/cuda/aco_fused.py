@@ -59,6 +59,7 @@ from ..aco import (
 )
 from .._numerics import rdiv
 from . import _build
+from .common import capture_graph
 from .fast_math import LN2, log2_fast
 from .pso_fused import philox_uniforms, seed_base
 
@@ -537,20 +538,14 @@ def _capture(state: ACOState, n_ants: int, params: tuple,
     static = state.replace(**{f: getattr(state, f).clone()
                               for f in _CARRIED})
     last = {}
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(state.gen)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
+
+    def body():
+        nxt = fused_aco_step(static, n_ants, *params, out=last)
+        for f in _CARRIED:
+            getattr(static, f).copy_(getattr(nxt, f))
+
     _captured.update(tours=0, deposit=0)
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        try:
-            nxt = fused_aco_step(static, n_ants, *params, out=last)
-            for f in _CARRIED:
-                getattr(static, f).copy_(getattr(nxt, f))
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = capture_graph(body, state.gen, dev)
     launches = dict(_captured)
     if launches != {"tours": 1, "deposit": 1}:
         raise RuntimeError("a captured colony iteration must launch the tours "

@@ -3597,3 +3597,316 @@ def test_salp_woa_redesign_builds_spill_no_registers(cuda):
         assert len(spills) >= len(entries), (name, spills)
         assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in spills), (name, spills)
+
+
+# --------------------------------------------------------------------------
+# Rule 2's redesigns of B14 (csrc/shade_fused.cu, shade_staged_kernel: x and
+# the trial kept on chip, a chunk's loads issued together, the Philox stream
+# hoisted, a generation counter read from the device) and B4
+# (csrc/window_separation.cu, window_staged_kernel: the cut without a square
+# root, each warp's near pairs worked off in a queue), and the SHADE run and
+# the window rollout replayed from CUDA graphs.  Each kernel equals its plain
+# version bit for bit (torch.equal; SHADE's ackley as the family's band);
+# each replayed run equals the eager one on every state field.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.models import (  # noqa: E402
+    swarm as port_swarm,
+)
+from distributed_swarm_algorithm_tpu_torch.state import (  # noqa: E402
+    TENSOR_FIELDS,
+)
+
+SHADE_REDESIGN_CASES = [
+    # objective, n, d, rng, tile_n
+    ("rastrigin", 4096, 30, "device", 1024),
+    ("rastrigin", 512, 30, "host", 128),
+    ("sphere", 640, 1, "device", 128),
+    ("griewank", 768, 2, "device", 256),
+    ("levy", 512, 3, "host", 128),
+    ("schwefel", 1024, 4, "device", 128),
+    ("styblinski_tang", 1280, 5, "device", 256),
+    ("rosenbrock", 512, 31, "device", 128),
+    ("zakharov", 1024, 100, "device", 512),
+    ("michalewicz", 512, 10, "device", 128),
+    ("ackley", 2048, 30, "device", 512),
+    ("rastrigin", 512, 227, "device", 128),
+    ("sphere", 384, 363, "device", 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,n,d,rng,tile_n", SHADE_REDESIGN_CASES,
+    ids=[f"{c[0]}-{c[1]}x{c[2]}-{c[3]}" for c in SHADE_REDESIGN_CASES])
+def test_shade_redesign_equals_plain(cuda, name, n, d, rng, tile_n):
+    kernel, plain, args, kw = _rot_case("shade", name, n, d, 1, rng, cuda,
+                                        tile_n)
+    before = port_shade.LAUNCHES
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    assert port_shade.LAUNCHES == before + 1
+    _assert_family_equal(name, got, want)
+    # The generation from a counter on the device draws what the int does,
+    # and the outputs may be given.
+    out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+    step = torch.tensor([kw["step"]], dtype=torch.int32, device=cuda)
+    again = kernel(*args, **dict(kw, step=step), out=out)
+    assert again[0] is out[0] and again[1] is out[1]
+    _assert_family_equal(name, again, want)
+
+
+@pytest.mark.cuda
+def test_shade_redesign_every_lane_accepts_or_rejects(cuda):
+    # Fitness -inf: no trial wins, every lane writes its x from the tile; +inf:
+    # every trial wins.  CR 0 and 1: no gene crosses, every gene crosses.
+    kernel, plain, args, kw = _rot_case("shade", "rastrigin", 2048, 30, 1,
+                                        "device", cuda, 512)
+    for fit in (float("-inf"), float("inf")):
+        for cr in (0.0, 1.0):
+            a = list(args)
+            a[2] = torch.full_like(args[2], fit)
+            a[4] = torch.full_like(args[4], cr)
+            got, want = kernel(*a, **kw), plain(*a, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            if fit < 0:
+                assert torch.equal(got[0], a[1])
+
+
+@pytest.mark.cuda
+def test_shade_redesign_rejects_bad_operands(cuda):
+    kernel, _, args, kw = _rot_case("shade", "sphere", 512, 4, 1, "device",
+                                    cuda, 128)
+    before = port_shade.LAUNCHES
+    for step in (torch.tensor([1], device=cuda),            # int64
+                 torch.tensor([1, 2], dtype=torch.int32, device=cuda),
+                 torch.tensor([1], dtype=torch.int32)):      # on the CPU
+        with pytest.raises(ValueError, match="step"):
+            kernel(*args, **dict(kw, step=step))
+    with pytest.raises(ValueError, match="pos_out"):
+        kernel(*args, **kw, out=(torch.empty((4, 256), device=cuda),
+                                 torch.empty((1, 512), device=cuda)))
+    assert port_shade.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_shade_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["shade_fused"])
+    log = _build.build_log("shade_fused")
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws.
+    entries = [ln for ln in log.splitlines()
+               if "Compiling entry" in ln and "shade_staged_kernel" in ln]
+    assert len(entries) == 80, len(entries)
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= len(entries), spills
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills
+
+
+def _window_state(kind, cuda):
+    """A Morton-sorted (pos, alive, window) of one kind of state."""
+    rng = np.random.default_rng(11)
+    n, window, dead = 20000, 16, 0.1
+    if kind == "sparse":
+        pos = rng.uniform(-90, 90, (n, 2))
+    elif kind == "crowded":                 # every shift near
+        pos = rng.uniform(-0.4, 0.4, (4096, 2))
+        dead = 0.0
+    elif kind == "co-located":
+        pos = rng.uniform(-30, 30, (3000, 2))
+        pos[1:2999:3] = pos[0:2999:3]
+        pos[:64] = pos[0]
+    elif kind == "dead-heavy":
+        pos = rng.uniform(-20, 20, (n, 2))
+        dead = 0.9
+    elif kind == "all dead":
+        pos, dead = rng.uniform(-2, 2, (5000, 2)), 1.1
+    elif kind == "W=1":
+        pos, window = rng.uniform(-5, 5, (1001, 2)), 1
+    elif kind == "W=40":
+        pos, window = rng.uniform(-25, 25, (7777, 2)), 40
+    elif kind == "W=1500":                  # the widest staged halo
+        pos, window = rng.uniform(-60, 60, (6000, 2)), 1500
+    else:                                   # "n=37": a partial warp
+        pos = rng.uniform(-1, 1, (37, 2))
+    pos = torch.from_numpy(pos.astype(np.float32))
+    alive = torch.from_numpy(rng.random(pos.shape[0]) >= dead)
+    order = torch.sort(port_nb.morton_keys(pos, 2.0), stable=True).indices
+    return (pos[order].contiguous().to(cuda),
+            alive[order].contiguous().to(cuda), window)
+
+
+WINDOW_KINDS = ["sparse", "crowded", "co-located", "dead-heavy", "all dead",
+                "W=1", "W=40", "W=1500", "n=37"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_window_redesign_equals_plain(cuda, kind):
+    pos, alive, window = _window_state(kind, cuda)
+    before = port_win.LAUNCHES
+    got = port_win.separation_window_cuda(pos, alive, K_SEP, R, EPS, window)
+    want = port_nb.separation_window(pos, alive, K_SEP, R, EPS, 2.0, window,
+                                     presorted=True)
+    torch.cuda.synchronize()
+    assert port_win.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    # The kernel is the numpy model of its queue, with IEEE square roots.
+    model, counts = port_win.near_pair_queue(
+        pos.cpu().numpy(), alive.cpu().numpy(), K_SEP, R, EPS, window)
+    assert np.array_equal(got.cpu().numpy(), model)
+    if kind == "crowded":
+        assert counts.crowded.any()
+    if kind == "all dead":
+        assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_window_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["window_separation"])
+    log = _build.build_log("window_separation")
+    assert "window_staged_kernel" in log and "window_global_kernel" in log
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= 2, spills
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills
+
+
+@pytest.mark.cuda
+def test_graph_replayed_shade_run_equals_the_eager_loop(cuda, monkeypatch):
+    from distributed_swarm_algorithm_tpu_torch.ops import shade
+    fn, hw = port_obj.get_objective("rastrigin")
+    runs = {}
+    replays = port_shade.replays_graphs
+    for replayed in (False, True):
+        # The eager loop on the card: the run's graph seam refusing.
+        monkeypatch.setattr(port_shade, "replays_graphs",
+                            replays if replayed else lambda dev: False)
+        st = shade.shade_init(fn, 5000, 30, hw, seed=2, device=cuda)
+        before = port_shade.LAUNCHES
+        st = port_shade.fused_shade_run(st, "rastrigin", 9, half_width=hw)
+        captured = port_shade._replay
+        st = port_shade.fused_shade_run(st, "rastrigin", 4, half_width=hw)
+        torch.cuda.synchronize()
+        assert port_shade.LAUNCHES == before + 13
+        if replayed:
+            assert captured is not None and port_shade._replay is captured
+        runs[replayed] = st
+    eager, graph = runs[False], runs[True]
+    for f in shade.SHADE_TENSOR_FIELDS:
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+    assert torch.equal(graph.gen.get_state(), eager.gen.get_state())
+
+
+@pytest.mark.cuda
+def test_graph_replayed_shade_run_counts_and_raises(cuda, monkeypatch):
+    from distributed_swarm_algorithm_tpu_torch.ops import shade
+    fn, hw = port_obj.get_objective("sphere")
+    st = shade.shade_init(fn, 2048, 8, hw, seed=5, device=cuda)
+    monkeypatch.setattr(port_shade, "_replay", None)
+    before = port_shade.LAUNCHES
+    port_shade.fused_shade_run(st, "sphere", 1, half_width=hw)
+    assert port_shade._replay is None             # one generation: eager
+    # A generation that waits for the host cannot be captured: the run
+    # raises, and nothing runs eagerly in its place.
+    elite = port_shade.tile_champion_elite
+
+    def waits(pos_t, fit_row, n_tiles, tile_n):
+        float(fit_row.min())
+        return elite(pos_t, fit_row, n_tiles, tile_n)
+
+    monkeypatch.setattr(port_shade, "tile_champion_elite", waits)
+    with pytest.raises(RuntimeError):
+        port_shade.fused_shade_run(st, "sphere", 6, half_width=hw)
+    assert port_shade._replay is None
+    assert port_shade.LAUNCHES == before + 1
+    monkeypatch.setattr(port_shade, "tile_champion_elite", elite)
+    out = port_shade.fused_shade_run(st, "sphere", 6, half_width=hw)
+    assert port_shade.LAUNCHES == before + 7
+    assert bool(torch.isfinite(out.best_fit))
+
+
+def _window_scenario(n, cuda, seed=3):
+    st = tdsa.make_swarm(n, spread=40.0, seed=seed, device=cuda)
+    st = tdsa.with_tasks(st, [[1.0, 1.0], [-2.0, 3.0], [5.0, -8.0]])
+    return st.replace(target=torch.full_like(st.pos, 30.0),
+                      has_target=torch.ones_like(st.has_target))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spans,with_jitter", [((400, 400), False),
+                                               ((59, 41), True),
+                                               ((8, 13), False)])
+def test_graph_replayed_window_rollout_equals_the_eager_one(
+        cuda, monkeypatch, spans, with_jitter):
+    cfg = tdsa.DEFAULT_CONFIG.replace(separation_mode="window", sort_every=8)
+    n = 4096
+    jitter = None
+    if with_jitter:
+        jitter = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 3, (sum(spans), n)).astype(np.int32)).to(cuda)
+    runs = {}
+    replays = port_swarm.replays_graphs
+    for replay in (False, True):
+        monkeypatch.setattr(port_swarm, "replays_graphs",
+                            replays if replay else lambda dev: False)
+        st, at, before = _window_scenario(n, cuda), 0, port_win.LAUNCHES
+        leaders = []
+        for k, ticks in enumerate(spans):
+            if k:
+                st = tdsa.kill(st, [n - 1])
+            st = port_swarm.swarm_rollout(
+                st, None, cfg, ticks,
+                jitter=None if jitter is None else jitter[at:at + ticks])
+            at += ticks
+            leaders.append([int(v) for v in tdsa.current_leader(st)])
+        torch.cuda.synchronize()
+        assert port_win.LAUNCHES == before + sum(spans)
+        runs[replay] = (st, leaders)
+    (eager, le), (graph, lg) = runs[False], runs[True]
+    assert lg == le
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+    assert torch.equal(graph.gen.get_state(), eager.gen.get_state())
+    if spans == (400, 400):
+        assert le == [[n - 1, 1], [n - 2, 1]]
+
+
+@pytest.mark.cuda
+def test_graph_replayed_window_rollout_through_the_handle(cuda, monkeypatch):
+    # VectorSwarm.step(n > 1) replays; step(1) and record stay eager; a
+    # chunk that waits for the host raises and runs nothing eagerly.
+    cfg = tdsa.DEFAULT_CONFIG.replace(separation_mode="window", sort_every=8)
+    monkeypatch.setattr(port_swarm, "_chunk", None)
+    sw = tdsa.VectorSwarm(2048, spread=40.0, config=cfg, seed=1,
+                          device=cuda)
+    sw.set_target([30.0, 0.0])
+    sw.step(1)
+    assert port_swarm._chunk is None
+    before = port_win.LAUNCHES
+    sw.step(16)
+    chunk = port_swarm._chunk
+    assert chunk is not None and port_win.LAUNCHES == before + 16
+    sw.step(24)
+    assert port_swarm._chunk is chunk and port_win.LAUNCHES == before + 40
+    sw.step(8, record=True)
+    assert port_win.LAUNCHES == before + 48
+    sorted_ = port_swarm._morton_sorted
+
+    def waits(state, cfg):
+        int(state.tick)
+        return sorted_(state, cfg)
+
+    monkeypatch.setattr(port_swarm, "_chunk", None)
+    monkeypatch.setattr(port_swarm, "_morton_sorted", waits)
+    with pytest.raises(RuntimeError):
+        sw.step(16)
+    assert port_swarm._chunk is None and port_win.LAUNCHES == before + 48
+    # The generator draws again after the failed capture.
+    monkeypatch.setattr(port_swarm, "_morton_sorted", sorted_)
+    sw.step(16)
+    assert port_win.LAUNCHES == before + 64

@@ -313,7 +313,9 @@ def test_step_rejects_bad_arguments():
     assert tsf.LAUNCHES == before
     assert tsf.shade_pallas_supported("rastrigin", torch.float32, 363)
     assert not tsf.shade_pallas_supported("rastrigin", torch.float32, 364)
-    assert tsf.kernel_block(30) == 128 and tsf.kernel_block(350) == 32
+    # Blocks of 128 lanes while the x and trial tiles fit, then 64.
+    assert tsf.kernel_block(30) == 128 and tsf.kernel_block(350) == 64
+    assert tsf.kernel_block(364) == 0
 
 
 # --------------------------------------------------------------------------

@@ -28,19 +28,23 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    and B4's (the SHADE generation with x and the trial on chip, the window
    pass with a square-root-free cut and a warp queue of near pairs, its
    first version's global-memory kernel beside it), whose loops give the
-   issue floors of phases 12 and 6 (``redesigned_census``, records
-   ``redesigned_builds_de_cuckoo``, ``redesigned_builds_bat_abc``,
-   ``redesigned_builds_pt_hho``, ``redesigned_builds_ga``,
-   ``redesigned_builds_salp_woa`` and ``redesigned_builds_shade_window``);
+   issue floors of phases 12 and 6, and B2's and B3's (the hashgrid sweep
+   off the plan's cell runs with its rescue, the candidate sweep over
+   several cells a warp), whose loops give the issue floors of phase 7
+   (``redesigned_census``, records ``redesigned_builds_de_cuckoo``,
+   ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho``,
+   ``redesigned_builds_ga``, ``redesigned_builds_salp_woa``,
+   ``redesigned_builds_shade_window`` and ``redesigned_builds_grid_cand``);
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
    a co-located trio, a crowded swarm, N = 65,536), the window-separation
    kernel against its own, bit for bit, at eleven (W = 600, 1,500 and 3,000,
    every shift near, 90% and all dead, W = 40, a partial warp), the hashgrid
-   slot kernel at four (R = 1, R = 2, past the cap, a stale skinned plan)
-   and the candidate kernel at four (skin 0, stale, after partial
-   refreshes, truncated tables); the fused PSO kernel at N not a multiple
+   slot kernel at six (R = 1, R = 2, past the cap, a stale skinned plan,
+   crowds past the rescue budget at R = 1 and 2) and the candidate kernel
+   at five (skin 0, stale, after partial refreshes, truncated tables,
+   cells of more than 32 receivers); the fused PSO kernel at N not a multiple
    of its block, D = 1, 8, 30 and 100, one step and eight, uniforms handed
    in and drawn in the kernel, with and without the best candidate, every
    objective at least once, and the island kernel at 3 ragged islands;
@@ -77,21 +81,34 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
 7. full width, "hashgrid": the JAX package's bounded-arena rows
    (benchmarks/bench_swarm_tpu.py:43 and :49, 65,536 agents spawned in
    +-250 m on the torus [-256, 256)^2, cap 16, rescue budget 1024, no
-   formation), each for 1,000 ticks with the leader killed after tick 500:
+   formation), each for 1,000 ticks with the leader killed after tick 500,
+   every full chunk of ``HASHGRID_CHUNK`` ticks replayed from one captured
+   CUDA graph (the span before the kill pays the capture, the span after
+   replays it alone):
    (a) station keeping (every agent holds its spawn position) through
-   ``VectorSwarm``, with a ``torch.profiler`` trace of 16 more ticks and
-   the plan build's share of the tick (its own events and trace);
+   ``VectorSwarm``, with a ``torch.profiler`` trace of two more replayed
+   chunks and the plan build's share of the tick (its own events and
+   trace);
    (b) converging on [50, 0], which crowds cells past the cap, so the
-   final state must show ``cap_overflow > 0`` and the rescue engaged;
+   final state must show ``cap_overflow > 0`` and the rescue engaged for
+   the whole budget;
    (c) the fast-mover regime of benchmarks/decompose_rebuild.py:222-233
    (``max_speed=5``, the candidates kernel on a Verlet plan, skin 1.5, cap
-   24, neighbor cap 48, the partial refresh) through ``swarm_rollout(...,
-   return_plan=True)`` from the station scenario settled for 48 ticks,
-   reporting the plan's rebuilds, rows rebuilt and cap overflow.  Each run
-   must launch its kernel once per tick and no other kernel, and the
-   leader must go 65535 -> 65534.  Then the slot kernel (at the station
-   and converge final states) and the candidate kernel (at its final
-   state) are held against their plain versions and timed beside them.
+   24, neighbor cap 48, the partial refresh decided on the device, one
+   flag read a chunk) through ``swarm_rollout(..., return_plan=True)``
+   from the station scenario settled for 48 ticks, reporting the plan's
+   rebuilds, rows rebuilt, cap overflow and the chunks rerun eagerly,
+   with a trace of two more replayed chunks; the station's and the fast
+   movers' capture is also timed alone in the warm process
+   (``hashgrid_capture``).  Each run must launch its
+   kernel once per tick and no other kernel, and the leader must go
+   65535 -> 65534.  Then the slot kernel, its rescue included (at the
+   station and converge final states), and the candidate kernel (at its
+   final state, bit for bit) are held against their plain versions and
+   timed beside them, back to back and from a CUDA graph (the slot kernel
+   also without its rescue, and with its operands' gather: the whole
+   function), with their bounds and their issue floors from the census
+   of phase 2 (``grid_issue_floor``, ``candidate_issue_floor``).
 
 8. full width, PSO: the JAX package's headline run (bench.py:27-29,158),
    ``PSO("rastrigin", n=1_048_576, dim=30, steps_per_kernel=64)`` for 2,560
@@ -484,6 +501,10 @@ WOA_MAIN = "woa_sorted_kernelILi2ELi1ELb0E"
 # kept for halos past the shared-memory budget, is its second variant).
 SHADE_MAIN = "shade_staged_kernelILi2ELi1ELb0E"
 WINDOW_MAIN = "window_staged_kernel"
+# The main kernels of the redesigned B2 (R = 1, the 3x3 stencil of every
+# hashgrid run here) and B3.
+GRID_MAIN = "grid_sweep_kernelILi1E"
+CAND_MAIN = "candidate_sweep_kernel"
 # The redesigns with a second variant, a pair at a time: (family, source,
 # main kernel); the second variants (the first versions, kept) and the
 # geometry functions that reach them.
@@ -497,7 +518,9 @@ REDESIGNED = ((("de", "de_fused", DE_MAIN),
               (("salp", "salp_fused", SALP_MAIN),
                ("woa", "woa_fused", WOA_MAIN)),
               (("shade", "shade_fused", SHADE_MAIN),
-               ("window", "window_separation", WINDOW_MAIN)))
+               ("window", "window_separation", WINDOW_MAIN)),
+              (("grid", "grid_separation", GRID_MAIN),
+               ("cand", "candidate_sweep", CAND_MAIN)))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
                    "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
                    "pt": "pt_cand_tile_kernel",
@@ -977,39 +1000,40 @@ def hashgrid_swarm(n, seed, hw, crowd, dev, dead=0.1):
     return (torch.from_numpy(pos).to(dev), torch.from_numpy(alive).to(dev))
 
 
-def compare_grid_sweep(grid, pos, plan, label):
-    """Hold the slot kernel against its plain version on the planes of
-    ``plan`` at ``pos``.  Returns (record, sweep args)."""
+def compare_grid_sweep(grid, pos, plan, budget, label):
+    """Hold the slot kernel (its rescue included) against its plain version
+    on the operands of ``plan`` at ``pos``.  Returns (record, sweep
+    args)."""
     g, k = plan.g, plan.max_per_cell
     r = grid._stencil_radius(plan.cell_eff, R + plan.skin)
-    x, y, slot = grid.slot_planes(pos, plan)
-    args = (x, y, slot, g, k, r, K_SEP, R, EPS, plan.torus_hw)
+    ops = grid.sweep_operands(pos, plan)
+    args = (ops, g, k, r, budget, K_SEP, R, EPS, plan.torus_hw)
     before = grid.LAUNCHES
-    fx, fy = grid.grid_sweep_cuda(*args)
+    got = grid.grid_sweep_cuda(*args)
     torch.cuda.synchronize()
     check(grid.LAUNCHES == before + 1, f"{label}: launch not counted")
-    px, py = grid.grid_sweep_plain(*args)
-    sx, sy = grid.grid_sweep_plain(*args, absolute=True)
-    err = torch.maximum((fx - px).abs(), (fy - py).abs())
-    ratio = float(torch.maximum((fx - px).abs() / (REL_BAND * sx + ABS_BAND),
-                                (fy - py).abs() / (REL_BAND * sy + ABS_BAND)
-                                ).max())
+    want = grid.grid_sweep_plain(*args)
+    scale = grid.grid_sweep_plain(*args, absolute=True)
+    err = (got - want).abs()
+    ratio = float((err / (REL_BAND * scale + ABS_BAND)).max())
+    in_grid, rescued = grid._receivers(ops, g, k, budget)
+    seen = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
+    seen[ops.order[in_grid | rescued].long()] = True
     out = dict(
         phase="kernel_vs_plain", kernel="grid_separation", shape=label,
-        g=g, K=k, R=r, in_grid=int(plan.ok.sum()),
-        cap_overflow=int(plan.cap_overflow),
+        g=g, K=k, R=r, budget=budget, in_grid=int(in_grid.sum()),
+        rescued=int(rescued.sum()), cap_overflow=int(plan.cap_overflow),
         max_abs_err=float(err.max()),
-        bitwise_equal=bool(torch.equal(fx, px) and torch.equal(fy, py)),
-        max_abs_force=float(torch.maximum(px.abs(), py.abs()).max()),
+        bitwise_equal=bool(torch.equal(got, want)),
+        max_abs_force=float(want.abs().max()),
         band=f"|kernel-plain| <= {REL_BAND}*sum|terms| + {ABS_BAND}",
         worst_share_of_band=ratio,
     )
     record(**out)
-    check(bool(torch.isfinite(fx).all() and torch.isfinite(fy).all()),
-          f"{label}: non-finite force")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite force")
     check(ratio <= 1.0, f"{label}: kernel outside its band of plain")
-    check(bool((fx[x == grid.SENTINEL] == 0).all()),
-          f"{label}: an empty slot got force")
+    check(bool((got[~seen] == 0).all()),
+          f"{label}: an agent outside the grid and the rescue got force")
     return out, args
 
 
@@ -1048,11 +1072,13 @@ def compare_candidates(cand, pos, plan, label):
 def hashgrid_small_shapes(hp, grid, cand, dev):
     """Phase 3's hashgrid part: each kernel against its plain version."""
     hw = 16.0
-    for label, cell, k, crowd, skin in (
-        ("n=600 R=1", 2.0, 8, 0, 0.0), ("n=600 R=2 half cells", 1.0, 8, 0,
-                                        0.0),
-        ("n=600 R=1, 40 past the cap", 2.0, 8, 40, 0.0),
-        ("n=600 stale plan, skin 0.5", 1.5, 16, 0, 0.5),
+    for label, cell, k, crowd, skin, budget in (
+        ("n=600 R=1", 2.0, 8, 0, 0.0, 64),
+        ("n=600 R=2 half cells", 1.0, 8, 0, 0.0, 64),
+        ("n=600 R=1, 40 past the cap", 2.0, 8, 40, 0.0, 64),
+        ("n=600 stale plan, skin 0.5", 1.5, 16, 0, 0.5, 64),
+        ("n=600 R=1, 150 crowded past the budget", 2.0, 8, 150, 0.0, 16),
+        ("n=600 R=2, 150 crowded past the budget", 1.0, 8, 150, 0.0, 16),
     ):
         pos, alive = hashgrid_swarm(600, 3, hw, crowd, dev)
         g = (int(2 * hw / (cell + skin)) // 16) * 16
@@ -1061,12 +1087,14 @@ def hashgrid_small_shapes(hp, grid, cand, dev):
             gen = torch.Generator(device=dev).manual_seed(0)
             pos = pos + 0.34 * (torch.rand(pos.shape, generator=gen,
                                            device=dev) - 0.5)
-        compare_grid_sweep(grid, pos, plan, label)
+        compare_grid_sweep(grid, pos, plan, budget, label)
     for label, crowd, k, skin, w, rk, refreshes in (
         ("n=800 skin 0", 0, 24, 0.0, 128, 48, 0),
         ("n=800 stale plan, skin 0.5", 0, 24, 0.5, 128, 48, 0),
         ("n=800 after 3 partial refreshes", 0, 24, 0.5, 128, 48, 3),
         ("n=800, truncated rows and receivers", 60, 8, 0.0, 32, 8, 0),
+        ("n=800, cells of more than 32 receivers", 150, 64, 0.0, 384, 96,
+         0),
     ):
         pos, alive = hashgrid_swarm(800, 5, hw, crowd, dev)
         g = int(2 * hw / (2.0 + skin))
@@ -1084,47 +1112,96 @@ def hashgrid_small_shapes(hp, grid, cand, dev):
         compare_candidates(cand, pos, plan, label)
 
 
-def stencil_tests(plan, counts, r):
-    """Tested (receiver, partner) pairs an exact slot sweep needs: for each
-    in-grid agent, the in-grid agents of its (2R+1)^2 stencil cells other
-    than itself."""
-    g, k = plan.g, plan.max_per_cell
-    occ = counts.clamp(max=k).reshape(g, g)
-    around = torch.zeros_like(occ)
-    for dr in range(-r, r + 1):
-        for dc in range(-r, r + 1):
-            around += torch.roll(occ, (dr, dc), (0, 1))
-    return int((occ * (around - 1)).sum())
+def grid_bound_ms(grid, args):
+    """Least time for one slot-kernel call: the sorted positions, keys,
+    ranks and order, the two cell tables read once and the force written
+    once (bytes), against each pair the sweep tests (two differences, two
+    wraps, a product, a multiply-add, the cut: 8 operations) and each near
+    pair's force (the clamp, rsqrt, three products, two products and two
+    sums: 9).  Also the first version's bound, its slot planes (four g*g*K
+    planes and the slot index) in place of the operands.  Returns (ms, by,
+    tests, near, planes' ms)."""
+    ops, g, k, r, budget = args[:5]
+    n = ops.spos.shape[0]
+    in_grid, rescued = grid._receivers(ops, g, k, budget)
+    recv = torch.nonzero(in_grid | rescued).flatten()
+    tx, ty = grid._sweep_terms(ops, *args[1:4], *args[5:], recv)
+    _, pairs, rx, ry = grid._overflow_rescue_local(ops, *args[1:], recv,
+                                                   in_grid)
+    cells = grid._stencil_cells(ops.skey[recv].long(), g, r)
+    cnt = (ops.bounds[cells + 1] - ops.bounds[cells]).clamp(max=k)
+    tests = int(cnt.sum() - in_grid.sum()) + int(pairs.sum())
+    near = int(((tx != 0) | (ty != 0)).sum() + ((rx != 0) | (ry != 0)).sum())
+    ops_count = tests * 8 + near * 9
+    nbytes = 8 * n + 3 * 4 * n + 4 * (2 * g * g + 1) + 8 * n
+    planes = (4 * g * g * k * 4 + 4 * n) / PEAK_HBM_BYTES
+    by_ops, by_bytes = ops_count / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes", tests, near,
+            1e3 * planes)
 
 
-def grid_bound_ms(grid, nb, plan, args):
-    """Least time for one slot-kernel call: the planes read and the force
-    planes written once, the slot index read once (bytes), against each
-    needed pair test (two differences, two wraps, a product, a
-    multiply-add, the cut: 8 operations) and each near pair's force (the
-    clamp, rsqrt, three products, two products and two sums: 9)."""
-    x, _, slot = args[:3]
-    counts = nb.cell_counts(plan.key, plan.g * plan.g)
-    tests = stencil_tests(plan, counts, args[5])
-    _, tx, ty = grid._sweep_terms(*args)
-    near = int(((tx != 0) | (ty != 0)).sum())
-    ops = tests * 8 + near * 9
-    nbytes = 4 * x.numel() * 4 + 4 * slot.numel()
-    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(by_ops, by_bytes), (
-        "operations" if by_ops >= by_bytes else "bytes"), tests, near
+def warp_max(values, warp, n_warps):
+    """[n_warps] the most of ``values`` (int64) over each warp's lanes."""
+    out = torch.zeros(n_warps, dtype=torch.int64, device=values.device)
+    return out.scatter_reduce(0, warp, values, reduce="amax")
 
 
-def candidate_bound_ms(cand, pos, plan):
-    """Least time for one candidate-kernel call: the tables and positions
-    read and the force written once (bytes), against each (receiver,
-    candidate) test (two differences, two wraps, a product, a multiply-add,
-    the square root, the cut: 9 operations) and each near pair's force
-    (the clamp, two products, a division, two products, two sums: 8)."""
+def issue_rate(clock_mhz):
+    """Warp-instructions a millisecond: 132 SMs x 4 schedulers at the max
+    SM clock."""
+    return H100_SMS * 4 * clock_mhz * 1e3
+
+
+def grid_issue_floor(grid, census, args, clock_mhz):
+    """B2's issue floor from its SASS census (``grid_sweep_kernel<1>``):
+    each warp of 32 sorted agents issues the body outside its loops once,
+    each stencil cell's pass-1 loop (four partners a trip) as many times as
+    its lane with the most in-grid partners there needs, and pass 2's loops
+    likewise over the rescued runs of the crowded cells.  None where the
+    census does not show the 9 + 2 loops expected."""
+    ops, g, k, r, budget = args[:5]
+    loops = sorted(census.get("loops") or [], key=lambda lp: lp[0])
+    cells_n = (2 * r + 1) ** 2
+    if r != 1 or len(loops) != cells_n + 2:
+        return None
+    pass1 = [lp[2] for lp in loops[:cells_n]]
+    outer2, inner2 = max(loops[cells_n:], key=lambda lp: lp[2]), min(
+        loops[cells_n:], key=lambda lp: lp[2])
+    outside = body_instructions(census) - sum(pass1) - outer2[2]
+    n = ops.spos.shape[0]
+    n_warps = (n + 31) // 32
+    in_grid, rescued = grid._receivers(ops, g, k, budget)
+    seen = in_grid | rescued
+    key = ops.skey.clamp(max=g * g - 1).long()
+    cells = grid._stencil_cells(key, g, r)                      # [N, 9]
+    cnt = ops.bounds[cells + 1] - ops.bounds[cells]
+    trips1 = torch.where(seen[:, None], (cnt.clamp(max=k) + 3) // 4, 0)
+    nres = torch.minimum(cnt - k, budget - ops.ovf_before[cells]).clamp(
+        min=0)
+    crowded = seen[:, None] & (cnt > k)
+    trips2 = torch.where(crowded, (nres + 3) // 4, 0)
+    warp = torch.arange(n, device=cnt.device) // 32
+    instr = int(warp_max(seen.long(), warp, n_warps).sum()) * outside
+    for t in range(cells_n):
+        instr += int(warp_max(trips1[:, t].long(), warp, n_warps).sum()
+                     ) * pass1[t]
+        instr += int(warp_max(trips2[:, t].long(), warp, n_warps).sum()
+                     ) * inner2[2]
+        instr += int(warp_max(crowded[:, t].long(), warp, n_warps).sum()
+                     ) * (outer2[2] - inner2[2])
+    return dict(outside=outside, pass1_loops=pass1,
+                pass2_loops=[outer2[2], inner2[2]],
+                warp_instructions=instr,
+                issue_floor_ms=instr / issue_rate(clock_mhz))
+
+
+def candidate_work(cand, pos, plan):
+    """Per receiver slot of the tables (cell, valid candidates, near pairs)
+    and the totals (tests, near pairs, valid entries)."""
     n = pos.shape[0]
     valid_c = (plan.cand < n).sum(1)
     valid_r = (plan.recv < n).sum(1)
-    tests = int((valid_r * (valid_c - 1).clamp(min=0)).sum())
     agents = plan.recv.reshape(-1)
     cells = torch.arange(plan.recv.shape[0], device=pos.device
                          ).repeat_interleave(plan.recv.shape[1])
@@ -1134,13 +1211,104 @@ def candidate_bound_ms(cand, pos, plan):
     d = pos[agents[keep].long()][:, None, :] - npos
     d = torch.where(d >= plan.torus_hw, d - 2 * plan.torus_hw,
                     torch.where(d < -plan.torus_hw, d + 2 * plan.torus_hw, d))
-    near = int(((rows < n) & (d.norm(dim=-1) < R)
-                & (rows != agents[keep][:, None])).sum())
-    ops = tests * 9 + near * 8
-    nbytes = (4 * (plan.cand.numel() + plan.recv.numel()) + 8 * n + 8 * n)
+    near = ((rows < n) & (d.norm(dim=-1) < R)
+            & (rows != agents[keep][:, None])).sum(1)
+    tests = int((valid_r * (valid_c - 1).clamp(min=0)).sum())
+    entries = int(valid_c[valid_r > 0].sum() + valid_r.sum())
+    return cells[keep], valid_c, valid_r, near, tests, int(near.sum()), \
+        entries
+
+
+def candidate_bound_ms(cand, pos, plan):
+    """Least time for one candidate-kernel call: the valid entries of the
+    tables that this data needs (the candidate rows of cells with
+    receivers, the receivers), the positions read and the force written
+    once (bytes), against each (receiver, candidate) test (two
+    differences, two wraps, a product, a multiply-add, the cut: 8
+    operations; the square root of the first version's test is no longer
+    needed) and each near pair's force (the square root, the clamp, two
+    products, a division, two products, two sums: 9).  Also the first
+    version's bound, the whole padded tables once.  Returns (ms, by,
+    tests, near, tables' ms)."""
+    n = pos.shape[0]
+    _, _, _, _, tests, near, entries = candidate_work(cand, pos, plan)
+    ops = tests * 8 + near * 9
+    nbytes = 4 * entries + 8 * n + 8 * n
+    tables = (4 * (plan.cand.numel() + plan.recv.numel()) + 16 * n
+              ) / PEAK_HBM_BYTES
     by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(by_ops, by_bytes), (
-        "operations" if by_ops >= by_bytes else "bytes"), tests, near
+        "operations" if by_ops >= by_bytes else "bytes"), tests, near, \
+        1e3 * tables
+
+
+def candidate_issue_floor(cand, census, pos, plan, clock_mhz):
+    """B3's issue floor from its SASS census: each warp (a block of G
+    cells) issues the body outside its loops once, and per round of 32
+    receivers its sweep: the test loop (four candidates a trip) as often
+    as its lane with the most candidates needs, the near loop as often as
+    its lane with the most near pairs.  None where the census does not
+    show the sweep's two innermost loops."""
+    loops = sorted(census.get("loops") or [], key=lambda lp: lp[0])
+    if not loops:
+        return None
+    outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inside = [lp for lp in loops if outer[0] <= lp[0] and lp[1] <= outer[1]
+              and lp is not outer]
+    innermost = [lp for lp in inside if not any(
+        o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in inside)]
+    if len(innermost) != 2:
+        return None
+    test, near_loop = innermost
+    seg = [lp for lp in inside if lp not in innermost]
+    seg_len = seg[0][2] if seg else test[2] + near_loop[2]
+    outside = body_instructions(census) - sum(lp[2] for lp in loops
+                                              if lp[1] < outer[0]
+                                              or lp[0] > outer[1]) - outer[2]
+    G = cand.cells_per_warp(plan.cand.shape[1])
+    cells, valid_c, valid_r, near, _, _, _ = candidate_work(cand, pos, plan)
+    m = valid_c[cells]
+    warp = cells // G
+    # A receiver's place in its warp's flattened list: the receivers of
+    # the warp's earlier cells, then its slot in its own cell.
+    first_cell = warp * G
+    before = torch.cumsum(valid_r, 0) - valid_r
+    slot = torch.arange(cells.shape[0], device=pos.device) - (
+        torch.cumsum(valid_r, 0)[cells] - valid_r[cells])
+    place = before[cells] - before[first_cell] + slot
+    n_warps = (plan.cand.shape[0] + G - 1) // G
+    rounds = int(place.max()) // 32 + 1
+    key = warp * rounds + place // 32
+    trips = warp_max(((m + 3) // 4).long(), key, n_warps * rounds)
+    nears = warp_max(near.long(), key, n_warps * rounds)
+    busy = warp_max(torch.ones_like(key), key, n_warps * rounds)
+    warps_busy = int(warp_max(torch.ones_like(warp), warp, n_warps).sum())
+    instr = (warps_busy * outside + int(busy.sum()) * (
+        outer[2] - seg_len + seg_len - test[2] - near_loop[2])
+        + int(trips.sum()) * test[2] + int(nears.sum()) * near_loop[2])
+    return dict(outside=outside, test_loop=test[2], near_loop=near_loop[2],
+                round_overhead=outer[2] - test[2] - near_loop[2],
+                warp_instructions=instr,
+                issue_floor_ms=instr / issue_rate(clock_mhz))
+
+
+def capture_cost_ms(dsa, swm, state, cfg, chunk):
+    """(ms of a rollout of one chunk that captures it, ms of the same
+    rollout replaying the kept capture) in this warm process: their
+    difference is the capture's own cost, apart from a process's
+    first-use costs."""
+    def once():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        dsa.swarm_rollout(state, None, cfg, chunk)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    swm._chunk = None
+    return once(), once()
 
 
 def hashgrid_launch_check(launches, kernel, ticks):
@@ -4143,13 +4311,20 @@ def main():
     del sw, state, pos, alive
 
     # 7. the main path at full width, "hashgrid" ----------------------------
+    # Each rollout replays chunks of HASHGRID_CHUNK ticks from one captured
+    # CUDA graph: the span before the kill pays the capture, the span
+    # after it replays the kept capture alone.
+    from distributed_swarm_algorithm_tpu_torch.models import swarm as swm
+    chunk = swm.HASHGRID_CHUNK
     hg = {}
     for name, station in (("station", True), ("converge", False)):
         hcfg = dsa.DEFAULT_CONFIG.replace(**HG_BASE)
+        budget = hcfg.hashgrid_overflow_budget
         sw, launches, leaders, spans = run_hashgrid(dsa, kernels, hcfg,
                                                     station)
         total_ms = sum(spans)
         ms_per_tick = total_ms / HG_TICKS
+        replay_ms = spans[1] / (HG_TICKS - HG_KILL_AFTER)
         state = sw.state
         plan = dsa.build_tick_plan(state, hcfg)
         live_over = int(plan.cap_overflow)
@@ -4158,78 +4333,131 @@ def main():
             separation_mode="hashgrid", hashgrid_kernel="slots",
             scenario=name, leaders=leaders, launches=launches,
             ms_per_tick=ms_per_tick,
-            ms_per_tick_after_kill=spans[1] / (HG_TICKS - HG_KILL_AFTER),
+            ms_per_tick_capture_span=spans[0] / HG_KILL_AFTER,
+            ms_per_tick_after_kill=replay_ms, chunk_ticks=chunk,
             agent_steps_per_sec=HG_N * HG_TICKS / (total_ms / 1e3),
             tasks_awarded=int((state.task_winner >= 0).sum()),
             final_cap_overflow=live_over,
-            final_rescued=min(live_over, hcfg.hashgrid_overflow_budget),
+            final_rescued=min(live_over, budget),
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         )
         hashgrid_launch_check(launches, "grid_separation", HG_TICKS)
         if station:
-            busy_ms, per_tick, top = device_breakdown(sw, 16)
+            # Two replayed chunks.
+            busy_ms, per_tick, top = device_breakdown(sw, 2 * chunk)
             record(phase="hashgrid_tick_breakdown", agents=HG_N,
-                   scenario=name, profiled_ticks=16,
-                   ms_per_tick=ms_per_tick, device_busy_ms_per_tick=busy_ms,
+                   scenario=name, profiled_ticks=2 * chunk,
+                   ms_per_tick=ms_per_tick, ms_per_tick_replay_span=replay_ms,
+                   device_busy_ms_per_tick=busy_ms,
                    device_idle_share=(None if busy_ms is None
                                       else 1.0 - busy_ms / ms_per_tick),
+                   device_idle_share_replay_span=(
+                       None if busy_ms is None
+                       else 1.0 - busy_ms / replay_ms),
                    device_ops_per_tick=per_tick, top_device_ops=top, smi=smi)
             state = sw.state
             plan_build_share(dsa, state, hcfg, ms_per_tick, busy_ms, per_tick,
                              smi)
+            cap_ms, rep_ms = capture_cost_ms(dsa, swm, state, hcfg, chunk)
+            record(phase="hashgrid_capture", scenario=name, chunk_ticks=chunk,
+                   capture_and_replay_ms=cap_ms, replay_ms=rep_ms,
+                   capture_ms=cap_ms - rep_ms, smi=smi)
             plan = dsa.build_tick_plan(state, hcfg)
         else:
             check(live_over > 0, "the converge run shows no cap overflow")
-        cmp, args = compare_grid_sweep(grid, state.pos, plan,
+        cmp, args = compare_grid_sweep(grid, state.pos, plan, budget,
                                        f"main path, {name} final state")
+        if not station:
+            check(cmp["rescued"] == min(live_over, budget),
+                  "the converge state's rescue is not engaged in full")
+        pos_f = state.pos
         ms = cuda_ms(lambda: grid.grid_sweep_cuda(*args), 50)
-        plain_ms = cuda_ms(lambda: grid.grid_sweep_plain(*args), 5)
-        bound_ms, bound_by, tests, near = grid_bound_ms(grid, nb, plan, args)
-        hg[name] = dict(launches=launches["grid_separation"], cmp=cmp, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+        g_ms = graph_ms(lambda: grid.grid_sweep_cuda(*args), 50)
+        no_rescue = args[:4] + (0,) + args[5:]
+        g_no_rescue = graph_ms(lambda: grid.grid_sweep_cuda(*no_rescue), 50)
+        whole_ms = graph_ms(lambda: grid.grid_sweep_cuda(
+            grid.sweep_operands(pos_f, plan), *args[1:]), 50)
+        plain_ms = cuda_ms(lambda: grid.grid_sweep_plain(*args), 3,
+                           warmup=False)
+        bound_ms, bound_by, tests, near, planes_ms = grid_bound_ms(grid, args)
+        floor = grid_issue_floor(grid, census["grid"], args,
+                                 census["clock_mhz"])
+        hg[name] = dict(launches=launches["grid_separation"], cmp=cmp,
+                        ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
         record(phase="grid_separation_timing", scenario=name,
-               planes=[plan.g, plan.g, plan.max_per_cell], kernel_ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               pair_tests=tests, near_pairs=near,
-               kernel_share_of_tick=ms / ms_per_tick, smi=smi,
+               grid=[plan.g, plan.g, plan.max_per_cell], kernel_ms=ms,
+               kernel_graph_ms=g_ms, kernel_graph_ms_budget_0=g_no_rescue,
+               rescue_device_ms=g_ms - g_no_rescue,
+               whole_function_graph_ms=whole_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               planes_bound_ms=planes_ms, pair_tests=tests, near_pairs=near,
+               issue_floor=floor, ptxas=census.get("grid_ptxas"),
+               kernel_share_of_replayed_tick=g_ms / replay_ms, smi=smi,
                seconds_so_far=time.perf_counter() - t_start)
-        del sw, state, plan, args
+        del sw, state, plan, args, no_rescue, pos_f
 
     fcfg = dsa.DEFAULT_CONFIG.replace(**dict(HG_BASE, **HG_FAST))
     settle = dsa.DEFAULT_CONFIG.replace(**HG_BASE, max_speed=5.0)
+    swm.CHUNKS_RERUN = 0
     state, plan, launches, leaders, spans, counters = run_fast_movers(
         dsa, kernels, settle, fcfg)
     total_ms = sum(spans)
     ms_per_tick = total_ms / HG_TICKS
+    replay_ms = spans[1] / (HG_TICKS - HG_KILL_AFTER)
     record(
         phase="full_width", agents=HG_N, ticks=HG_TICKS,
         separation_mode="hashgrid", hashgrid_kernel="candidates",
         scenario="fast movers, partial refresh", leaders=leaders,
         launches=launches, ms_per_tick=ms_per_tick,
-        ms_per_tick_after_kill=spans[1] / (HG_TICKS - HG_KILL_AFTER),
+        ms_per_tick_capture_span=spans[0] / HG_KILL_AFTER,
+        ms_per_tick_after_kill=replay_ms, chunk_ticks=chunk,
+        chunks_rerun=swm.CHUNKS_RERUN,
         agent_steps_per_sec=HG_N * HG_TICKS / (total_ms / 1e3),
         plan_counters_per_half=counters,
         table_shapes=dict(g=plan.g, W=plan.cand.shape[1],
                           RK=plan.recv.shape[1]),
     )
     hashgrid_launch_check(launches, "candidate_sweep", HG_TICKS)
+    cand_launches = launches["candidate_sweep"]
+    # Two replayed chunks of the fast movers, beside the station's trace.
+    busy_ms, per_tick, top = device_time(
+        lambda: dsa.swarm_rollout(state, None, fcfg, 2 * chunk), 2 * chunk)
+    record(phase="hashgrid_tick_breakdown", agents=HG_N,
+           scenario="fast movers, partial refresh", profiled_ticks=2 * chunk,
+           ms_per_tick=ms_per_tick, ms_per_tick_replay_span=replay_ms,
+           device_busy_ms_per_tick=busy_ms,
+           device_idle_share_replay_span=(None if busy_ms is None
+                                          else 1.0 - busy_ms / replay_ms),
+           device_ops_per_tick=per_tick, top_device_ops=top, smi=smi)
+    cap_ms, rep_ms = capture_cost_ms(dsa, swm, state, fcfg, chunk)
+    record(phase="hashgrid_capture", scenario="fast movers", chunk_ticks=chunk,
+           capture_and_replay_ms=cap_ms, replay_ms=rep_ms,
+           capture_ms=cap_ms - rep_ms, smi=smi)
     plan = hp.refresh_plan_partial(state.pos, state.alive, plan)
     cand_cmp = compare_candidates(cand, state.pos, plan,
                                   "main path, fast-mover final state")
+    check(cand_cmp["bitwise_equal"],
+          "the candidate kernel differs from its plain version")
     args = (state.pos, plan.cand, plan.recv, K_SEP, R, EPS, plan.torus_hw)
-    cand_ms = cuda_ms(lambda: cand.candidate_sweep_cuda(*args), 50)
+    cand_b2b_ms = cuda_ms(lambda: cand.candidate_sweep_cuda(*args), 50)
+    cand_ms = graph_ms(lambda: cand.candidate_sweep_cuda(*args), 50)
     cand_plain_ms = cuda_ms(lambda: cand.candidate_sweep_plain(*args), 5)
-    cand_bound_ms, cand_bound_by, tests, near = candidate_bound_ms(
+    cand_bound_ms, cand_bound_by, tests, near, tables_ms = candidate_bound_ms(
         cand, state.pos, plan)
+    cand_floor = candidate_issue_floor(cand, census["cand"], state.pos, plan,
+                                       census["clock_mhz"])
     record(phase="candidate_sweep_timing", tables=[plan.g * plan.g,
                                                    plan.cand.shape[1],
                                                    plan.recv.shape[1]],
-           kernel_ms=cand_ms, plain_ms=cand_plain_ms, bound_ms=cand_bound_ms,
-           bound_by=cand_bound_by, pair_tests=tests, near_pairs=near,
-           kernel_share_of_tick=cand_ms / ms_per_tick, smi=smi,
+           kernel_ms=cand_b2b_ms, kernel_graph_ms=cand_ms,
+           plain_ms=cand_plain_ms, bound_ms=cand_bound_ms,
+           bound_by=cand_bound_by, tables_bound_ms=tables_ms,
+           pair_tests=tests, near_pairs=near,
+           cells_per_warp=cand.cells_per_warp(plan.cand.shape[1]),
+           issue_floor=cand_floor, ptxas=census.get("cand_ptxas"),
+           kernel_share_of_replayed_tick=cand_ms / replay_ms, smi=smi,
            seconds_so_far=time.perf_counter() - t_start)
-    cand_launches = launches["candidate_sweep"]
     station = hg["station"]
 
     del state, plan, args
@@ -4479,6 +4707,7 @@ def main():
             "launches": station["launches"],
             "max_abs_err": station["cmp"]["max_abs_err"],
             "ms": station["ms"],
+            "graph_ms": station["graph_ms"],
             "plain_ms": station["plain_ms"],
             "bound_ms": station["bound_ms"],
             "bound_by": station["bound_by"],
@@ -4493,7 +4722,8 @@ def main():
                         "candidate_sweep.py:157",
             "launches": cand_launches,
             "max_abs_err": cand_cmp["max_abs_err"],
-            "ms": cand_ms,
+            "ms": cand_b2b_ms,
+            "graph_ms": cand_ms,
             "plain_ms": cand_plain_ms,
             "bound_ms": cand_bound_ms,
             "bound_by": cand_bound_by,

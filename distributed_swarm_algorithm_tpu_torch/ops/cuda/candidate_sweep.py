@@ -13,7 +13,9 @@ each receiver ``a = recv[c, r] < n``:
 with the select-form minimum image, at the CURRENT positions, so a stale
 plan stays exact within its Verlet window.  A live agent sits in at most
 one receiver slot; agents in none (dead, or past ``RK`` in a crowded cell)
-get zero force.
+get zero force.  Every row of both tables is a prefix of valid entries
+followed by padding, as the plan builds them; the kernel reads a row only
+up to its first padded chunk of 32.
 
 - :func:`candidate_sweep_cuda` launches the hand-written CUDA kernel
   ``csrc/candidate_sweep.cu`` on CUDA tensors and raises on anything else;
@@ -27,20 +29,34 @@ get zero force.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import neighbors as _neighbors
 from . import _build
+from .window_separation import cut_threshold
 
 # Launches of the CUDA kernel since the count was last set to 0.  Only
-# candidate_sweep_cuda adds to it, once per launch.
+# candidate_sweep_cuda adds to it, once per launch; a launch while the
+# stream captures a CUDA graph adds to _captured instead, and each replay
+# of a captured rollout adds what its capture recorded.
 LAUNCHES = 0
+_captured = 0
 
-# The kernel stages a cell's candidates (index and position, 12 bytes) in
-# shared memory, four cells a block, within the 48 KB a block may take
-# without opting in: W <= 1024.
+# The kernel stages its cells' candidates (index and position, 12 bytes)
+# in shared memory, G cells a block of one warp: G * W <= 1024 keeps a
+# block's 12 KB (19 blocks an SM), so W <= 1024.
 MAX_WIDTH = 1024
+MAX_CELLS_PER_WARP = 6       # the kernel's kMaxCells
+
+
+def cells_per_warp(width: int) -> int:
+    """G, the cells a warp of the kernel owns: 6 (about 18 receivers at
+    the fast movers' density; fewer lanes than 8 would fill, but more
+    blocks an SM), fewer for rows wider than 170 so that a warp's staging
+    stays within 12 KB."""
+    return max(1, min(MAX_CELLS_PER_WARP, MAX_WIDTH // width))
 
 _fn = None   # the C entry, bound at the first launch
 
@@ -52,12 +68,19 @@ def _kernel():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cut2(personal_space: float) -> float:
+    """The kernel's cut: d^2 < this exactly where sqrt_rn(d^2) <
+    personal_space."""
+    return cut_threshold(personal_space)
 
 
 def candidate_sweep_supported(dim, dtype, width, recv_cap,
@@ -117,9 +140,10 @@ def _check(pos, cand, recv):
 
 def candidate_sweep_cuda(pos, cand, recv, k_sep, personal_space, eps, hw):
     """Launch the CUDA kernel on ``pos`` [N, 2] f32 and the plan's tables
-    ``cand`` [C, W], ``recv`` [C, RK] int32 (padded with N), contiguous on
-    one CUDA device.  Returns the force [N, 2] without waiting."""
-    global LAUNCHES
+    ``cand`` [C, W], ``recv`` [C, RK] int32 (each row a valid prefix
+    padded with N), contiguous on one CUDA device.  Returns the force
+    [N, 2] without waiting."""
+    global LAUNCHES, _captured
     if pos.device.type != "cuda":
         raise ValueError(
             f"candidate_sweep_cuda needs CUDA tensors, got {pos.device}")
@@ -137,13 +161,17 @@ def candidate_sweep_cuda(pos, cand, recv, k_sep, personal_space, eps, hw):
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = _kernel()(
         pos.data_ptr(), cand.data_ptr(), recv.data_ptr(), out.data_ptr(),
-        n, cells, w, rk, float(k_sep), float(personal_space), float(eps),
-        float(hw), pos.device.index, stream,
+        n, cells, w, rk, cells_per_warp(w), float(k_sep),
+        _cut2(float(personal_space)), float(eps), float(hw),
+        pos.device.index, stream,
     )
     if err != 0:
         raise RuntimeError(
             f"candidate sweep kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

@@ -1,49 +1,49 @@
-"""Hashgrid separation over cell-slot planes.
+"""Hashgrid separation off the plan's cell sort, overflow rescue included.
 
 Replaces the TPU kernel ``ops/pallas/grid_separation.py:
 separation_hashgrid_pallas`` of the JAX package (its two ``pallas_call``
-sites, the whole-row and the lane-tiled kernel), the kernel path of
+sites, the whole-row and the lane-tiled slot-plane sweep, and the LOCAL
+overflow rescue that function runs after them), the kernel path of
 ``separation_mode="hashgrid"`` with ``hashgrid_kernel="slots"``.
 
-The torus ``[-hw, hw)^2`` is tiled by a ``g x g`` cell grid and every cell
-owns ``K`` slots.  Planes ``x``, ``y`` [g*g*K] hold the cell-sorted in-grid
-agents (a cell's first ``K`` live agents in sort order); empty, dead and
-capped-out slots hold the 1e18 sentinel, which fails every distance test.
-For each in-grid slot ``i`` the sweep returns
+The torus ``[-hw, hw)^2`` is tiled by a ``g x g`` cell grid.  Each cell's
+first ``K`` live agents (in the plan's sort order) are in the grid; the
+rest are capped out, and the first ``overflow_budget`` of those in sort
+order are rescued.  For each in-grid or rescued agent ``p`` the sweep
+returns
 
-    f_i = sum_j near * k_sep * rsqrt(max(d2, eps^2))^3 * (p_i - p_j)
-    near = d2 < personal_space^2, j != i in the (2R+1)^2 stencil cells
+    f_p = sum_q near * k_sep * rsqrt(max(d2, eps^2))^3 * (p_p - p_q)
+    near = d2 < personal_space^2, q != p in the (2R+1)^2 stencil cells
 
-with the select-form minimum image on both axes of the torus, ``R`` the
-stencil radius in cells (1, or 2 for half cells).
+over the in-grid agents ``q`` and then over the rescued ones, with the
+select-form minimum image on both axes, ``R`` the stencil radius in cells
+(1, or 2 for half cells).  Dead and unrescued capped-out agents get zero
+and are seen by no one.  That is the JAX function's result: its slot
+planes hold the in-grid agents, and its rescue pairs each rescued agent
+with its stencil's slots and with the other rescued agents, applying each
+reaction to the in-grid partner.  Rescued pairs are taken over the
+stencil here, where JAX takes them over all rescued pairs: the stencil
+covers the personal space (plus the plan's skin), so every near pair is
+in it, as the in-grid sweep already assumes.
 
+- :func:`sweep_operands` gathers the kernel's operands off the plan: the
+  CURRENT positions in sort order (so a stale skinned plan stays exact),
+  each cell's run in the sort (a searchsorted of the sorted keys) and the
+  capped-out agents before each cell (a cumsum);
 - :func:`grid_sweep_cuda` launches the hand-written CUDA kernel
   ``csrc/grid_separation.cu`` on CUDA tensors and raises on anything else;
-- :func:`grid_sweep_plain` is the same function in plain PyTorch;
-- :func:`separation_hashgrid` is the tick's entry: it builds the sentinel
-  planes from the plan (positions read CURRENT through ``plan.order``, so
-  a stale skinned plan stays exact), runs the sweep (the plain version on
-  a CPU tensor, the kernel on a CUDA tensor), the overflow rescue and the
-  per-agent gather as PyTorch operations around it.  Nothing falls back.
-
-Agents past rank ``K`` in their cell are dropped from the planes: they
-exert no force through the sweep and receive theirs from the LOCAL rescue
-pass (:func:`_overflow_rescue_local`, the JAX package's, as PyTorch
-operations), which pairs each of up to ``overflow_budget`` of them with its
-stencil's slots and with the other rescued agents, and applies the
-reactions.  JAX runs the rescue under ``lax.cond`` on ``any(overflow)``;
-here it always runs, which needs no read from the device: with no overflow
-every term is a masked zero, so the force is the same.
-
-Where the JAX kernel computes each pair once and applies the reaction
-(rolls that save TPU shifts), the CUDA kernel gathers each receiver's
-stencil and computes each pair from both ends: no atomics, no reaction
-planes.
+- :func:`grid_sweep_plain` is the same function in plain PyTorch, its
+  terms summed one after another in the kernel's order;
+- :func:`separation_hashgrid` is the tick's entry (the plain version on a
+  CPU tensor, the kernel on a CUDA tensor).  Nothing falls back, and
+  nothing reads the device: with no agent capped out, the rescue costs the
+  kernel one comparison a stencil cell, as ``lax.cond`` skips it in JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -52,12 +52,14 @@ from .._numerics import fma, wrap_select
 from . import _build
 
 # Launches of the CUDA kernel since the count was last set to 0.  Only
-# grid_sweep_cuda adds to it, once per launch.
+# grid_sweep_cuda adds to it, once per launch; a launch while the stream
+# captures a CUDA graph adds to _captured instead, and each replay of a
+# captured rollout adds what its capture recorded.
 LAUNCHES = 0
+_captured = 0
 
-SENTINEL = 1.0e18     # empty, dead and capped-out slot position
-# The kernel's envelope on this card (hashgrid_supported): slot indices
-# are int32 and the two planes stay under 2 GiB together.
+# The envelope on this card (hashgrid_supported), that of the JAX
+# package's slot planes: g*g*K slots indexable in int32.
 MAX_SLOTS = 1 << 28
 
 _fn = None   # the C entry, bound at the first launch
@@ -69,8 +71,10 @@ def _kernel():
         fn = _build.load("grid_separation").dsa_grid_sweep_f32
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p,
         ]
@@ -112,7 +116,7 @@ def hashgrid_supported(dim, dtype, torus_hw, cell, max_per_cell,
     float32, a grid of at least 16 cells a side in multiples of 16, cells
     at least ``personal_space / 2`` (R <= 2), ``max_per_cell >= 1`` and at
     most ``MAX_SLOTS`` slots.  The kernel keeps one receiver in registers
-    per thread and reads the stencil's slots through the cache, so neither
+    per thread and reads the stencil's runs through the cache, so neither
     shared memory nor K bounds it; the TPU kernel's VMEM model (K a
     multiple of 8 in [8, 64], the row budget, the lane-tiled R = 2 gate)
     does not apply."""
@@ -151,174 +155,218 @@ def hashgrid_backend_choice(backend, dim, dtype, torus_hw, cell,
     return supported and (backend == "pallas" or on_cuda)
 
 
-def _check_sweep_args(x, y, slot, g, k):
-    for name, t in (("x", x), ("y", y)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"grid_sweep: {name} must be float32")
-        if t.shape != (g * g * k,):
-            raise ValueError(f"grid_sweep: {name} must be [{g * g * k}]")
-    if slot.dtype != torch.int32 or slot.ndim != 1:
-        raise ValueError("grid_sweep: slot must be a 1-D int32 tensor")
-    if y.device != x.device or slot.device != x.device:
+class SweepOperands(NamedTuple):
+    """The sweep's operands off a plan (:func:`sweep_operands`)."""
+
+    spos: torch.Tensor        # [N, 2] f32 current positions in sort order
+    skey: torch.Tensor        # [N] i32 sorted cell keys, g*g when dead
+    rank: torch.Tensor        # [N] i32 rank within the cell
+    order: torch.Tensor       # [N] i32 sorted index -> agent
+    bounds: torch.Tensor      # [g*g + 1] i32 first sorted index of a cell
+    ovf_before: torch.Tensor  # [g*g] i32 capped-out agents before a cell
+
+
+def sweep_operands(pos: torch.Tensor, plan) -> SweepOperands:
+    """The operands of the sweep at ``pos`` (read through ``plan.order``,
+    not the plan's snapshot): a gather, a searchsorted and the overflow's
+    exclusive cumsum, a few small operations on the device, no scatter and
+    no wait."""
+    g2 = plan.g * plan.g
+    cells = torch.arange(g2 + 1, dtype=torch.int32, device=pos.device)
+    bounds = torch.searchsorted(plan.skey, cells, out_int32=True)
+    over = (bounds[1:] - bounds[:-1] - plan.max_per_cell).clamp(min=0)
+    ovf_before = torch.cumsum(over, 0, dtype=torch.int32) - over
+    return SweepOperands(
+        pos.index_select(0, plan.order).to(torch.float32), plan.skey,
+        plan.rank, plan.order, bounds, ovf_before)
+
+
+def _check_operands(ops: SweepOperands, g: int):
+    n = ops.spos.shape[0]
+    if ops.spos.dtype != torch.float32 or ops.spos.shape != (n, 2):
+        raise TypeError("grid_sweep: spos must be [N, 2] float32")
+    for name in ("skey", "rank", "order"):
+        t = getattr(ops, name)
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError(f"grid_sweep: {name} must be [{n}] int32")
+    for name, size in (("bounds", g * g + 1), ("ovf_before", g * g)):
+        t = getattr(ops, name)
+        if t.dtype != torch.int32 or t.shape != (size,):
+            raise ValueError(f"grid_sweep: {name} must be [{size}] int32")
+    if any(t.device != ops.spos.device for t in ops):
         raise ValueError("grid_sweep: tensors lie on different devices")
-    if not (x.is_contiguous() and y.is_contiguous() and slot.is_contiguous()):
+    if not all(t.is_contiguous() for t in ops):
         raise ValueError("grid_sweep takes contiguous tensors")
 
 
-def grid_sweep_cuda(x, y, slot, g, k, r, k_sep, personal_space, eps, hw):
-    """Launch the CUDA kernel: planes ``x``, ``y`` [g*g*K] f32 and
-    ``slot`` [N] int32 (each in-grid agent's slot, ``g*g*K`` for the
-    others), contiguous on one CUDA device.  Returns the force planes
-    (fx, fy), zero outside the in-grid slots, without waiting."""
-    global LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"grid_sweep_cuda needs CUDA tensors, got {x.device}")
-    if r not in (1, 2) or g < 2 * r + 1:
-        raise ValueError(f"grid_sweep_cuda: stencil radius {r} on g = {g}")
-    if g * g * k > MAX_SLOTS:
-        raise ValueError(f"grid_sweep_cuda: {g * g * k} slots exceed "
-                         f"{MAX_SLOTS}")
-    _check_sweep_args(x, y, slot, g, k)
-    fx, fy = torch.zeros_like(x), torch.zeros_like(y)
-    n = slot.shape[0]
+def grid_sweep_cuda(ops: SweepOperands, g, k, r, budget, k_sep,
+                    personal_space, eps, hw):
+    """Launch the CUDA kernel on ``ops`` (contiguous on one CUDA device):
+    the force [N, 2] in agent order, zero for the dead and the unrescued,
+    without waiting."""
+    global LAUNCHES, _captured
+    if ops.spos.device.type != "cuda":
+        raise ValueError(
+            f"grid_sweep_cuda needs CUDA tensors, got {ops.spos.device}")
+    if r not in (1, 2) or g < 2 * r + 1 or k < 1 or budget < 0:
+        raise ValueError(f"grid_sweep_cuda: stencil radius {r}, K = {k}, "
+                         f"budget {budget} on g = {g}")
+    _check_operands(ops, g)
+    n = ops.spos.shape[0]
+    out = torch.empty_like(ops.spos)
     if n == 0:
-        return fx, fy
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+        return out
+    dev = ops.spos.device
     err = _kernel()(
-        x.data_ptr(), y.data_ptr(), slot.data_ptr(), fx.data_ptr(),
-        fy.data_ptr(), n, g, k, r, float(k_sep),
-        float(personal_space) ** 2, float(eps) ** 2, float(hw),
-        x.device.index, stream,
+        ops.spos.data_ptr(), ops.skey.data_ptr(), ops.rank.data_ptr(),
+        ops.order.data_ptr(), ops.bounds.data_ptr(),
+        ops.ovf_before.data_ptr(), out.data_ptr(), n, g, k, r, budget,
+        float(k_sep), float(personal_space) ** 2, float(eps) ** 2,
+        float(hw), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"grid sweep kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return fx, fy
+    if torch.cuda.is_current_stream_capturing():
+        _captured += 1
+    else:
+        LAUNCHES += 1
+    return out
 
 
-def _sweep_terms(x, y, slot, g, k, r, k_sep, personal_space, eps, hw):
-    """(receiver slots [M], tx [M, S], ty [M, S]): each in-grid receiver's
-    terms from its (2R+1)^2 * K stencil slots, in the kernel's order
-    (row offset, column offset, rank)."""
-    rec = slot[slot < g * g * k].long()
-    cell = torch.div(rec, k, rounding_mode="floor")
+def _receivers(ops: SweepOperands, g, k, budget):
+    """(in_grid, rescued) [N] bool in sort order."""
+    live = ops.skey < g * g
+    cell = ops.skey.clamp(max=g * g - 1).long()
+    in_grid = live & (ops.rank < k)
+    rescued = (live & ~in_grid
+               & (ops.ovf_before[cell] + ops.rank - k < budget))
+    return in_grid, rescued
+
+
+def _stencil_cells(cell: torch.Tensor, g: int, r: int) -> torch.Tensor:
+    """[M, (2R+1)^2] int64: the stencil cells around each of ``cell``
+    (int64 keys) in ascending key order, the kernel's order."""
+    d = torch.arange(-r, r + 1, device=cell.device)
     cx = torch.div(cell, g, rounding_mode="floor")
-    cy = cell - cx * g
-    d = torch.arange(-r, r + 1, device=x.device)
-    rows = torch.remainder(cx[:, None] + d[None, :], g)          # [M, w]
-    cols = torch.remainder(cy[:, None] + d[None, :], g)
-    base = (rows[:, :, None] * g + cols[:, None, :]) * k         # [M, w, w]
-    nb = (base[..., None] + torch.arange(k, device=x.device)).reshape(
-        rec.shape[0], -1)                                        # [M, S]
-    dx = wrap_select(x[rec][:, None] - x[nb], hw)
-    dy = wrap_select(y[rec][:, None] - y[nb], hw)
-    # XLA rounds the TPU kernel's dx*dx + dy*dy as fma(dx, dx, dy*dy).
+    rows = torch.remainder(cx[:, None] + d, g).sort(1).values
+    cols = torch.remainder((cell - cx * g)[:, None] + d, g).sort(1).values
+    return (rows[:, :, None] * g + cols[:, None, :]).reshape(cell.shape[0],
+                                                            -1)
+
+
+def _pair_terms(dx, dy, near, k_sep, personal_space, eps):
+    """(tx, ty): ``k * rsqrt(max(d2, eps^2))^3 * d`` where ``near`` and
+    the cut hold, else +0; d2 rounded as the kernel (and XLA) rounds it."""
     d2 = fma(dx, dx, dy * dy)
-    near = (d2 < float(personal_space) ** 2) & (nb != rec[:, None])
+    near = near & (d2 < float(personal_space) ** 2)
     inv = torch.rsqrt(d2.clamp(min=float(eps) ** 2))
     scale = k_sep * inv * inv * inv
-    return (rec, torch.where(near, scale * dx, 0.0),
+    return (torch.where(near, scale * dx, 0.0),
             torch.where(near, scale * dy, 0.0))
 
 
-def grid_sweep_plain(x, y, slot, g, k, r, k_sep, personal_space, eps, hw,
-                     absolute=False):
+def _sweep_terms(ops: SweepOperands, g, k, r, k_sep, personal_space, eps,
+                 hw, receivers):
+    """(tx, ty) [M, (2R+1)^2 K]: pass 1, each receiver's terms from the K
+    slots of its stencil cells in the kernel's order (ascending cell key,
+    then rank), +0 where a slot is empty or the receiver itself."""
+    skey = ops.skey[receivers].long()
+    nb_cells = _stencil_cells(skey, g, r)                        # [M, C]
+    lo = ops.bounds[nb_cells]
+    cnt = (ops.bounds[nb_cells + 1] - lo).clamp(max=k)
+    slot = torch.arange(k, device=skey.device)
+    q = (lo[..., None] + slot).reshape(skey.shape[0], -1)        # [M, S]
+    valid = ((slot < cnt[..., None]).reshape(q.shape)
+             & (q != receivers[:, None]))
+    other = ops.spos[q.clamp(max=ops.spos.shape[0] - 1)]
+    me = ops.spos[receivers]
+    dx = wrap_select(me[:, 0:1] - other[..., 0], hw)
+    dy = wrap_select(me[:, 1:2] - other[..., 1], hw)
+    return _pair_terms(dx, dy, valid, k_sep, personal_space, eps)
+
+
+def _overflow_rescue_local(ops: SweepOperands, g, k, r, budget, k_sep,
+                           personal_space, eps, hw, receivers, in_grid):
+    """Pass 2, as the kernel gathers it: ``(rows, valid, tx, ty)``, where
+    ``rows`` [M2] are the receivers (indices into ``receivers``) with a
+    rescued agent in a stencil cell, and ``valid``, ``tx``, ``ty`` [M2, L]
+    their rescued partners' terms in the kernel's order: the stencil cells
+    in ascending key order, each cell's rescued run (ranks K and up, within
+    the budget) in sort order, padded with +0 and the receiver itself
+    skipped.  A rescued receiver's term is computed from its own end (the
+    rescued-vs-rescued pairs); an in-grid receiver's is the negated term
+    on the rescued partner (the reaction JAX scatters onto the partner's
+    slot: the select-form wrap is not odd at exactly +-hw).  With nothing
+    rescued near a receiver it has no row, so nothing costs more than its
+    pairs and a table of the stencil's runs."""
+    cells = _stencil_cells(ops.skey[receivers].long(), g, r)     # [M, C]
+    first = ops.bounds[cells] + k
+    runs = torch.minimum(ops.bounds[cells + 1] - first,
+                         budget - ops.ovf_before[cells]).clamp(min=0)
+    total = runs.sum(1)
+    rows = torch.nonzero(total > 0).flatten()
+    width = int(total.max()) if rows.numel() else 0
+    first, runs, p = first[rows], runs[rows], receivers[rows]
+    ends = torch.cumsum(runs, 1)                                 # [M2, C]
+    j = torch.arange(width, device=p.device).expand(rows.shape[0], width)
+    t = torch.searchsorted(ends, j.contiguous(), right=True).clamp(
+        max=cells.shape[1] - 1)
+    v = first.gather(1, t) + j - (ends - runs).gather(1, t)
+    valid = (j < total[rows][:, None]) & (v != p[:, None])
+    me = ops.spos[p][:, None, :]
+    other = ops.spos[torch.where(valid, v, p[:, None])]
+    ig = in_grid[p][:, None]
+    # wrap(v - p) for an in-grid receiver, wrap(p - v) for a rescued one.
+    d = torch.where(ig[..., None], other - me, me - other)
+    tx, ty = _pair_terms(wrap_select(d[..., 0], hw),
+                         wrap_select(d[..., 1], hw), valid, k_sep,
+                         personal_space, eps)
+    sign = torch.where(ig, -1.0, 1.0)
+    return rows, valid, sign * tx, sign * ty
+
+
+def _sequential_sum(t: torch.Tensor, acc=None) -> torch.Tensor:
+    """Row sums of ``t`` [M, C] taken one column after another, onto
+    ``acc`` [M] (or +0)."""
+    if acc is None:
+        acc = torch.zeros(t.shape[0], dtype=t.dtype, device=t.device)
+    for j in range(t.shape[1]):
+        acc = acc + t[:, j]
+    return acc
+
+
+def grid_sweep_plain(ops: SweepOperands, g, k, r, budget, k_sep,
+                     personal_space, eps, hw, absolute=False):
     """The kernel's function in plain PyTorch, on any device: the force
-    planes (fx, fy).  With ``absolute``, ``sum |term|`` per slot and axis
-    instead (the scale of the band the kernel is held to)."""
-    rec, tx, ty = _sweep_terms(x, y, slot, g, k, r, k_sep, personal_space,
-                               eps, hw)
-    if absolute:
-        tx, ty = tx.abs(), ty.abs()
-    fx, fy = torch.zeros_like(x), torch.zeros_like(y)
-    fx[rec] = tx.sum(1)
-    fy[rec] = ty.sum(1)
-    return fx, fy
+    [N, 2] in agent order, each receiver's pass-1 terms and then its
+    pass-2 terms summed one after another, as the kernel sums them.  With
+    ``absolute``, ``sum |term|`` per agent and axis instead (the scale of
+    the band the kernel is held to)."""
+    in_grid, rescued = _receivers(ops, g, k, budget)
+    receivers = torch.nonzero(in_grid | rescued).flatten()
+    t1 = _sweep_terms(ops, g, k, r, k_sep, personal_space, eps, hw,
+                      receivers)
+    rows, _, *t2 = _overflow_rescue_local(ops, g, k, r, budget, k_sep,
+                                          personal_space, eps, hw, receivers,
+                                          in_grid)
+    f = []
+    for a, b in zip(t1, t2):
+        if absolute:
+            a, b = a.abs(), b.abs()
+        acc = _sequential_sum(a)
+        acc[rows] = _sequential_sum(b, acc[rows])
+        f.append(acc)
+    out = torch.zeros_like(ops.spos)
+    out[ops.order[receivers].long()] = torch.stack(f, 1)
+    return out
 
 
-def grid_sweep(x, y, slot, g, k, r, k_sep, personal_space, eps, hw):
+def grid_sweep(ops: SweepOperands, g, k, r, budget, k_sep, personal_space,
+               eps, hw):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return grid_sweep_plain(x, y, slot, g, k, r, k_sep, personal_space,
-                                eps, hw)
-    return grid_sweep_cuda(x, y, slot, g, k, r, k_sep, personal_space, eps,
-                           hw)
-
-
-def _overflow_rescue_local(pos, alive, cx, cy, order, ok, xr, yr, fx, fy,
-                           k_sep, personal_space, eps, hw, budget, g, k, r):
-    """(fx', fy', f_v): the JAX package's LOCAL rescue.  Each of the first
-    ``budget`` capped-out live agents (in sort order) gathers its stencil's
-    plane slots and pairs with the other rescued agents; ``f_v`` [N, 2] is
-    the force on them, and the reactions on in-grid partners are added
-    into the force planes.  Symmetric: each rescued pair gives both the
-    force and the reaction."""
-    n = pos.shape[0]
-    dev = pos.device
-    order = order.long()
-    live_ovf = ~ok & alive[order]
-    ovf_rank = torch.cumsum(live_ovf, 0) - 1
-    v_slot = torch.where(live_ovf & (ovf_rank < budget), ovf_rank, budget)
-    vidx = torch.full((budget + 1,), n, dtype=torch.int64, device=dev)
-    vidx[v_slot] = order          # duplicates land on the dropped slot
-    vidx = vidx[:budget]
-    vvalid = vidx < n
-    vi = vidx.clamp(max=n - 1)
-    vpos = pos[vi]
-    w = 2 * r + 1
-    d = torch.arange(-r, r + 1, device=dev)
-    rows = torch.remainder(cx[vi].long()[:, None] + d[None, :], g)
-    cols = torch.remainder(cy[vi].long()[:, None] + d[None, :], g)
-    nb = ((rows[:, :, None] * g + cols[:, None, :]) * k)[..., None] + (
-        torch.arange(k, device=dev))
-    nb = nb.reshape(budget, w * w * k)
-    dx = wrap_select(vpos[:, 0:1] - xr[nb], hw)
-    dy = wrap_select(vpos[:, 1:2] - yr[nb], hw)
-    d2 = fma(dx, dx, dy * dy)
-    near = vvalid[:, None] & (d2 < personal_space * personal_space)
-    inv = torch.rsqrt(d2.clamp(min=eps * eps))
-    scale = k_sep * inv * inv * inv
-    cx_ = torch.where(near, scale * dx, 0.0)
-    cy_ = torch.where(near, scale * dy, 0.0)
-    # Reactions on the in-grid partners (sentinel slots get exact zeros).
-    fx = fx.index_put((nb.reshape(-1),), -cx_.reshape(-1), accumulate=True)
-    fy = fy.index_put((nb.reshape(-1),), -cy_.reshape(-1), accumulate=True)
-    # Rescued against rescued: they are in no plane, so only here.
-    dvx = wrap_select(vpos[:, 0][:, None] - vpos[:, 0][None, :], hw)
-    dvy = wrap_select(vpos[:, 1][:, None] - vpos[:, 1][None, :], hw)
-    dv2 = fma(dvx, dvx, dvy * dvy)
-    nearv = (vvalid[:, None] & vvalid[None, :]
-             & (dv2 < personal_space * personal_space)
-             & ~torch.eye(budget, dtype=torch.bool, device=dev))
-    invv = torch.rsqrt(dv2.clamp(min=eps * eps))
-    sv = k_sep * invv * invv * invv
-    f_vx = cx_.sum(1) + torch.where(nearv, sv * dvx, 0.0).sum(1)
-    f_vy = cy_.sum(1) + torch.where(nearv, sv * dvy, 0.0).sum(1)
-    f_v = torch.zeros_like(pos).index_put(
-        (vi,), torch.where(vvalid[:, None], torch.stack([f_vx, f_vy], 1),
-                           0.0), accumulate=True)
-    return fx, fy, f_v
-
-
-def slot_planes(pos: torch.Tensor, plan):
-    """(x, y, slot): the sentinel-filled position planes [g*g*K] of the
-    plan's in-grid agents at the CURRENT positions (read through
-    ``plan.order``, not the plan's snapshot), and each sorted agent's slot
-    [N] int32 (``g*g*K`` for the dead and capped-out)."""
-    k = plan.max_per_cell
-    n_slots = plan.g * plan.g * k
-    slot = torch.where(plan.ok, plan.skey * k + plan.rank, n_slots)
-    order = plan.order.long()
-
-    def plane(v):
-        # One scratch slot past the end takes the dead and capped-out.
-        p = torch.full((n_slots + 1,), SENTINEL, dtype=torch.float32,
-                       device=pos.device)
-        p[slot.long()] = v.to(torch.float32)
-        return p[:n_slots]
-
-    return plane(pos[order, 0]), plane(pos[order, 1]), slot
+    fn = grid_sweep_plain if ops.spos.device.type == "cpu" else grid_sweep_cuda
+    return fn(ops, g, k, r, budget, k_sep, personal_space, eps, hw)
 
 
 def separation_hashgrid(
@@ -336,9 +384,9 @@ def separation_hashgrid(
     """The hashgrid separation force of the slots path, [N, 2].
 
     ``cell`` is the (skin-inflated) cell the plan grid derives from;
-    ``plan`` a shared plan of the same ``(g, max_per_cell, torus_hw)``, or
-    ``None`` to build one.  The stencil radius covers ``personal_space +
-    plan.skin``."""
+    ``plan`` a shared plan of the same ``(g, max_per_cell, torus_hw)``
+    built on ``alive`` (as every tick's plan is), or ``None`` to build
+    one.  The stencil radius covers ``personal_space + plan.skin``."""
     n, d = pos.shape
     if d != 2:
         raise ValueError("hash-grid separation kernel is 2-D only")
@@ -347,9 +395,8 @@ def separation_hashgrid(
     r = _stencil_radius(cell_eff,
                         personal_space + (plan.skin if plan is not None
                                           else 0.0))
-    alive = alive.bool()
     if plan is None:
-        plan = _hp.build_hashgrid_plan(pos, alive, torus_hw,
+        plan = _hp.build_hashgrid_plan(pos, alive.bool(), torus_hw,
                                        2.0 * torus_hw / g, k, g=g)
     elif (plan.g != g or plan.max_per_cell != k
           or float(plan.torus_hw) != float(torus_hw)):
@@ -358,25 +405,10 @@ def separation_hashgrid(
             f"hw={plan.torus_hw}) does not match this call (g={g}, K={k}, "
             f"hw={torus_hw})"
         )
-    order = plan.order.long()
-    ok = plan.ok
-    xr, yr, slot = slot_planes(pos, plan)
-    fx, fy = grid_sweep(xr, yr, slot, g, k, r, k_sep, personal_space, eps,
-                        torus_hw)
-    f_v = torch.zeros_like(pos)
-    if overflow_budget > 0:
-        fx, fy, f_v = _overflow_rescue_local(
-            pos, alive, plan.cx, plan.cy, order, ok, xr, yr, fx, fy,
-            float(k_sep), float(personal_space), float(eps),
-            float(torus_hw), int(overflow_budget), g, k, r,
-        )
-    flat = (plan.skey.clamp(max=g * g - 1) * k
-            + plan.rank.clamp(max=k - 1)).long()
-    force_s = torch.stack([torch.where(ok, fx[flat], 0.0),
-                           torch.where(ok, fy[flat], 0.0)], 1)
-    out = torch.zeros_like(pos)
-    out[order] = force_s.to(pos.dtype)
-    return out + f_v
+    force = grid_sweep(sweep_operands(pos, plan), g, k, r,
+                       max(int(overflow_budget), 0), k_sep, personal_space,
+                       eps, torus_hw)
+    return force.to(pos.dtype)
 
 
 def hashgrid_overflow(pos, cell, max_per_cell, torus_hw, alive=None):

@@ -24,10 +24,16 @@ packages through numpy (:func:`plan_to_numpy` / :func:`plan_from_numpy`)
 and the tests compare them field for field.
 
 Where JAX decides under ``lax.cond`` / ``lax.switch`` on a device scalar,
-the port decides on the host: :func:`refresh_plan` and
-:func:`refresh_plan_partial` read one value from the device per call, so
-a rollout that carries a plan waits for the device once per tick.  A
-plan built every tick (``hashgrid_skin == 0``) never waits.
+the port decides on the host in an eager tick: :func:`refresh_plan` and
+:func:`refresh_plan_partial` read one value from the device per call.
+:func:`refresh_plan_on_device` keeps the decision on the device for a
+tick captured in a CUDA graph: it always takes the cheap tier (keep, or
+the partial refresh, whose result with no trigger equals keep field for
+field) and returns whether the tick needed a full rebuild instead, so
+the caller reads one flag per chunk of ticks and reruns a chunk that
+needed one.  A plan built every tick (``hashgrid_skin == 0``) never
+waits.  The occupancy (``counts``, ``starts``) comes from a searchsorted
+of the sorted keys, not a scatter-add.
 
 Not ported: the moments-field binning (``fkey``/``xt``/``yt``,
 :func:`plan_field_keys`, :func:`plan_cell_sums`; ROADMAP Queue A item 9)
@@ -39,14 +45,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.platform import DeviceLike, resolve_device
 from ._numerics import sq_norm2, torus_wrap
-from .neighbors import cell_counts, exclusive_cumsum, torus_cell_xy
+from .neighbors import torus_cell_xy
 
 I32 = torch.int32
 
@@ -219,8 +225,7 @@ def build_hashgrid_plan(
 
     counts = starts = None
     if need_csr or neighbor_cap > 0 or recv_cap > 0:
-        counts = cell_counts(key, g2)
-        starts = exclusive_cumsum(counts)
+        counts, starts = _sorted_occupancy(skey, g2)
 
     cand = cand_overflow = None
     if neighbor_cap > 0:
@@ -267,6 +272,15 @@ def _sorted_view(key, ref, g2, max_per_cell):
     cap_overflow = (live & (rank >= max_per_cell)).sum().to(I32)
     sx, sy = ref[order, 0], ref[order, 1]
     return order.to(I32), skey, rank, ok, sx, sy, cap_overflow
+
+
+def _sorted_occupancy(skey, g2):
+    """(counts, starts) [g2] i32 of the live cells off the sorted keys:
+    each cell's run in the sort, found by a searchsorted (the same values
+    as a scatter-add of ones and its exclusive cumsum, without atomics)."""
+    cells = torch.arange(g2 + 1, dtype=I32, device=skey.device)
+    bounds = torch.searchsorted(skey, cells, out_int32=True)
+    return bounds[1:] - bounds[:-1], bounds[:-1]
 
 
 def _stencil_keys(cells, g):
@@ -346,6 +360,16 @@ def _rebuild(pos, alive, plan):
                      cells_rebuilt=plan.cells_rebuilt + plan.g * plan.g)
 
 
+def _stale(pos, alive, plan, rebuild_every):
+    """Whether :func:`refresh_plan` rebuilds, as a device scalar."""
+    d2max, alive_changed = plan_staleness(pos, alive, plan)
+    skin = plan.skin
+    stale = alive_changed | (4.0 * d2max > skin * skin)
+    if rebuild_every > 0:
+        stale = stale | (plan.age + 1 >= rebuild_every)
+    return stale
+
+
 def refresh_plan(
     pos: torch.Tensor,
     alive: torch.Tensor,
@@ -357,14 +381,117 @@ def refresh_plan(
     changed, or (``rebuild_every > 0``) the plan is ``rebuild_every - 1``
     ticks old; else keep it with ``age + 1``.  One read from the device
     decides."""
-    d2max, alive_changed = plan_staleness(pos, alive, plan)
-    skin = plan.skin
-    stale = alive_changed | (4.0 * d2max > skin * skin)
-    if rebuild_every > 0:
-        stale = stale | (plan.age + 1 >= rebuild_every)
-    if bool(stale):
+    if bool(_stale(pos, alive, plan, rebuild_every)):
         return _rebuild(pos, alive, plan)
     return plan.replace(age=plan.age + 1)
+
+
+def _partial_capable(plan: HashgridPlan, n: int) -> bool:
+    g2 = plan.g * plan.g
+    return (plan.has_list and plan.skin > 0.0 and not plan.has_field
+            and n * (g2 + 1) < 2**31)
+
+
+class _Tiers(NamedTuple):
+    """The partial refresh's trigger, as device tensors."""
+
+    full_needed: torch.Tensor     # bool scalar: the full tier
+    trigger: torch.Tensor         # bool scalar: some agent violated
+    viol: torch.Tensor            # [N] bool, moved past skin/2
+    crossed: torch.Tensor         # [N] bool, violated and changed cell
+    ccx: torch.Tensor             # [N] i32 current cells
+    ccy: torch.Tensor
+    key_cur: torch.Tensor         # [N] i32 current keys
+    refresh: torch.Tensor         # [g*g] bool rows to recompute
+    n_rows: torch.Tensor          # i32 scalar
+
+
+def _partial_tiers(pos, alive, plan, rebuild_every, crosser_cap):
+    g = plan.g
+    g2 = g * g
+    skin = plan.skin
+    viol = 4.0 * _displacement2(pos, plan) > skin * skin
+    ccx, ccy = torus_cell_xy(pos, plan.torus_hw, g)
+    key_cur = torch.where(alive, ccx * g + ccy, g2)
+    crossed = viol & (key_cur != plan.key)
+    n_cross = crossed.sum()
+    # Trigger cells (old and new homes of crossers), 3x3-dilated to the
+    # rows whose stencil union they can appear in.
+    # (index_fill_ with a scalar: an indexed assignment of True would copy
+    # a host scalar to the card and wait for it.)
+    trig = torch.zeros(g2 + 1, dtype=torch.bool, device=pos.device)
+    trig.index_fill_(0, torch.where(crossed, plan.key, g2).long(), True)
+    trig.index_fill_(0, torch.where(crossed, key_cur, g2).long(), True)
+    tg = trig[:g2].reshape(g, g)
+    dil = tg.clone()
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            if dx or dy:
+                dil |= torch.roll(tg, (dx, dy), (0, 1))
+    refresh = dil.reshape(-1)
+    n_rows = refresh.sum().to(I32)
+    full_needed = (alive != plan.ref_alive).any()
+    if rebuild_every > 0:
+        full_needed = full_needed | (plan.age + 1 >= rebuild_every)
+    trigger = viol.any()
+    ccap = min(int(crosser_cap), pos.shape[0])
+    full_needed = full_needed | (trigger & ((n_cross > ccap)
+                                            | (n_rows > max(1, g2 // 4))))
+    return _Tiers(full_needed, trigger, viol, crossed, ccx, ccy, key_cur,
+                  refresh, n_rows)
+
+
+def _partial_plan(pos, plan, t: _Tiers):
+    """The partial tier off the trigger ``t``.  With no trigger it equals
+    the kept plan (``age + 1``) field for field: the sort, the occupancy
+    and the tables recomputed from the same keys and snapshot, the padded
+    rows landing on row ``g*g - 1`` with that row's own content."""
+    n = pos.shape[0]
+    g = plan.g
+    g2 = g * g
+    K = plan.max_per_cell
+    dev = pos.device
+    row_cap = max(1, g2 // 4)
+    new_ref = torch.where(t.viol[:, None], pos, plan.ref_pos)
+    key_new = torch.where(t.crossed, t.key_cur, plan.key)
+    order, skey, rank, ok, sx, sy, cap_overflow = _sorted_view(
+        key_new, new_ref, g2, K)
+    counts, starts = _sorted_occupancy(skey, g2)
+
+    # The refreshed rows, compacted into a fixed block of row_cap (ranks
+    # are monotone, so searchsorted inverts the cumsum); padding is g*g.
+    rranks = torch.cumsum(t.refresh, 0, dtype=I32)
+    rows = torch.searchsorted(
+        rranks, torch.arange(1, row_cap + 1, dtype=I32, device=dev))
+    rvalid = rows < g2
+    rc = rows.clamp(max=g2 - 1).to(I32)
+    w = plan.cand.shape[1]
+    rows_cand, lo = _union_rows(rc, order, counts, starts, g, K, w, n)
+    cand = plan.cand.clone()
+    cand[rc.long()] = rows_cand
+    # cand_overflow changes only inside the refreshed rows: swap their old
+    # excess for the new.
+    lo_old = _union_lengths(rc, plan.counts, g, K)
+    ex_old = torch.where(rvalid, (lo_old - w).clamp(min=0), 0)
+    ex_new = torch.where(rvalid, (lo - w).clamp(min=0), 0)
+    cand_overflow = (plan.cand_overflow + ex_new.sum()
+                     - ex_old.sum()).to(I32)
+    extra = {}
+    if plan.has_recv:
+        rk = plan.recv.shape[1]
+        recv = plan.recv.clone()
+        recv[rc.long()] = _receiver_rows(rc, order, counts, starts, rk, n)
+        extra["recv"] = recv
+        extra["recv_overflow"] = (counts - rk).clamp(min=0).sum().to(I32)
+    return plan.replace(
+        cx=torch.where(t.crossed, t.ccx, plan.cx),
+        cy=torch.where(t.crossed, t.ccy, plan.cy),
+        key=key_new, order=order, skey=skey, rank=rank, ok=ok, sx=sx,
+        sy=sy, counts=counts, starts=starts, cand=cand,
+        cand_overflow=cand_overflow, cap_overflow=cap_overflow,
+        ref_pos=new_ref, age=plan.age + 1,
+        cells_rebuilt=plan.cells_rebuilt + t.n_rows, **extra,
+    )
 
 
 def refresh_plan_partial(
@@ -396,92 +523,41 @@ def refresh_plan_partial(
     block as in JAX, padded rows landing on row ``g*g - 1`` with that
     row's own fresh content.  Plans without a candidate table or skin
     fall back to :func:`refresh_plan`."""
-    skin = plan.skin
-    n = pos.shape[0]
-    g = plan.g
-    g2 = g * g
-    if ((not plan.has_list) or skin <= 0.0 or plan.has_field
-            or n * (g2 + 1) >= 2**31):
+    if not _partial_capable(plan, pos.shape[0]):
         return refresh_plan(pos, alive, plan, rebuild_every)
     alive = alive.bool()
-    row_cap = max(1, g2 // 4)
-    ccap = min(int(crosser_cap), n)
-    K = plan.max_per_cell
-    dev = pos.device
-
-    viol = 4.0 * _displacement2(pos, plan) > skin * skin
-    ccx, ccy = torus_cell_xy(pos, plan.torus_hw, g)
-    key_cur = torch.where(alive, ccx * g + ccy, g2)
-    crossed = viol & (key_cur != plan.key)
-    n_cross = crossed.sum()
-    # Trigger cells (old and new homes of crossers), 3x3-dilated to the
-    # rows whose stencil union they can appear in.
-    # (index_fill_ with a scalar: an indexed assignment of True would copy
-    # a host scalar to the card and wait for it.)
-    trig = torch.zeros(g2 + 1, dtype=torch.bool, device=dev)
-    trig.index_fill_(0, torch.where(crossed, plan.key, g2).long(), True)
-    trig.index_fill_(0, torch.where(crossed, key_cur, g2).long(), True)
-    tg = trig[:g2].reshape(g, g)
-    dil = tg.clone()
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            if dx or dy:
-                dil |= torch.roll(tg, (dx, dy), (0, 1))
-    refresh = dil.reshape(-1)
-    n_rows = refresh.sum().to(I32)
-    full_needed = (alive != plan.ref_alive).any()
-    if rebuild_every > 0:
-        full_needed = full_needed | (plan.age + 1 >= rebuild_every)
-    trigger = viol.any()
-    full_needed = full_needed | (trigger & ((n_cross > ccap)
-                                            | (n_rows > row_cap)))
-    full, partial = torch.stack([full_needed, trigger]).tolist()
+    t = _partial_tiers(pos, alive, plan, rebuild_every, crosser_cap)
+    full, partial = torch.stack([t.full_needed, t.trigger]).tolist()
     if full:
         return _rebuild(pos, alive, plan)
     if not partial:
         return plan.replace(age=plan.age + 1)
+    return _partial_plan(pos, plan, t)
 
-    new_ref = torch.where(viol[:, None], pos, plan.ref_pos)
-    key_new = torch.where(crossed, key_cur, plan.key)
-    order, skey, rank, ok, sx, sy, _ = _sorted_view(key_new, new_ref, g2, K)
-    counts = cell_counts(key_new, g2)
-    starts = exclusive_cumsum(counts)
-    cap_overflow = (counts - K).clamp(min=0).sum().to(I32)
 
-    # The refreshed rows, compacted into a fixed block of row_cap (ranks
-    # are monotone, so searchsorted inverts the cumsum); padding is g*g.
-    rranks = torch.cumsum(refresh, 0, dtype=I32)
-    rows = torch.searchsorted(
-        rranks, torch.arange(1, row_cap + 1, dtype=I32, device=dev))
-    rvalid = rows < g2
-    rc = rows.clamp(max=g2 - 1).to(I32)
-    w = plan.cand.shape[1]
-    rows_cand, lo = _union_rows(rc, order, counts, starts, g, K, w, n)
-    cand = plan.cand.clone()
-    cand[rc.long()] = rows_cand
-    # cand_overflow changes only inside the refreshed rows: swap their old
-    # excess for the new.
-    lo_old = _union_lengths(rc, plan.counts, g, K)
-    ex_old = torch.where(rvalid, (lo_old - w).clamp(min=0), 0)
-    ex_new = torch.where(rvalid, (lo - w).clamp(min=0), 0)
-    cand_overflow = (plan.cand_overflow + ex_new.sum()
-                     - ex_old.sum()).to(I32)
-    extra = {}
-    if plan.has_recv:
-        rk = plan.recv.shape[1]
-        recv = plan.recv.clone()
-        recv[rc.long()] = _receiver_rows(rc, order, counts, starts, rk, n)
-        extra["recv"] = recv
-        extra["recv_overflow"] = (counts - rk).clamp(min=0).sum().to(I32)
-    return plan.replace(
-        cx=torch.where(crossed, ccx, plan.cx),
-        cy=torch.where(crossed, ccy, plan.cy),
-        key=key_new, order=order, skey=skey, rank=rank, ok=ok, sx=sx,
-        sy=sy, counts=counts, starts=starts, cand=cand,
-        cand_overflow=cand_overflow, cap_overflow=cap_overflow,
-        ref_pos=new_ref, age=plan.age + 1,
-        cells_rebuilt=plan.cells_rebuilt + n_rows, **extra,
-    )
+def refresh_plan_on_device(
+    pos: torch.Tensor,
+    alive: torch.Tensor,
+    plan: HashgridPlan,
+    rebuild_every: int = 0,
+    crosser_cap: int = 512,
+    partial: bool = True,
+) -> Tuple[HashgridPlan, torch.Tensor]:
+    """``(plan', full_needed)`` with no read from the device, for a tick
+    captured in a CUDA graph.  ``plan'`` is the cheap tier the eager
+    refresh takes whenever ``full_needed`` is false: with ``partial`` (and
+    a plan the partial refresh takes), :func:`refresh_plan_partial`'s
+    keep or partial tier, both as the partial refresh (with no trigger it
+    equals keep field for field); else :func:`refresh_plan`'s keep.
+    ``full_needed`` (a bool device scalar) says that the eager refresh
+    would have rebuilt the plan instead, and then ``plan'`` is not its
+    result."""
+    alive = alive.bool()
+    if partial and _partial_capable(plan, pos.shape[0]):
+        t = _partial_tiers(pos, alive, plan, rebuild_every, crosser_cap)
+        return _partial_plan(pos, plan, t), t.full_needed
+    return (plan.replace(age=plan.age + 1),
+            _stale(pos, alive, plan, rebuild_every))
 
 
 def plan_field_keys(plan: HashgridPlan):

@@ -355,28 +355,37 @@ def physics_step_plan(
     ``refresh_plan``: one read from the device), run the tick off it, and
     return ``(state, plan)`` for the next tick.  Seed the carry with
     :func:`build_tick_plan`."""
-    return _physics_step_core(state, obstacles, cfg, plan, dt)
+    return _physics_step_core(state, obstacles, cfg, plan, dt)[:2]
 
 
-def _physics_step_core(state, obstacles, cfg, plan, dt):
+def _physics_step_core(state, obstacles, cfg, plan, dt, on_device=False):
     """The tick body behind :func:`physics_step` and
-    :func:`physics_step_plan`: ``(state, plan)``."""
+    :func:`physics_step_plan`: ``(state, plan, full_needed or None)``.
+    With ``on_device`` (a tick captured in a CUDA graph) a carried plan's
+    refresh is decided on the device (``refresh_plan_on_device``):
+    where the bool device scalar ``full_needed`` is false the result is
+    :func:`physics_step_plan`'s, and where it is true the tick needed a
+    full rebuild and the caller reruns it eagerly."""
     dt = cfg.dt if dt is None else dt
+    full = None
     if plan is not None:
         # Refresh before the forces, so the exactness bound is checked
         # against the positions this tick's forces read.
-        if cfg.hashgrid_partial_refresh:
+        kw = dict(rebuild_every=cfg.hashgrid_rebuild_every)
+        if on_device:
+            plan, full = _hp.refresh_plan_on_device(
+                state.pos, state.alive, plan,
+                crosser_cap=cfg.hashgrid_partial_crosser_cap,
+                partial=cfg.hashgrid_partial_refresh, **kw)
+        elif cfg.hashgrid_partial_refresh:
             plan = _hp.refresh_plan_partial(
                 state.pos, state.alive, plan,
-                rebuild_every=cfg.hashgrid_rebuild_every,
-                crosser_cap=cfg.hashgrid_partial_crosser_cap,
-            )
+                crosser_cap=cfg.hashgrid_partial_crosser_cap, **kw)
         else:
-            plan = _hp.refresh_plan(state.pos, state.alive, plan,
-                                    rebuild_every=cfg.hashgrid_rebuild_every)
+            plan = _hp.refresh_plan(state.pos, state.alive, plan, **kw)
     derived = formation_targets(state, cfg)
     force, _ = apf_forces_plan(derived, obstacles, cfg, plan)
     moving = derived.has_target & state.alive
     pos, vel = integrate(state.pos, force, moving, cfg, dt)
     pos = torch.where(moving[:, None], pos, state.pos)
-    return state.replace(pos=pos, vel=vel), plan
+    return state.replace(pos=pos, vel=vel), plan, full

@@ -285,16 +285,7 @@ def _torus_abs_sum(pos, alive):
     return torch.where(near[..., None], mag[..., None] * d.abs(), 0.0).sum(1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "cell,cap,crowd,skin",
-    [(2.0, 8, 0, 0.0), (1.0, 8, 0, 0.0), (2.0, 8, 40, 0.0),
-     (1.5, 16, 0, 0.5)],
-    ids=["R1", "R2", "R1-overflow", "stale-skinned"],
-)
-def test_grid_sweep_kernel_matches_plain(cuda, cell, cap, crowd, skin):
-    pos, alive = _hash_swarm(600, 3, crowd)
-    pos, alive = pos.to(cuda), alive.to(cuda)
+def _grid_operands(pos, alive, cell, cap, skin, cuda):
     g = (int(2 * HW / (cell + skin)) // 16) * 16
     plan = port_hp.build_hashgrid_plan(pos, alive, HW, cell, cap, g=g,
                                        skin=skin)
@@ -303,22 +294,48 @@ def test_grid_sweep_kernel_matches_plain(cuda, cell, cap, crowd, skin):
         pos = pos + 0.34 * (torch.rand(pos.shape, generator=gen,
                                        device=cuda) - 0.5)
     r = port_grid._stencil_radius(plan.cell_eff, R + skin)
-    x, y, slot = port_grid.slot_planes(pos, plan)
-    args = (x, y, slot, g, cap, r, K_SEP, R, EPS, HW)
+    return pos, plan, port_grid.sweep_operands(pos, plan), g, r
+
+
+def _check_grid_sweep(ops, g, cap, r, budget):
+    """The kernel against its plain version, which repeats its operations
+    in its order: equal, and so within the band.  Returns (kernel,
+    bitwise equal)."""
+    args = (ops, g, cap, r, budget, K_SEP, R, EPS, HW)
     before = port_grid.LAUNCHES
-    fx, fy = port_grid.grid_sweep_cuda(*args)
+    got = port_grid.grid_sweep_cuda(*args)
     torch.cuda.synchronize()
     assert port_grid.LAUNCHES == before + 1
-    px, py = port_grid.grid_sweep_plain(*args)
-    sx, sy = port_grid.grid_sweep_plain(*args, absolute=True)
-    for got, want, scale in ((fx, px, sx), (fy, py, sy)):
-        assert torch.isfinite(got).all()
-        assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
-    assert (fx[x == port_grid.SENTINEL] == 0).all()
+    want = port_grid.grid_sweep_plain(*args)
+    scale = port_grid.grid_sweep_plain(*args, absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    assert torch.equal(got, want)
+    return got, True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cell,cap,crowd,skin,budget",
+    [(2.0, 8, 0, 0.0, 64), (1.0, 8, 0, 0.0, 64), (2.0, 8, 40, 0.0, 64),
+     (1.5, 16, 0, 0.5, 64), (2.0, 8, 120, 0.0, 8), (1.0, 8, 120, 0.0, 16),
+     (2.0, 8, 120, 0.0, 0)],
+    ids=["R1", "R2", "R1-overflow", "stale-skinned", "R1-past-budget",
+         "R2-past-budget", "budget-0"],
+)
+def test_grid_sweep_kernel_matches_plain(cuda, cell, cap, crowd, skin,
+                                         budget):
+    pos, alive = _hash_swarm(600, 3, crowd)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    pos, plan, ops, g, r = _grid_operands(pos, alive, cell, cap, skin, cuda)
+    got, _ = _check_grid_sweep(ops, g, cap, r, budget)
+    assert (got[~alive] == 0).all()
     assert (int(plan.cap_overflow) > 0) == bool(crowd)
-    # The whole slots path, rescue included, against the CPU's.
+    if crowd > 100:
+        assert int(plan.cap_overflow) > budget
+    # The whole slots path against the CPU's.
     kw = dict(cell=cell + skin, max_per_cell=cap, torus_hw=HW,
-              overflow_budget=64)
+              overflow_budget=budget)
     got = port_grid.separation_hashgrid(pos, alive, K_SEP, R, EPS, plan=plan,
                                         **kw)
     cplan = port_hp.plan_from_numpy(port_hp.plan_to_numpy(plan), "cpu")
@@ -331,19 +348,22 @@ def test_grid_sweep_kernel_matches_plain(cuda, cell, cap, crowd, skin):
 
 @pytest.mark.cuda
 def test_grid_sweep_kernel_input_checks(cuda):
-    x = torch.zeros(16 * 16 * 8, device=cuda)
-    slot = torch.zeros(4, dtype=torch.int32, device=cuda)
+    pos, alive = _hash_swarm(64, 1)
+    pos, alive = pos.to(cuda), alive.to(cuda)
+    plan = port_hp.build_hashgrid_plan(pos, alive, HW, 2.0, 8, g=16)
+    ops = port_grid.sweep_operands(pos, plan)
+    args = (16, 8, 1, 64, K_SEP, R, EPS, HW)
     with pytest.raises(TypeError):
-        port_grid.grid_sweep_cuda(x.double(), x, slot, 16, 8, 1, K_SEP, R,
-                                  EPS, HW)
+        port_grid.grid_sweep_cuda(ops._replace(spos=ops.spos.double()),
+                                  *args)
     with pytest.raises(ValueError):
-        port_grid.grid_sweep_cuda(x[:-1], x[:-1], slot, 16, 8, 1, K_SEP, R,
-                                  EPS, HW)
+        port_grid.grid_sweep_cuda(ops._replace(bounds=ops.bounds[:-1]),
+                                  *args)
     with pytest.raises(ValueError):
-        port_grid.grid_sweep_cuda(x, x, slot.long(), 16, 8, 1, K_SEP, R, EPS,
-                                  HW)
+        port_grid.grid_sweep_cuda(ops._replace(order=ops.order.long()),
+                                  *args)
     with pytest.raises(ValueError):
-        port_grid.grid_sweep_cuda(x, x, slot, 16, 8, 3, K_SEP, R, EPS, HW)
+        port_grid.grid_sweep_cuda(ops, 16, 8, 3, 64, K_SEP, R, EPS, HW)
 
 
 def _cand_plan(pos, alive, cap=24, skin=0.5, w=128, rk=48):
@@ -365,18 +385,30 @@ def _check_candidates(pos, plan):
                                             R, EPS, HW, absolute=True)
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= 1e-6 * scale + 1e-7).all()
+    assert torch.equal(got, want)
     return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["skin0", "stale", "partial-chain",
-                                  "truncated"])
+                                  "truncated", "crowded-receivers", "wide",
+                                  "widest", "narrow"])
 def test_candidate_kernel_matches_plain(cuda, case):
-    pos, alive = _hash_swarm(800, 5, crowd=60 if case == "truncated" else 0)
+    crowd = {"truncated": 60, "crowded-receivers": 150}.get(case, 0)
+    pos, alive = _hash_swarm(800, 5, crowd=crowd)
     pos, alive = pos.to(cuda), alive.to(cuda)
     if case == "truncated":    # cand rows past W and receivers past RK
         plan = _cand_plan(pos, alive, cap=8, skin=0.0, w=32, rk=8)
         assert int(plan.cand_overflow) > 0 and int(plan.recv_overflow) > 0
+    elif case == "crowded-receivers":   # cells of more than 32 receivers
+        plan = _cand_plan(pos, alive, cap=64, skin=0.0, w=384, rk=96)
+        assert int(plan.counts.max()) > 32
+    elif case in ("wide", "widest"):    # 4 cells a warp, and 1
+        plan = _cand_plan(pos, alive, skin=0.5,
+                          w=256 if case == "wide" else 1024)
+        assert port_cand.cells_per_warp(plan.cand.shape[1]) in (4, 1)
+    elif case == "narrow":              # 6 cells a warp, rows of 32
+        plan = _cand_plan(pos, alive, skin=0.5, w=32, rk=8)
     else:
         plan = _cand_plan(pos, alive, skin=0.0 if case == "skin0" else 0.5)
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -427,11 +459,18 @@ def test_hashgrid_ticks_on_the_card_match_the_cpu(cuda):
 
 @pytest.mark.cuda
 def test_hashgrid_rollouts_wait_for_the_device_only_to_refresh_a_plan(cuda):
-    # A per-tick plan (skin 0) never reads from the device; a carried
-    # Verlet plan reads its refresh decision once per tick.
+    # A per-tick plan (skin 0) never reads from the device, ticked by hand
+    # or replayed; a carried Verlet plan reads its refresh decision once a
+    # tick when ticked by hand (eagerly), and once a chunk of
+    # HASHGRID_CHUNK ticks when its rollout is replayed: 2 reads in 20
+    # ticks, where the eager rollout read 20.  A chunk in which a tick
+    # needed a full rebuild (forced by a crosser cap of 2) reads its flag
+    # and then once a tick of its eager rerun: 1 + HASHGRID_CHUNK reads.
     import warnings
 
+    from distributed_swarm_algorithm_tpu_torch.models import swarm as swm
     from distributed_swarm_algorithm_tpu_torch.models.swarm import (
+        HASHGRID_CHUNK,
         _swarm_tick_plan,
     )
 
@@ -441,20 +480,37 @@ def test_hashgrid_rollouts_wait_for_the_device_only_to_refresh_a_plan(cuda):
     s = tdsa.make_swarm(512, device=cuda, spread=18.0, seed=4)
     s = s.replace(target=torch.full_like(s.pos, 3.0),
                   has_target=torch.ones_like(s.has_target))
-    jitter = torch.zeros((6, 512), dtype=torch.int32, device=cuda)
+    ticks = 2 * HASHGRID_CHUNK
+    jitter = torch.zeros((ticks, 512), dtype=torch.int32, device=cuda)
+    # The carried plan on a world wide enough that its partial refresh
+    # never needs a full rebuild in these ticks (as the fast movers' 1,000
+    # ticks need none): a rerun chunk would read once a tick.
     carried = base.replace(hashgrid_kernel="candidates", hashgrid_skin=1.5,
                            grid_max_per_cell=24, hashgrid_neighbor_cap=48,
-                           hashgrid_partial_refresh=True)
-    for cfg, ticks, syncs in ((base, 6, 0), (carried, 6, 6)):
-        tdsa.swarm_rollout(s, None, cfg, 2, jitter=jitter[:2])   # warm up
-        plan = tdsa.build_tick_plan(s, cfg) if syncs else None
+                           hashgrid_partial_refresh=True, world_hw=64.0)
+    forced = carried.replace(hashgrid_partial_crosser_cap=2)
+    for cfg, by_hand, syncs in ((base, True, 0), (base, False, 0),
+                                (carried, True, 6), (carried, False, 2),
+                                (forced, False, 1 + HASHGRID_CHUNK)):
+        n_ticks = 6 if by_hand else (
+            HASHGRID_CHUNK if cfg is forced else ticks)
+        # Warm up: the rollout captures its chunk here, and runs the ticks
+        # measured below.
+        _, plan = tdsa.swarm_rollout(s, None, cfg, ticks, jitter=jitter,
+                                     return_plan=True)
+        assert plan is None or (int(plan.rebuilds) > 0) == (cfg is forced)
+        plan = tdsa.build_tick_plan(s, cfg) if cfg is carried else None
+        reruns = swm.CHUNKS_RERUN
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
                 st = s
-                for k in range(ticks):
+                if not by_hand:
+                    st = tdsa.swarm_rollout(st, None, cfg, n_ticks,
+                                            jitter=jitter[:n_ticks])
+                for k in range(n_ticks if by_hand else 0):
                     if plan is None:
                         st = tdsa.swarm_tick(st, None, cfg, jitter[k])
                     else:
@@ -464,6 +520,7 @@ def test_hashgrid_rollouts_wait_for_the_device_only_to_refresh_a_plan(cuda):
             torch.cuda.set_sync_debug_mode("default")
         waits = [w for w in seen if "synchroniz" in str(w.message)]
         assert len(waits) == syncs, [str(w.message)[:120] for w in waits]
+        assert swm.CHUNKS_RERUN - reruns == (cfg is forced)
 
 
 # --------------------------------------------------------------------------
@@ -3910,3 +3967,183 @@ def test_graph_replayed_window_rollout_through_the_handle(cuda, monkeypatch):
     monkeypatch.setattr(port_swarm, "_morton_sorted", sorted_)
     sw.step(16)
     assert port_win.LAUNCHES == before + 64
+
+
+# --------------------------------------------------------------------------
+# The redesigned hashgrid kernels (B2 with its rescue, B3) and the hashgrid
+# rollouts replayed from CUDA graphs.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crowd,budget", [(0, 64), (150, 32)],
+                         ids=["seam", "seam-past-budget"])
+def test_grid_redesign_on_the_seam(cuda, crowd, budget):
+    # Agents exactly on the seam (-hw and +hw) with partners across it,
+    # and a crowd around the corner (-hw, -hw) past the cap and the budget.
+    rng = np.random.default_rng(8)
+    pos = rng.uniform(-HW, HW, (700, 2)).astype(np.float32)
+    pos[:8] = [[-HW, 3.0], [HW - 0.5, 3.0], [HW, -5.0], [-HW + 0.7, -5.2],
+               [2.0, -HW], [2.3, HW - 0.4], [-HW, -HW], [HW - 0.3, HW - 0.6]]
+    if crowd:
+        c = -HW + 0.6 * rng.normal(size=(crowd, 2))
+        pos[8:8 + crowd] = np.mod(c + HW, 2 * HW) - HW
+    alive = np.ones(700, dtype=bool)
+    pos = torch.from_numpy(pos.astype(np.float32)).to(cuda)
+    alive = torch.from_numpy(alive).to(cuda)
+    _, plan, ops, g, r = _grid_operands(pos, alive, 2.0, 8, 0.0, cuda)
+    got, _ = _check_grid_sweep(ops, g, 8, r, budget)
+    assert (got[:8] != 0).any(1).all()
+    assert (int(plan.cap_overflow) > budget) == bool(crowd)
+
+
+@pytest.mark.cuda
+def test_hashgrid_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["grid_separation", "candidate_sweep"])
+    for name, kernels in (("grid_separation", 2), ("candidate_sweep", 1)):
+        log = _build.build_log(name)
+        entries = [ln for ln in log.splitlines() if "Compiling entry" in ln]
+        assert len(entries) == kernels, entries
+        spills = [ln for ln in log.splitlines() if "spill" in ln]
+        assert len(spills) >= kernels, spills
+        assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in spills), spills
+
+
+HG_SCENARIOS = {
+    # bench_swarm_tpu.py:49 and :43 (cap 16, rescue budget 1,024), and the
+    # fast movers of decompose_rebuild.py:222-233, as chip_smoke.py runs
+    # them, cut to short spans.
+    "station": dict(grid_max_per_cell=16, hashgrid_overflow_budget=1024),
+    "converge": dict(grid_max_per_cell=16, hashgrid_overflow_budget=1024),
+    "fast movers": dict(grid_max_per_cell=24, hashgrid_overflow_budget=1024,
+                        max_speed=5.0, hashgrid_kernel="candidates",
+                        hashgrid_skin=1.5, hashgrid_neighbor_cap=48,
+                        hashgrid_partial_refresh=True),
+}
+
+
+def _hashgrid_scenario(name, cuda, n=65536):
+    cfg = tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", formation_shape="none", world_hw=256.0,
+        **HG_SCENARIOS[name])
+    # The converging swarm starts crowded (about 10 agents a square
+    # metre), so its rescue runs from the first tick.
+    st = tdsa.make_swarm(n, spread=40.0 if name == "converge" else 250.0,
+                         seed=0, device=cuda)
+    st = tdsa.with_tasks(st, [[1.0, 1.0], [-2.0, 3.0], [5.0, -8.0],
+                              [0.0, 9.0]])
+    target = (st.pos.clone() if name != "converge"
+              else torch.tensor([50.0, 0.0], device=cuda).expand_as(st.pos)
+              .clone())
+    return cfg, st.replace(target=target,
+                           has_target=torch.ones_like(st.has_target))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spans,with_jitter", [
+    ("station", (30, 23), False), ("converge", (40, 20), True),
+    ("fast movers", (30, 20), True)])
+def test_graph_replayed_hashgrid_rollout_equals_the_eager_one(
+        cuda, monkeypatch, name, spans, with_jitter):
+    # Full width (65,536 agents), a short rollout, the leader killed, more
+    # ticks: the replayed rollout equals the eager one on every field of
+    # the state and of the carried plan, and launches its kernel once a
+    # tick and no other of the port's kernels.
+    mod = port_cand if name == "fast movers" else port_grid
+    other = port_grid if mod is port_cand else port_cand
+    n = 65536
+    jitter = None
+    if with_jitter:
+        jitter = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 3, (sum(spans), n)).astype(np.int32)).to(cuda)
+    runs = {}
+    replays = port_swarm.replays_graphs
+    for replay in (False, True):
+        monkeypatch.setattr(port_swarm, "replays_graphs",
+                            replays if replay else lambda dev: False)
+        cfg, st = _hashgrid_scenario(name, cuda)
+        at, leaders, plans = 0, [], []
+        before = (mod.LAUNCHES, other.LAUNCHES, port_win.LAUNCHES)
+        for k, ticks in enumerate(spans):
+            if k:
+                st = tdsa.kill(st, [n - 1])
+            st, plan = port_swarm.swarm_rollout(
+                st, None, cfg, ticks, return_plan=True,
+                jitter=None if jitter is None else jitter[at:at + ticks])
+            at += ticks
+            leaders.append([int(v) for v in tdsa.current_leader(st)])
+            plans.append(plan)
+        torch.cuda.synchronize()
+        assert (mod.LAUNCHES, other.LAUNCHES, port_win.LAUNCHES) == (
+            before[0] + sum(spans), before[1], before[2])
+        runs[replay] = (st, leaders, plans)
+    (eager, le, pe), (graph, lg, pg) = runs[False], runs[True]
+    assert lg == le and le[-1][0] in (-1, n - 2)
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+    assert torch.equal(graph.gen.get_state(), eager.gen.get_state())
+    if name == "fast movers":
+        for a, b in zip(pe, pg):
+            for f in port_hp.HashgridPlan.ARRAY_FIELDS:
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None), f
+                assert x is None or torch.equal(x, y), f
+        assert int(pg[0].cells_rebuilt) > 0
+    else:
+        assert pe == pg == [None, None]
+    if name == "converge":
+        plan = tdsa.build_tick_plan(graph, cfg)
+        assert int(plan.cap_overflow) > cfg.hashgrid_overflow_budget
+
+
+@pytest.mark.cuda
+def test_graph_replayed_hashgrid_rollout_through_the_handle(cuda,
+                                                            monkeypatch):
+    # VectorSwarm.step(n >= a chunk) replays, step(1), record and a shorter
+    # last chunk run eagerly; a carried plan's chunk that needed a full
+    # rebuild is discarded and runs again eagerly (its launches counted
+    # once, CHUNKS_RERUN counting the chunk) and ends equal to the eager
+    # rollout.
+    from distributed_swarm_algorithm_tpu_torch.models.swarm import (
+        HASHGRID_CHUNK,
+    )
+    monkeypatch.setattr(port_swarm, "_chunk", None)
+    cfg = tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", formation_shape="none", world_hw=96.0,
+        **HG_SCENARIOS["station"])
+    sw = tdsa.VectorSwarm(8192, config=cfg, spread=90.0, seed=1,
+                          device=cuda)
+    sw.set_target([5.0, 0.0])
+    sw.step(1)
+    assert port_swarm._chunk is None
+    before = port_grid.LAUNCHES
+    sw.step(2 * HASHGRID_CHUNK + 3)
+    chunk = port_swarm._chunk
+    assert chunk is not None and chunk.kernel is port_grid
+    assert port_grid.LAUNCHES == before + 2 * HASHGRID_CHUNK + 3
+    sw.step(HASHGRID_CHUNK, record=True)
+    assert port_swarm._chunk is chunk
+    assert port_grid.LAUNCHES == before + 3 * HASHGRID_CHUNK + 3
+    # Full rebuilds inside replayed chunks (a crosser cap of 2).
+    fast = tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", formation_shape="none", world_hw=96.0,
+        **dict(HG_SCENARIOS["fast movers"], hashgrid_partial_crosser_cap=2))
+    runs = {}
+    replays = port_swarm.replays_graphs
+    monkeypatch.setattr(port_swarm, "CHUNKS_RERUN", 0)
+    for replay in (False, True):
+        monkeypatch.setattr(port_swarm, "replays_graphs",
+                            replays if replay else lambda dev: False)
+        s = tdsa.make_swarm(8192, spread=90.0, seed=2, device=cuda)
+        s = s.replace(target=torch.zeros_like(s.pos),
+                      has_target=torch.ones_like(s.has_target))
+        start = port_cand.LAUNCHES
+        out, plan = port_swarm.swarm_rollout(s, None, fast,
+                                             2 * HASHGRID_CHUNK,
+                                             return_plan=True)
+        runs[replay] = (out, plan, port_cand.LAUNCHES - start)
+    (eager, pe, le), (graph, pg, lg) = runs[False], runs[True]
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+    assert int(pe.rebuilds) > 0 and int(pg.rebuilds) == int(pe.rebuilds)
+    assert le == lg == 2 * HASHGRID_CHUNK and port_swarm.CHUNKS_RERUN > 0

@@ -374,16 +374,31 @@ def test_slots_path_matches_the_tpu_kernel(cell, cap, budget, crowd, skin):
 
 
 def test_slots_sweep_abs_sum_bounds_the_planes():
-    pos, alive = swarm_arrays(300, 3, S_HW)
+    # The sweep's operands replace the slot planes: each cell's run of the
+    # sort bounds its in-grid agents, and the plain sum |term| bounds the
+    # force of every agent; the dead and the capped-out past the budget
+    # get exactly zero.
+    pos, alive = swarm_arrays(300, 3, S_HW, crowd=30, crowd_sd=0.5)
     plan = thp.build_hashgrid_plan(t(pos), t(alive), S_HW, 2.0, 8, g=16)
-    x, y, slot = tgrid.slot_planes(t(pos), plan)
-    assert x.shape == (16 * 16 * 8,) and slot.dtype == torch.int32
-    assert int((x != tgrid.SENTINEL).sum()) == int(plan.ok.sum())
-    args = (x, y, slot, 16, 8, 1, K_SEP, PS, EPS, S_HW)
-    fx, fy = tgrid.grid_sweep_plain(*args)
-    sx, sy = tgrid.grid_sweep_plain(*args, absolute=True)
-    assert (fx.abs() <= sx * (1 + 1e-6)).all() and (sx > 0).any()
-    assert (fx[x == tgrid.SENTINEL] == 0).all()
+    ops = tgrid.sweep_operands(t(pos), plan)
+    assert ops.bounds.shape == (16 * 16 + 1,)
+    assert ops.bounds.dtype == torch.int32
+    counts = ops.bounds[1:] - ops.bounds[:-1]
+    assert int(counts.clamp(max=8).sum()) == int(plan.ok.sum())
+    assert int(ops.bounds[-1]) == int(alive.sum())
+    over = int((counts - 8).clamp(min=0).sum())
+    assert over == int(plan.cap_overflow) > 4
+    budget = 4
+    args = (ops, 16, 8, 1, budget, K_SEP, PS, EPS, S_HW)
+    f = tgrid.grid_sweep_plain(*args)
+    s = tgrid.grid_sweep_plain(*args, absolute=True)
+    assert (f.abs() <= s * (1 + 1e-6)).all() and (s > 0).any()
+    in_grid, rescued = tgrid._receivers(ops, 16, 8, budget)
+    assert int(rescued.sum()) == budget
+    seen = torch.zeros(300, dtype=torch.bool)
+    seen[plan.order[in_grid | rescued].long()] = True
+    assert (f[~seen] == 0).all() and (s[~seen] == 0).all()
+    assert not seen[~t(alive)].any()
 
 
 C_HW, C_CAP = 24.0, 24
@@ -516,9 +531,11 @@ def test_kernel_wrappers_reject_cpu_tensors_and_import_builds_nothing(
     before = mod.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors"):
         if module == "grid_separation":
-            x = torch.zeros(16 * 16 * 8)
-            mod.grid_sweep_cuda(x, x, torch.zeros(4, dtype=torch.int32), 16,
-                                8, 1, K_SEP, PS, EPS, 16.0)
+            pos, alive = swarm_arrays(40, 1, 16.0)
+            plan = thp.build_hashgrid_plan(t(pos), t(alive), 16.0, 2.0, 8,
+                                           g=16)
+            mod.grid_sweep_cuda(mod.sweep_operands(t(pos), plan), 16, 8, 1,
+                                64, K_SEP, PS, EPS, 16.0)
         else:
             c = torch.zeros((4, 8), dtype=torch.int32)
             mod.candidate_sweep_cuda(torch.zeros(4, 2), c, c, K_SEP, PS, EPS,

@@ -274,6 +274,6 @@ def test_replayed_rollout_keeps_to_its_regime_and_raises(stand_in):
     with pytest.raises(RuntimeError, match="once a tick"):
         tsw.swarm_rollout(st, None, cfg, 16)
     assert tsw._chunk is None and twin.LAUNCHES == before
-    # The pallas and hashgrid modes never replay.
+    # The pallas, hashgrid and dense modes do not permute the agent axis.
     for mode in ("pallas", "hashgrid", "dense"):
         assert not tsw._permuting(cfg.replace(separation_mode=mode))

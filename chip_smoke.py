@@ -172,7 +172,13 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    beside its issue floor and in both its variants at the final state, with
    the clusters the card holds at once and its bound both ways: delta
    charged to the mutating elements, which its kernel skips elsewhere, and
-   to every element).
+   to every element; B16 also at a launch chained on that one's outputs,
+   each beside its bound restated by what the function needs (the moving
+   moth-steps and the moths stopped at the start, from the plain version's
+   tallies) and the old one, its issue floor from the warps' steps on the
+   data, and in its first version; and the MFO run replayed from its start
+   under a trace: the kernel's device time a launch and the run's idle
+   share).
    Phase 3 holds the four kernels at small ragged shapes (4 tiles or more,
    1 and k steps, GA at every k from 1 to 8, draws handed in and made in
    the kernel; DE past 32 genes, in its second variant at D = 200, and with
@@ -367,9 +373,17 @@ ROT_TPU_KERNELS = {"de": "de_fused.py:125", "shade": "shade_fused.py:122",
 #   mfo   101 = the draw (28), l (3), the flame select (1), |flame - x| (2),
 #         2^(b l log2 e) (20), cos 2 pi l (17), the spiral and the clip (5),
 #         rastrigin (23), the flame update (2); 3 = the own test, the flame
-#         fitness test and its select.
+#         fitness test and its select.  MFO's bound charges them at the
+#         moving moth-steps the plain version tallies, less the flame
+#         select (MFO_SELECT_OPS: a moth's flame is fixed over a launch, so
+#         the function chooses it once a moth), and each moth at the fixed
+#         point at the launch's start (MFO_STOPPED_OPS) its evaluation
+#         (rastrigin, 23) and test (x == flame, |flame| <= hw: 2) an
+#         element, the own test and the flame fitness test and select.
 ROT_OPS = {"de": (58, 12), "shade": (63, 128), "ga": (207, 150),
            "mfo": (101, 3)}
+MFO_SELECT_OPS = 1
+MFO_STOPPED_OPS = (25, 3)
 GA_DELTA_OPS = 43
 GA_UNIFORM_OPS = 3
 GA_QUARTER_CALL_OPS = 25
@@ -492,6 +506,9 @@ HHO_MAIN = "hho_sorted_kernelILi2ELi1ELb0E"
 # The main kernel of the redesigned B15: D mod 4 = 2, rastrigin, device
 # draws.
 GA_MAIN = "ga_cluster_kernelILi2ELi1ELb0E"
+# The main kernel of the redesigned B16: D mod 4 = 2, rastrigin, device
+# draws.
+MFO_MAIN = "mfo_sorted_kernelILi2ELi1ELb0E"
 # The main kernels of the redesigned B9 and B11: D mod 4 = 2, rastrigin,
 # device draws.  B9 has no second variant (its design covers D <= 452).
 SALP_MAIN = "salp_chain_kernelILi2ELi1ELb0E"
@@ -520,19 +537,22 @@ REDESIGNED = ((("de", "de_fused", DE_MAIN),
               (("shade", "shade_fused", SHADE_MAIN),
                ("window", "window_separation", WINDOW_MAIN)),
               (("grid", "grid_separation", GRID_MAIN),
-               ("cand", "candidate_sweep", CAND_MAIN)))
+               ("cand", "candidate_sweep", CAND_MAIN)),
+              (("mfo", "mfo_fused", MFO_MAIN),))
 SECOND_VARIANTS = {"de": "de_global_kernel", "cuckoo": "cuckoo_global_kernel",
                    "bat": "bat_cand_tile_kernel", "abc": "abc_global_kernel",
                    "pt": "pt_cand_tile_kernel",
                    "hho": "hho_trial_tile_kernel",
                    "ga": "ga_global_kernel", "woa": "woa_lane_kernel",
-                   "window": "window_global_kernel"}
+                   "window": "window_global_kernel",
+                   "mfo": "mfo_lane_kernel"}
 SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "bat": "candidate_tile_geometry",
                    "abc": "global_geometry",
                    "pt": "candidate_tile_geometry",
                    "hho": "trial_tile_geometry",
-                   "ga": "global_geometry", "woa": "lane_geometry"}
+                   "ga": "global_geometry", "woa": "lane_geometry",
+                   "mfo": "lane_geometry"}
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
@@ -2537,6 +2557,7 @@ def rot_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0):
                   p_mut=max(1.0 / d, 0.1))
     else:
         flames = to(g.uniform(-hw, hw, (d, n)))
+        mfo_fixed_moths(g, pos, flames, hw)
         ffit = pf.OBJECTIVES_T[name](flames)
         ffit[0, ::9] = float("inf")
         n_flames = int(g.integers(1, n + 1))
@@ -2549,6 +2570,18 @@ def rot_case(mods, pf, fam, name, n, d, k, rng, dev, tile_n, seed=0):
         args += draws
     return (getattr(mods[fam], f"fused_{fam}_step_cuda"),
             getattr(mods[fam], f"fused_{fam}_step_plain"), args, kw)
+
+
+def mfo_fixed_moths(g, pos, flames, hw):
+    """About half the moths set equal to their flames (those below
+    n_flames start at B16's fixed point): one with a flame component of -0
+    beside its +0, one at a flame outside the domain, which must move."""
+    d, n = pos.shape
+    same = torch.from_numpy(np.nonzero(g.uniform(size=n) < 0.5)[0]).to(
+        pos.device)
+    pos[:, same] = flames[:, same]
+    flames[0, same[0]], pos[0, same[0]] = -0.0, 0.0
+    flames[min(1, d - 1), same[1]] = pos[min(1, d - 1), same[1]] = 2 * hw
 
 
 def rot_small_shapes(mods, pf, dev):
@@ -2591,6 +2624,11 @@ def rot_small_shapes(mods, pf, dev):
         ("mfo", "styblinski_tang", 1000, 30, 8, "device", 200),
         ("mfo", "rosenbrock", 77, 1, 32, "device", 77),
         ("mfo", "ackley", 640, 30, 8, "device", 128),
+        ("mfo", "rastrigin", 4096, 30, 8, "device", 1024),
+        ("mfo", "sphere", 1024, 28, 8, "device", 256),
+        ("mfo", "schwefel", 1000, 29, 5, "device", 200),
+        ("mfo", "griewank", 512, 31, 3, "device", 128),
+        ("mfo", "rastrigin", 256, 908, 2, "device", 128),
     ]
     for fam, name, n, d, k, rng, tile_n in cases:
         kernel, plain, args, kw = rot_case(mods, pf, fam, name, n, d, k, rng,
@@ -2676,10 +2714,18 @@ def rot_bound_ms(fam, n, d, k_steps, needed=None):
     memory rate.  ``needed`` (GA: the plain version's tallies, summed over
     the launch) charges the work that depends on the data only where the
     function needs it; a tally it lacks charges that work at every
-    element."""
+    element.  MFO's ``needed`` (its tallies summed over the launch):
+    ``moving`` moth-steps charged in full but for the flame select,
+    ``stopped_at_start`` moths one evaluation and the test each
+    (``MFO_STOPPED_OPS``)."""
     per_elem, per_particle = ROT_OPS[fam]
     ops = k_steps * n * (d * per_elem + per_particle)
-    if needed is not None:
+    if needed is not None and fam == "mfo":
+        ops = (needed["moving"] * (d * (per_elem - MFO_SELECT_OPS)
+                                   + per_particle)
+               + needed["stopped_at_start"] * (d * MFO_STOPPED_OPS[0]
+                                               + MFO_STOPPED_OPS[1]))
+    elif needed is not None:
         elems = k_steps * n * d
         skipped = lambda key: elems - needed.get(key, elems)  # noqa: E731
         ops -= (GA_DELTA_OPS + GA_UNIFORM_OPS) * skipped("mutated")
@@ -2776,6 +2822,155 @@ def rot_launch_args(mods, fam, state, seed, dev):
             dict(kw, k_steps=k, step0=steps))
 
 
+def mfo_warp_steps(lane_steps, k_steps, lanes=128):
+    """(warps, warps holding a moth stopped at the start, warp-steps) of a
+    B16 launch from the steps each moth takes (the plain version's
+    ``lane_steps``): a block sorts its moving moths to the front before
+    every step, so it runs ceil(m / 32) warps at a step where m moths
+    move."""
+    pad = (-lane_steps.numel()) % lanes
+    ls = torch.cat([lane_steps.long(), lane_steps.new_full((pad,), -1)])
+    blocks = ls.reshape(-1, lanes)
+    warps = int((blocks >= 0).reshape(-1, 32).any(1).sum())
+    holding = int((blocks == 0).reshape(-1, 32).any(1).sum())
+    steps = sum(int((((blocks > s).sum(1) + 31) // 32).sum())
+                for s in range(k_steps))
+    return warps, holding, steps
+
+
+def mfo_issue_floor(census, lane_steps, d, k_steps, clock_mhz):
+    """B16's issue floor on one launch, from its SASS and the warps' steps
+    on the data (``mfo_warp_steps``).  The step loop is the widest loop; a
+    warp-step issues its chunk loop (four dimensions: the Philox group, the
+    spirals, the folded terms; an inner loop with the most 32-bit
+    products, own moths and the others having one each) D // 4 times and
+    the rest of its path through the step loop (the sort, the last D mod 4
+    dimensions, the close, the test) once, the flame's copy at an
+    improvement left out.  A warp holding a moth stopped at the start also
+    issues its evaluation's loop (four terms; the last loop before the step
+    loop with no 32-bit product, the staging's loops coming before it)
+    D // 4 times.  The staging and the write-out, which wait on memory,
+    are left out.  Only predicated branches back make loops, as in
+    ``abc_issue_floor``."""
+    loops = [lp for lp in census.get("loops") or [] if lp[4]]
+    if not loops:
+        return None, None, None
+    step = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp is not step
+             and step[0] <= lp[0] and lp[1] <= step[1]]
+    plain = [lp for lp in loops if lp[1] < step[0] and lp[3] == 0]
+    if not inner or not plain:
+        return None, None, None
+    # Own moths and the others run separate instances of the chunk loop
+    # (the two with the most 32-bit products); a warp-step issues one, and
+    # of the other path its last D mod 4 dimensions neither, counted as
+    # (D mod 4) / 4 of its chunk loop.
+    chunk, *other = sorted(inner, key=lambda lp: (-lp[3], -lp[2], lp[0]))
+    other = [lp for lp in other if lp[3] == chunk[3]]
+    skipped = (d % 4) / 4 * sum(lp[2] for lp in other)
+    evaluate = max(plain, key=lambda lp: lp[0])
+    per_step = ((d // 4) * chunk[2] + step[2] - skipped
+                - sum(lp[2] for lp in inner))
+    warps, holding_fixed, warp_steps = mfo_warp_steps(lane_steps, k_steps)
+    instructions = 32 * (holding_fixed * (d // 4) * evaluate[2]
+                         + warp_steps * per_step)
+    return (instructions / (lane_steps.numel() * d * k_steps),
+            issue_floor_ms(instructions, clock_mhz),
+            dict(chunk_loop=chunk[2], step_loop=step[2],
+                 other_path=skipped, per_warp_step=per_step,
+                 evaluation_loop=evaluate[2], warps=warps,
+                 warps_holding_a_stopped_moth=holding_fixed,
+                 warp_steps=warp_steps))
+
+
+def mfo_run_trace(opt, start, steps, run_ms, n_launches, smi):
+    """The timed MFO run replayed from its start (its state and its
+    generator's) under a ``torch.profiler`` trace, which must end where the
+    run ended: the kernel's device time a launch, the run's device busy
+    time and idle share (against the unprofiled run)."""
+    end = opt.state
+    opt.state = start[0]
+    opt.state.gen.set_state(start[1])
+    busy, ops, top = device_time(lambda: opt.run(steps), 1)
+    from distributed_swarm_algorithm_tpu_torch.ops.mfo import (
+        MFO_TENSOR_FIELDS,
+    )
+    unequal = [f for f in MFO_TENSOR_FIELDS
+               if not torch.equal(getattr(opt.state, f), getattr(end, f))]
+    check(not unequal, f"mfo: the traced replay of the run differs in "
+                       f"{unequal}")
+    kernel_ms = sum(r["ms_per_tick"] for r in top
+                    if "mfo_sorted_kernel" in r["kernel"]
+                    or "mfo_lane_kernel" in r["kernel"])
+    out = dict(run_device_busy_ms=busy,
+               run_device_idle_share=(None if busy is None
+                                      else 1.0 - busy / run_ms),
+               kernel_device_ms_per_launch_in_run=kernel_ms / n_launches,
+               kernel_device_share_of_run=kernel_ms / run_ms)
+    record(phase="mfo_run_trace", steps=steps, run_ms=run_ms,
+           device_ops_per_run=ops, top_device_ops=top, smi=smi, **out)
+    return out
+
+
+def mfo_chained_args(args, step_kw, out, iteration, dev):
+    """The launch the run makes after the one at ``args`` when no re-sort
+    falls between: its outputs ``out`` in, the schedule of ``iteration``,
+    the clamp flame taken again, the next steps' draws."""
+    from distributed_swarm_algorithm_tpu_torch.ops.mfo import schedule
+    steps, k, t_max = ROT["mfo"]
+    frac, n_flames = schedule(iteration, ZOO_N, t_max, torch.float32)
+    r_lo = torch.round((-1.0 - frac) * 65536.0).to(torch.int32)
+    last = out[2].index_select(1, (n_flames - 1).long().reshape(1))
+    scalars = torch.cat([args[0][:1], n_flames.reshape(1).to(torch.int32),
+                         r_lo.reshape(1)])
+    return ([scalars, last, out[0], out[2], out[3]],
+            dict(step_kw, step0=step_kw["step0"] + k))
+
+
+def mfo_launches(mod, kernel, args, step_kw, got, counts, state, census,
+                 smi, dev):
+    """B16 at the final state and at the launch chained on its outputs:
+    each against its plain version, timed in its geometry and in its first
+    version, twice in turn, beside its bound restated from the plain
+    version's tallies, the bound charging every element-step, and its
+    issue floor."""
+    steps, k, t_max = ROT["mfo"]
+    args2, kw2 = mfo_chained_args(args, step_kw, got, state.iteration + k,
+                                  dev)
+    counts2 = {}
+    want2 = mod.fused_mfo_step_plain(*args2, **kw2, counts=counts2)
+    compare_family("mfo", "rastrigin", "main path, chained launch",
+                   kernel(*args2, **kw2), want2, k)
+    settings = {"default": mod.mfo_geometry,
+                "first_version": mod.lane_geometry}
+    times = {}
+    for rep in range(2):
+        for name, fn in settings.items():
+            with geometry(mod, "mfo_geometry", fn):
+                for label, a, kw in (("final_state", args, step_kw),
+                                     ("chained", args2, kw2)):
+                    times.setdefault(f"{name}_{label}_ms", []).append(
+                        cuda_ms(lambda: kernel(*a, **kw), 10))
+    out = dict(times_ms=times)
+    clock = census["clock_mhz"]
+    for label, c in (("final_state", counts), ("chained", counts2)):
+        needed = {key: int(sum(int(v) for v in c[key]))
+                  for key in ("moving", "stopped_at_start")}
+        out[label] = dict(
+            needed=needed,
+            moving_by_step=[int(v) for v in c["moving"]],
+            share_of_lane_steps=needed["moving"] / (ZOO_N * k),
+            bound_ms=rot_bound_ms("mfo", ZOO_N, ZOO_DIM, k, needed)[0],
+            bound_ms_every_element=rot_bound_ms("mfo", ZOO_N, ZOO_DIM,
+                                                k)[0],
+            issue_floor=mfo_issue_floor(census["mfo"], c["lane_steps"][0],
+                                        ZOO_DIM, k, clock))
+    out["final_state_floor"] = out["final_state"]["issue_floor"][:2]
+    out["chained_ms"] = min(times["default_chained_ms"])
+    out["geometry"] = tuple(mod.mfo_geometry(ZOO_DIM))
+    return out
+
+
 def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     """Phase 12 for one family: the model's run at its bench's width after
     a warm-up launch, counted and checked (SHADE's device busy share from a
@@ -2797,6 +2992,7 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     bests = [rot_incumbent(fam, opt.state)]
     opt.run(k)                                       # warm-up: one launch
     bests.append(rot_incumbent(fam, opt.state))
+    start = (opt.state, opt.state.gen.get_state())
     reset_launches(kernels)
     _, run_ms = timed(lambda: opt.run(steps))
     launches = {name: m.LAUNCHES for name, m in kernels.items()}
@@ -2824,9 +3020,11 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     check(max_pos <= hw32, f"{fam}: a position left the domain")
     check(tuple(state.pos.shape) == (ZOO_N, ZOO_DIM)
           and rec["iteration"] == k + steps, f"{fam}: wrong state")
+    trace = {}
     if fam == "mfo":
         check(bool((state.flame_fit[1:] >= state.flame_fit[:-1]).all()),
               "mfo: the flames are not in rank order")
+        trace = mfo_run_trace(opt, start, steps, run_ms, n_launches, smi)
     if fam == "shade":
         # The run above paid the capture of two generations; these replay
         # it alone.
@@ -2861,11 +3059,13 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     kernel = getattr(mod, f"fused_{fam}_step_cuda")
     got = kernel(*args, **step_kw)
     counts = {}
-    plain_kw = dict(step_kw, counts=counts) if fam == "ga" else step_kw
+    plain_kw = (dict(step_kw, counts=counts) if fam in ("ga", "mfo")
+                else step_kw)
     want, plain_ms = timed(
         lambda: getattr(mod, f"fused_{fam}_step_plain")(*args, **plain_kw))
     needed = ({key: int(sum(int(v) for v in vals))
-               for key, vals in counts.items()} if fam == "ga" else None)
+               for key, vals in counts.items() if key != "lane_steps"}
+              if fam in ("ga", "mfo") else None)
     cmp = compare_family(fam, "rastrigin", "main path, final state", got,
                          want, k)
     if fam == "de":
@@ -2875,6 +3075,9 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
         variant_times(fam, mod, kernel,
                       [("final_state", args, step_kw, want)], k, smi)
     extra = {}
+    if fam == "mfo":
+        extra = mfo_launches(mod, kernel, args, step_kw, got, counts, state,
+                             census, smi, dev)
     if fam == "shade":
         # The generation from a counter on the device, as a replayed run
         # hands it, draws what the int does.
@@ -2891,6 +3094,9 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
     ms = cuda_ms(lambda: kernel(*args, **step_kw), 10)
     bound, bound_by, ops, nbytes = rot_bound_ms(fam, ZOO_N, ZOO_DIM, k,
                                                 needed)
+    if fam == "mfo":
+        extra.update(trace, bound_ms_every_element=rot_bound_ms(
+            fam, ZOO_N, ZOO_DIM, k)[0], needed=needed)
     if fam == "ga":
         extra = dict(needed_elements=needed,
                      bound_ms_every_element=rot_bound_ms(
@@ -2900,12 +3106,16 @@ def rot_full_width(dsa, fam, mods, kernels, smi, t_start, dev, census):
               "shade": shade_issue_floor}
     floor = (floors[fam](census[fam], ZOO_N, ZOO_DIM, k, census["clock_mhz"])
              if fam in floors else (None, None))
+    # MFO's launches differ in work, so its share comes from the trace.
+    share = ms * launches[f"{fam}_fused"] / run_ms
+    if fam == "mfo":
+        floor = extra.pop("final_state_floor")
+        share = extra.pop("kernel_device_share_of_run")
     record(phase=f"{fam}_fused_timing", shape=[ZOO_DIM, ZOO_N], k_steps=k,
            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
            bound_by=bound_by, operations=ops, bytes=nbytes,
            instructions_per_element_step=floor[0], issue_floor_ms=floor[1],
-           ptxas=census.get(f"{fam}_ptxas"),
-           kernel_share_of_run=ms * launches[f"{fam}_fused"] / run_ms,
+           ptxas=census.get(f"{fam}_ptxas"), kernel_share_of_run=share,
            smi=smi, seconds_so_far=time.perf_counter() - t_start, **extra)
     return dict(name=f"{fam}_fused", route="cuda",
                 source=f"distributed_swarm_algorithm_tpu_torch/csrc/"

@@ -22,18 +22,27 @@ Random numbers (``rng="device"``): Philox4x32-10 keyed by the seed, the
 spiral's uniforms on stream 0 over the dimensions, counter (lane, block of
 four dimensions, global step, 0).  ``rng="host"`` takes them as the operand
 ``r_l`` [D, N] (one step per call).
+
+The fixed point (``csrc/mfo_fused.cu``'s header): an own moth equal to its
+flame, the flame inside the domain, stays so at every step, up to the sign
+of a zero.  So the kernel stops an own moth after the step that improves
+its flame, evaluates a moth found at the fixed point when the launch starts
+once, and regroups the moths still moving into whole warps before every
+step.  The plain version computes every step; its ``counts`` tally what
+the kernel needs.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..mfo import SPIRAL_B, T_MAX, MFOState, schedule
 from . import family
-from .common import cyclic_pad_rows
+from .common import ceil_to, cyclic_pad_rows
 from .pso_fused import (
     OBJECTIVE_IDS,
     OBJECTIVES_T,
@@ -54,13 +63,70 @@ _fn = None   # the C entry, bound at the first launch
 # The JAX package's cap on steps_per_kernel for this family.
 MAX_STEPS_PER_KERNEL = 32
 R_LO_FX = 65536.0    # fixed-point denominator of the l range's lower end
+# The largest |b| for which b l log2 e stays finite for every l a launch
+# can draw (|l| <= 65,537), as the kernel's entry checks it.
+MAX_SPIRAL_B = 1e30
+
+# The main variant's block: 128 moths, the moving ones regrouped before
+# every step.
+SORTED_LANES = 128
+
+
+class MfoGeometry(NamedTuple):
+    """How the kernel runs, handed to its entry, which checks it."""
+    variant: int    # 0: moths stopped at the fixed point, regrouped; 1: the
+    #                 first version
+    lanes: int      # moths (threads) a block
+    shared: int     # dynamic shared memory a block, bytes
 
 
 def kernel_block(dim: int) -> int:
-    """Threads per block of the kernel: the largest of 128, 64 and 32 whose
-    moth and flame ``[D][block]`` f32 tiles fit a block's shared memory, or
-    0 (D > 908)."""
+    """Threads per block of the kernel's first version: the largest of 128,
+    64 and 32 whose moth and flame ``[D][block]`` f32 tiles fit a block's
+    shared memory, or 0 (D > 908)."""
     return family.pick_block(lambda block: 2 * dim * block * 4)
+
+
+def sorted_bytes(dim: int) -> int:
+    """Shared memory of a main-variant block: the moths' positions and
+    flames ``[D][128]`` each, ``last`` (padded to four), two ``[128]`` rows
+    (the flame fitness by moth, the moths by place) and the warps' counts
+    ``[4]``."""
+    lanes = SORTED_LANES
+    return 4 * (2 * dim * lanes + ceil_to(dim, 4) + 2 * lanes + lanes // 32)
+
+
+def mfo_geometry(dim: int) -> MfoGeometry:
+    """Blocks of 128 moths, stopped at the fixed point and regrouped, where
+    their block fits (D <= 225); wider, the first version
+    (:func:`lane_geometry`)."""
+    shared = sorted_bytes(dim)
+    if shared <= family.MAX_SHARED_BYTES:
+        return MfoGeometry(0, SORTED_LANES, shared)
+    return lane_geometry(dim)
+
+
+def lane_geometry(dim: int) -> MfoGeometry:
+    """The first version at any D of the envelope: every step of every
+    moth, two [D][block] tiles, the block from :func:`kernel_block`."""
+    lanes = kernel_block(dim)
+    return MfoGeometry(1, lanes, 2 * dim * lanes * 4)
+
+
+def can_stop(half_width: float, b: float) -> bool:
+    """Whether the fixed point holds for a launch: ``half_width`` finite and
+    ``b l log2 e`` finite for every l it can draw."""
+    return math.isfinite(half_width) and abs(b) <= MAX_SPIRAL_B
+
+
+def at_fixed_point(own, pos, flames, half_width, b) -> torch.Tensor:
+    """[1, N] bool: the moths at the fixed point, which every step of a
+    launch leaves as they are (up to the sign of a zero): own, equal to
+    their flame in every dimension, the flame inside the domain."""
+    if not can_stop(half_width, b):
+        return torch.zeros_like(own)
+    return (own & (pos == flames).all(0, keepdim=True)
+            & (flames.abs() <= half_width).all(0, keepdim=True))
 
 
 def mfo_pallas_supported(objective_name: str, dtype, dim=None) -> bool:
@@ -79,15 +145,30 @@ def resort_flames(flame_pos_t: torch.Tensor, flame_fit: torch.Tensor):
 
 
 def mfo_steps_plain(scalars, last, pos, flames, flame_fit, r_l,
-                    objective_name, half_width, b, tile_n, k_steps, step0):
+                    objective_name, half_width, b, tile_n, k_steps, step0,
+                    counts=None):
     """``k_steps`` spiral flights on ``[D, N]``; ``r_l is None`` draws from
-    Philox.  Returns (pos, fit, flames, flame_fit)."""
+    Philox.  Returns (pos, fit, flames, flame_fit).  ``counts`` (a dict)
+    collects what the kernel needs of the launch with its own draws (with
+    handed draws it takes every step; device tensors, no wait):
+    ``stopped_at_start``, the moths at the fixed point at its start;
+    ``moving``, at each step the moths still moving (the rest: own moths
+    past the step that improved their flame); ``lane_steps`` [N], the
+    steps each moth takes."""
     objective_t = OBJECTIVES_T[objective_name]
     d, n = pos.shape
     seed = scalars[0:1]
     r_lo = scalars[2].to(torch.float32) / R_LO_FX
     own = torch.arange(n, device=pos.device)[None, :] < scalars[1]
+    if counts is not None:
+        moving = ~at_fixed_point(own, pos, flames, half_width, b)
+        stops = own & can_stop(half_width, b)
+        steps = torch.zeros((1, n), dtype=torch.int32, device=pos.device)
+        counts.setdefault("stopped_at_start", []).append((~moving).sum())
     for step in range(k_steps):
+        if counts is not None:
+            counts.setdefault("moving", []).append(moving.sum())
+            steps += moving.to(torch.int32)
         u = (philox_uniforms(seed, n, d, step0 + step, 0) if r_l is None
              else r_l)
         l = u * (1.0 - r_lo) + r_lo                 # U(r, 1)
@@ -99,6 +180,10 @@ def mfo_steps_plain(scalars, last, pos, flames, flame_fit, r_l,
         better = mfit < flame_fit
         flames = torch.where(better, pos, flames)
         flame_fit = torch.where(better, mfit, flame_fit)
+        if counts is not None:
+            moving = moving & ~(better & stops)
+    if counts is not None:
+        counts.setdefault("lane_steps", []).append(steps[0])
     return pos, mfit, flames, flame_fit
 
 
@@ -112,14 +197,15 @@ def fused_mfo_step_plain(
     scalars, last_flame, pos, flames, flame_fit, r_l=None, *,
     objective_name: str, half_width: float = 5.12, b: float = SPIRAL_B,
     tile_n: int = 4096, rng: str = "device", k_steps: int = 1,
-    step0: int = 0,
+    step0: int = 0, counts=None,
 ):
     """The plain PyTorch version of :func:`fused_mfo_step_cuda`, on any
-    device; same arguments and results."""
+    device; same arguments and results (``counts``: see
+    :func:`mfo_steps_plain`)."""
     _check(rng, r_l, k_steps, tile_n, pos.shape[1])
     return mfo_steps_plain(scalars, last_flame, pos, flames, flame_fit,
                            r_l if rng == "host" else None, objective_name,
-                           half_width, b, tile_n, k_steps, step0)
+                           half_width, b, tile_n, k_steps, step0, counts)
 
 
 def _kernel():
@@ -127,7 +213,7 @@ def _kernel():
     if _fn is None:
         i, fl = ctypes.c_int, ctypes.c_float
         _fn = family.bind("mfo_fused", "dsa_mfo_fused_f32", 10,
-                          [i, i, i, i, ctypes.c_uint, i, fl, fl])
+                          [i, i, i, i, ctypes.c_uint, i, fl, fl, i, i, i])
     return _fn
 
 
@@ -143,8 +229,8 @@ def fused_mfo_step_cuda(
     CUDA device; N a multiple of ``tile_n``).  ``scalars`` is [3] int32 on
     the device: the seed, ``n_flames`` and the l range's lower end in 16.16
     fixed point; ``step0`` is the global index of the launch's first step.
-    Returns new tensors ``(pos, fit, flames, flame_fit)`` without waiting
-    for the kernel."""
+    A block as :func:`mfo_geometry` says.  Returns new tensors ``(pos, fit,
+    flames, flame_fit)`` without waiting for the kernel."""
     global LAUNCHES
     d, n = pos.shape if pos.ndim == 2 else (0, 0)
     _check(rng, r_l, k_steps, tile_n, n)
@@ -166,7 +252,7 @@ def fused_mfo_step_cuda(
         flames.data_ptr(), flame_fit.data_ptr(), family.ptr(r_l),
         *(o.data_ptr() for o in outs), n, d, int(tile_n), int(k_steps),
         int(step0) & _MASK32, OBJECTIVE_IDS[objective_name], float(b),
-        float(half_width), *family.stream_args(pos),
+        float(half_width), *mfo_geometry(d), *family.stream_args(pos),
     )
     family.check_launch(err, "mfo")
     LAUNCHES += 1

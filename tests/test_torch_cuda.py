@@ -1074,6 +1074,7 @@ def _rot_case(fam, name, n, d, k, rng, device, tile_n, seed=0):
                   p_mut=max(1.0 / d, 0.1))
     else:
         flames = to(g.uniform(-hw, hw, (d, n)))
+        _mfo_fixed_moths(g, pos, flames, hw)
         ffit = port_pf.OBJECTIVES_T[name](flames)
         ffit[0, ::9] = float("inf")
         n_flames = int(g.integers(1, n + 1))
@@ -1087,6 +1088,19 @@ def _rot_case(fam, name, n, d, k, rng, device, tile_n, seed=0):
     mod = ROTATIONAL[fam]
     return (getattr(mod, f"fused_{fam}_step_cuda"),
             getattr(mod, f"fused_{fam}_step_plain"), args, kw)
+
+
+def _mfo_fixed_moths(g, pos, flames, hw):
+    """About half the moths set equal to their flames (those below
+    n_flames start at the fixed point, B16's stopped moths): one with a
+    flame component of -0 beside its +0, one at a flame outside the
+    domain, which must move."""
+    d, n = pos.shape
+    same = torch.from_numpy(np.nonzero(g.uniform(size=n) < 0.5)[0]).to(
+        pos.device)
+    pos[:, same] = flames[:, same]
+    flames[0, same[0]], pos[0, same[0]] = -0.0, 0.0
+    flames[min(1, d - 1), same[1]] = pos[min(1, d - 1), same[1]] = 2 * hw
 
 
 ROT_CASES = [
@@ -1107,6 +1121,13 @@ ROT_CASES = [
     ("mfo", "styblinski_tang", 1000, 30, 8, "device", 200),
     ("mfo", "rosenbrock", 77, 1, 32, "device", 77),
     ("mfo", "ackley", 640, 30, 8, "device", 128),
+    # B16's redesign: D mod 4 of 0, 1, 3 beside 2; the main path's shape
+    # at 4 tiles; D = 908, the first version.
+    ("mfo", "rastrigin", 4096, 30, 8, "device", 1024),
+    ("mfo", "sphere", 1024, 28, 8, "device", 256),
+    ("mfo", "schwefel", 1000, 29, 5, "device", 200),
+    ("mfo", "griewank", 512, 31, 3, "device", 128),
+    ("mfo", "rastrigin", 256, 908, 2, "device", 128),
 ]
 
 
@@ -4147,3 +4168,157 @@ def test_graph_replayed_hashgrid_rollout_through_the_handle(cuda,
         assert torch.equal(getattr(graph, f), getattr(eager, f)), f
     assert int(pe.rebuilds) > 0 and int(pg.rebuilds) == int(pe.rebuilds)
     assert le == lg == 2 * HASHGRID_CHUNK and port_swarm.CHUNKS_RERUN > 0
+
+
+# --------------------------------------------------------------------------
+# Rule 2's redesign of B16 (csrc/mfo_fused.cu, mfo_sorted_kernel): moths at
+# their flame's fixed point stopped, the moving ones regrouped.  Each case
+# equals the plain version under torch.equal, moths stopped at the start,
+# moths stopped mid-launch and moths past n_flames included.
+# --------------------------------------------------------------------------
+
+
+def _mfo_settings(setting):
+    """The wrapper's geometry function for a setting of B16: the main
+    variant at any D it holds, or the first version."""
+    return {"main": lambda d: port_mfo.MfoGeometry(
+                0, 128, port_mfo.sorted_bytes(d)),
+            "first version": port_mfo.lane_geometry}[setting]
+
+
+def _mfo_launch_equal(args, kw, monkeypatch, setting):
+    """One launch of B16 in ``setting`` against the plain version; returns
+    the plain version's outputs and tallies."""
+    monkeypatch.setattr(port_mfo, "mfo_geometry", _mfo_settings(setting))
+    before = port_mfo.LAUNCHES
+    got = port_mfo.fused_mfo_step_cuda(*args, **kw)
+    assert port_mfo.LAUNCHES == before + 1
+    counts = {}
+    want = port_mfo.fused_mfo_step_plain(*args, **kw, counts=counts)
+    _assert_family_equal(kw["objective_name"], got, want)
+    return want, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["main", "first version"])
+def test_mfo_redesign_mid_window_and_after_a_resort(cuda, monkeypatch,
+                                                    setting):
+    # Launches chained as the run chains them between its re-sorts, from a
+    # fresh state (the flames sorted): after the first, most moths start at
+    # the fixed point; then the flames re-sorted, which hands most moths
+    # another flame.  4,096 x 30 rastrigin in 4 tiles, n_flames < N.
+    from distributed_swarm_algorithm_tpu_torch.ops import mfo
+    from distributed_swarm_algorithm_tpu_torch.ops.mfo import schedule
+    fn, hw = port_obj.get_objective("rastrigin")
+    st = mfo.mfo_init(fn, 4096, 30, hw, seed=0, device=cuda)
+    pos, flames = st.pos.T.contiguous(), st.flame_pos.T.contiguous()
+    ffit = st.flame_fit[None, :].contiguous()
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    stopped = []
+    for i in range(4):
+        if i == 3:
+            flames, row = port_mfo.resort_flames(flames, ffit[0])
+            ffit = row[None, :].contiguous()
+        frac, n_flames = schedule(torch.tensor(100 + 8 * i, device=cuda),
+                                  4096, 1000, torch.float32)
+        r_lo = torch.round((-1.0 - frac) * 65536.0).to(torch.int32)
+        last = flames.index_select(1, (n_flames - 1).long().reshape(1))
+        args = [torch.cat([seed, n_flames.reshape(1), r_lo.reshape(1)]),
+                last, pos, flames, ffit]
+        kw = dict(objective_name="rastrigin", half_width=hw, tile_n=1024,
+                  k_steps=8, step0=8 * i)
+        (pos, _, flames, ffit), counts = _mfo_launch_equal(
+            args, kw, monkeypatch, setting)
+        assert int(n_flames) < 4096
+        stopped.append(int(counts["stopped_at_start"][0]))
+        assert int(counts["moving"][-1]) < int(counts["moving"][0])
+    assert stopped[0] == 0 and stopped[1] > 2048 and stopped[2] > 2048
+    assert stopped[3] < stopped[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d", [
+    ("sphere", 28), ("rastrigin", 29), ("schwefel", 30),
+    ("styblinski_tang", 31), ("ackley", 30), ("rosenbrock", 5),
+    ("griewank", 9), ("levy", 7), ("zakharov", 3), ("michalewicz", 10)])
+def test_mfo_redesign_objectives_and_widths(cuda, monkeypatch, name, d):
+    # Every objective, D mod 4 of 0 to 3, device draws over 8 steps and
+    # handed draws over one; a flame outside the domain with the moth on
+    # it moves (the case's inputs).
+    for rng, k in (("device", 8), ("host", 1)):
+        _, _, args, kw = _rot_case("mfo", name, 1024, d, k, rng, cuda, 256)
+        want, counts = _mfo_launch_equal(args, kw, monkeypatch, "main")
+        if rng == "device":
+            assert int(counts["stopped_at_start"][0]) > 0
+        assert float(want[0].abs().max()) <= np.float32(kw["half_width"])
+
+
+@pytest.mark.cuda
+def test_mfo_redesign_takes_every_step_where_the_fixed_point_may_fail(
+        cuda, monkeypatch):
+    # An infinite domain, a huge spiral exponent: no moth stops, and the
+    # kernel still equals the plain version.  The widest D of the main
+    # variant (225) and the first version past it (226).
+    _, _, args, kw = _rot_case("mfo", "sphere", 512, 12, 4, "device", cuda,
+                               128)
+    for extra in (dict(half_width=float("inf")), dict(b=1e31)):
+        _, counts = _mfo_launch_equal(args, dict(kw, **extra), monkeypatch,
+                                      "main")
+        assert int(counts["stopped_at_start"][0]) == 0
+    monkeypatch.undo()
+    for d, variant in ((225, 0), (226, 1)):
+        assert port_mfo.mfo_geometry(d).variant == variant
+        _, _, args, kw = _rot_case("mfo", "rastrigin", 256, d, 2, "device",
+                                   cuda, 128)
+        got = port_mfo.fused_mfo_step_cuda(*args, **kw)
+        _assert_family_equal("rastrigin", got,
+                             port_mfo.fused_mfo_step_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [
+    (0, 64, 4 * (2 * 30 * 64 + 32 + 64 + 2)),          # not 128 moths
+    (0, 128, 30720),                                    # bytes
+    (0, 128, 4 * (2 * 30 * 128 + 32 + 128 + 4)),        # a row too few
+    (1, 64, 2 * 30 * 64 * 4),                           # not its block
+    (2, 128, 30720),                                    # no variant
+], ids=lambda v: str(v))
+def test_mfo_entry_rejects_a_geometry_it_cannot_run(cuda, monkeypatch, geo):
+    monkeypatch.setattr(port_mfo, "mfo_geometry",
+                        lambda d: port_mfo.MfoGeometry(*geo))
+    kernel, _, args, kw = _rot_case("mfo", "sphere", 1024, 30, 2, "device",
+                                    cuda, 256)
+    before = port_mfo.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel(*args, **kw)
+    assert port_mfo.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_mfo_hoisted_philox_equals_philox4x32_10(cuda):
+    # Stream 0's group from philox_one.cuh on the lane's and the step's
+    # products, beside philox4x32_10's words on the card and the plain
+    # version's (ops/cuda/pso_fused.py).
+    words, (lane, grp, ctr, seed) = _philox_check_words(
+        cuda, "mfo_fused", "dsa_mfo_philox_check", 8)
+    assert np.array_equal(words[:, :4], words[:, 4:])
+    want = torch.stack(port_pf.philox4x32_10(lane, grp, ctr, 0, seed, 0), 1)
+    assert np.array_equal(words[:, :4], want.numpy())
+
+
+@pytest.mark.cuda
+def test_mfo_redesign_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["mfo_fused"])
+    # 4 classes of D mod 4 x 10 objectives x 2 sources of the draws, beside
+    # the first version and the Philox check.
+    log = _build.build_log("mfo_fused")
+    entries = [ln for ln in log.splitlines()
+               if "Compiling entry" in ln and "mfo_sorted_kernel" in ln]
+    assert len(entries) == 80, len(entries)
+    for other in ("mfo_lane_kernel", "philox_check_kernel"):
+        assert other in log, other
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= len(entries) + 2, spills
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills

@@ -335,3 +335,163 @@ def test_model_backend_switch(monkeypatch):
             " as m; assert m._fn is None and m.LAUNCHES == 0")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=120)
+
+
+# --------------------------------------------------------------------------
+# The fixed point of kernel B16's redesign: an own moth equal to its flame,
+# the flame inside the domain, stays so at every step (csrc/mfo_fused.cu)
+# --------------------------------------------------------------------------
+
+
+def fixed_point_inputs(name, n, d, n_flames, seed):
+    """A launch's operands where about half the moths equal their flames:
+    one own moth with a flame component of -0 beside its +0, one own moth
+    equal to a flame outside the domain, and moths past ``n_flames``."""
+    fn, hw = jobj.get_objective(name)
+    g = np.random.default_rng(seed)
+    pos = g.uniform(-hw, hw, (d, n)).astype(np.float32)
+    flames = g.uniform(-hw, hw, (d, n)).astype(np.float32)
+    same = np.nonzero(g.uniform(size=n) < 0.5)[0]
+    pos[:, same] = flames[:, same]
+    flames[0, same[0]], pos[0, same[0]] = -0.0, 0.0
+    flames[1, same[1]] = pos[1, same[1]] = 2 * hw
+    ffit = np.array(fn(jnp.asarray(flames.T)))[None, :]
+    ffit[0, ::9] = np.inf
+    last = flames[:, n_flames - 1][:, None].copy()
+    assert same[1] < n_flames and (same >= n_flames).any()
+    return float(hw), pos, flames, ffit, last, same
+
+
+def test_fixed_point_rule_holds_in_the_tpu_kernel():
+    # Two chained launches of the TPU kernel in interpret mode, host draws:
+    # the moths the rule stops at the start come out value-equal to their
+    # input (-0 == +0), an own moth that improves its flame in the first
+    # launch comes out of the second as the first made it, and the moth at
+    # a flame outside the domain and those past n_flames move.  The plain
+    # version agrees with both launches.
+    name, n, d, tile_n, n_flames, r_lo = "rastrigin", 512, 5, 128, 300, -70000
+    hw, pos, flames, ffit, last, same = fixed_point_inputs(name, n, d,
+                                                           n_flames, 9)
+    g = np.random.default_rng(10)
+    draws = [g.uniform(size=(d, n)).astype(np.float32) for _ in range(2)]
+    kw = dict(objective_name=name, half_width=hw, tile_n=tile_n, rng="host")
+    scalars = [0, n_flames, r_lo]
+    launches, ins = [], (pos, flames, ffit)
+    for r in draws:
+        want = [np.asarray(a) for a in jmf.fused_mfo_step_t(
+            jnp.asarray(scalars), *(jnp.asarray(a) for a in (last, *ins, r)),
+            interpret=True, **kw)]
+        got = tmf.fused_mfo_step_t(torch.tensor(scalars, dtype=torch.int32),
+                                   *tt(last, *ins, r), **kw)
+        for gv, w, tol in zip(got, want, (pos_tol(hw), OBJ_TOL, pos_tol(hw),
+                                          OBJ_TOL)):
+            np.testing.assert_allclose(gv.numpy(), w, **tol)
+        launches.append(want)
+        ins = (want[0], want[2], want[3])
+    own = torch.arange(n)[None, :] < n_flames
+    stopped = tmf.at_fixed_point(own, *tt(pos, flames), hw,
+                                 tmfo.SPIRAL_B).numpy()[0]
+    assert stopped[same[0]] and not stopped[same[1]]
+    assert 0 < stopped.sum() < len(same)
+    f_flames = np.asarray(jobj.get_objective(name)[0](jnp.asarray(
+        flames.T)))
+    for w in launches:
+        np.testing.assert_array_equal(w[0][:, stopped], flames[:, stopped])
+        np.testing.assert_array_equal(w[2][:, stopped], flames[:, stopped])
+        np.testing.assert_allclose(w[1][0, stopped], f_flames[stopped],
+                                   **OBJ_TOL)
+        np.testing.assert_allclose(
+            w[3][0, stopped], np.where(f_flames < ffit[0], f_flames,
+                                       ffit[0])[stopped], **OBJ_TOL)
+    first, second = launches
+    improved = own.numpy()[0] & ~stopped & (first[3][0] < ffit[0])
+    assert improved.any()
+    for out in (second[0], second[2], first[2]):
+        np.testing.assert_array_equal(out[:, improved],
+                                      first[0][:, improved])
+    # After the first launch the rule stops both kinds.
+    again = tmf.at_fixed_point(own, *tt(first[0], first[2]), hw,
+                               tmfo.SPIRAL_B).numpy()[0]
+    assert (again[stopped | improved]).all()
+    moved = (first[0] != pos).any(0)
+    assert moved[same[1]] and moved[same[same >= n_flames]].all()
+
+
+def frozen_launch(scalars, last, pos, flames, flame_fit, r_l=None, *,
+                  objective_name, half_width=5.12, b=tmfo.SPIRAL_B,
+                  tile_n=4096, rng="device", k_steps=1, step0=0,
+                  stopped=None):
+    """The kernel's schedule in PyTorch: a moth at the fixed point at the
+    start evaluated once, an own moth frozen after the step that improves
+    its flame, the others stepped k times; handed draws take every step.
+    ``stopped`` (a list) collects the moths that never moved."""
+    objective_t = tmf.OBJECTIVES_T[objective_name]
+    n = pos.shape[1]
+    own = torch.arange(n)[None, :] < scalars[1]
+    live = ~tmf.at_fixed_point(own, pos, flames, half_width, b)
+    if rng == "host":
+        live = torch.ones_like(live)
+    if stopped is not None:
+        stopped.append(int((~live).sum()))
+    stops = own & tmf.can_stop(half_width, b)
+    fit = objective_t(flames)
+    flame_fit = torch.where(~live & (fit < flame_fit), fit, flame_fit)
+    for step in range(k_steps):
+        x, fx, _, _ = tmf.mfo_steps_plain(
+            scalars, last, pos, flames, flame_fit,
+            r_l if rng == "host" else None, objective_name, half_width, b,
+            tile_n, 1, step0 + step)
+        pos = torch.where(live, x, pos)
+        fit = torch.where(live, fx, fit)
+        better = live & (fit < flame_fit)
+        flames = torch.where(better, pos, flames)
+        flame_fit = torch.where(better, fit, flame_fit)
+        live = live & ~(better & stops)
+    return pos, fit, flames, flame_fit
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_frozen_schedule_equals_the_plain_version(k):
+    name, n, d, n_flames = "rastrigin", 640, 6, 500
+    hw, pos, flames, ffit, last, _ = fixed_point_inputs(name, n, d,
+                                                        n_flames, k)
+    args = (torch.tensor([k, n_flames, -90000], dtype=torch.int32),
+            *tt(last, pos, flames, ffit))
+    kw = dict(objective_name=name, half_width=hw, tile_n=128, k_steps=k,
+              step0=3 * k)
+    stopped = []
+    frozen = frozen_launch(*args, **kw, stopped=stopped)
+    counts = {}
+    want = tmf.fused_mfo_step_plain(*args, **kw, counts=counts)
+    assert all(torch.equal(a, b) for a, b in zip(frozen, want))
+    assert stopped[0] == int(counts["stopped_at_start"][0]) > 0
+    if k > 1:
+        assert int(counts["moving"][-1]) < int(counts["moving"][0])
+    # Handed draws: every moth takes the step.
+    r_l = torch.from_numpy(np.random.default_rng(k).uniform(
+        size=(d, n)).astype(np.float32))
+    host = dict(kw, k_steps=1, rng="host")
+    assert all(torch.equal(a, b) for a, b in zip(
+        frozen_launch(*args, r_l, **host),
+        tmf.fused_mfo_step_plain(*args, r_l, **host)))
+
+
+def test_frozen_schedule_equals_the_plain_run_across_resorts(monkeypatch):
+    # Five launches of 8 steps, the flames re-sorted after the second and
+    # the fourth, and at the end: a moth stopped in one launch moves again
+    # when a re-sort hands it another flame.
+    fn, hw = tobj.get_objective("rastrigin")
+    s0 = tmfo.mfo_init(fn, 768, 5, hw, seed=7, device="cpu")
+    runs, stopped = [], []
+    for frozen in (False, True):
+        if frozen:
+            monkeypatch.setattr(
+                tmf, "fused_mfo_step_plain",
+                lambda *a, **kw: frozen_launch(*a, **kw, stopped=stopped))
+        state = tmfo.mfo_state_from_numpy(tmfo.mfo_state_to_numpy(s0),
+                                          device="cpu", seed=4)
+        runs.append(tmf.fused_mfo_run(state, "rastrigin", 40, half_width=hw,
+                                      t_max=60, tile_n=128, sort_blocks=2))
+    for f in FIELDS:
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    assert len(stopped) == 5 and stopped[1] > stopped[2] < stopped[3]

@@ -35,6 +35,7 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho``,
    ``redesigned_builds_ga``, ``redesigned_builds_salp_woa``,
    ``redesigned_builds_shade_window`` and ``redesigned_builds_grid_cand``);
+   and N1, NSGA-II's ranks (``csrc/nsga2_ranks.cu``), with the others;
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -48,6 +49,11 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    of its block, D = 1, 8, 30 and 100, one step and eight, uniforms handed
    in and drawn in the kernel, with and without the best candidate, every
    objective at least once, and the island kernel at 3 ragged islands;
+   N1 against its plain version under ``torch.equal``, with its front
+   count, at P = 1, 31, 1,024, 1,025, 2,049 and 4,096 by M = 1, 2, 3 on
+   random points, single chains of P fronts (P up to 4,096, past the bits
+   that fit in shared memory), all points equal, duplicates, +-0 and
+   +-inf, and feasible, infeasible and tied violations;
 4. CPU vs GPU: the port's tick on the CPU and on the card, 100 ticks with
    the same injected jitter and a leader kill, ends in equal discrete
    state, in "pallas" mode, in "window" mode with a re-sort every 8 ticks
@@ -55,6 +61,10 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    kernel and with the candidate kernel on a partially refreshed plan;
    and three fused PSO blocks from one state with the same injected
    uniforms on the CPU (plain version) and on the card (kernel);
+   three NSGA-II generations (ZDT1, 512 x 30) with handed draws, each from
+   the card's state on both devices: the children within the band of pow,
+   the survivors, ranks and crowding from the card's parents and children
+   equal (N1 on the card, the plain loop on the CPU);
 5. full width, "pallas": the protocol bench scenario (65,536 agents in
    +-1000 m, 4 tasks, shared target [50, 0], V formation) through
    ``VectorSwarm`` for 120 ticks after an 8-tick warm-up swarm, the leader
@@ -251,6 +261,25 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    bucketing chunks, each call twice and equal; phase 4 three firefly
    generations and three ACO iterations on the CPU and on the card with the
    same draws.
+
+15. full width, the four families the JAX package runs with no kernel of
+   its own: ``NSGA2("zdt1", n=512, dim=30)`` for 1,000 generations
+   (benchmarks/bench_nsga2.py:14-16) after a warm-up of 50, timed with
+   CUDA events: one N1 launch a generation and no other kernel (and one
+   at the model's construction), generations/s, HV@(1.1, 1.1), IGD
+   against the 256-point front and the front's size; every position in
+   [0, 1] and every rank-0 member undominated; the device's busy share
+   from a trace of 16 more generations; N1 at the first generation's
+   parents and children and at the final ones', against its plain
+   version, timed back to back and from a CUDA graph, beside the plain
+   version and its bound.  Then ``CMAES("rosenbrock", dim=30)`` at the
+   CLI's lambda 14 and at 64 (examples/optimizer_zoo.py:44), 500
+   generations each; ``ES("rastrigin", n=256, dim=30)``, 500; and
+   ``MAPElites("rastrigin", dim=6, bins=24, batch=512)``
+   (examples/quality_diversity.py:44-45), 300; each after a warm-up run,
+   timed with CUDA events in five chunks, no kernel of the port launched,
+   the best never rising across the chunks (CMA-ES, ES), no cell's
+   fitness rising and the coverage never falling (MAP-Elites).
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -556,6 +585,17 @@ SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
 H100_SMS = 132
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
+# NSGA-II at benchmarks/bench_nsga2.py:14-16 (ZDT1, population 512, D =
+# 30, 1,000 generations); CMA-ES on Rosenbrock-30D at the CLI's lambda (4 +
+# 3 ln 30 = 14) and at examples/optimizer_zoo.py:44's 64, 500 generations
+# each; ES on Rastrigin-30D at the CLI's n = 256, 500; MAP-Elites at
+# examples/quality_diversity.py:44-45 (Rastrigin-6D, 24 bins, batch 512),
+# 300.  Each after a warm-up run.
+MOO_N, MOO_DIM, MOO_STEPS, MOO_WARM = 512, 30, 1000, 50
+N1_FEAS_TOL = 1e-4
+CMA_DIM, CMA_LAMBDAS, CMA_STEPS, CMA_WARM = 30, (None, 64), 500, 20
+ES_N, ES_DIM, ES_STEPS, ES_WARM = 256, 30, 500, 20
+ME_DIM, ME_BINS, ME_BATCH, ME_STEPS, ME_WARM = 6, 24, 512, 300, 20
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # |kernel - plain| <= REL_BAND * sum_j |term_ij| + ABS_BAND: both take the
@@ -4212,6 +4252,269 @@ def aco_full_width(dsa, af, kernels, smi, t_start, dev, census):
     return rows
 
 
+def n1_case(kind, p, m, seed, dev):
+    """(objs [p, m], viol [p] or None) on the card: the cases N1 is held
+    to (random points, a single chain of P fronts, all equal, duplicates,
+    +-0 and +-inf, feasible, infeasible and tied violations)."""
+    rng = np.random.default_rng(seed)
+    objs = rng.uniform(0.0, 1.0, (p, m)).astype(np.float32)
+    viol = None
+    if kind == "chain":
+        objs = np.repeat(np.arange(p, dtype=np.float32)[:, None], m, 1)
+        objs = objs[rng.permutation(p)]
+    elif kind == "equal":
+        objs[:] = 0.25
+    elif kind == "duplicates":
+        objs = objs[rng.integers(0, max(1, p // 4), p)]
+    elif kind == "signed":
+        vals = np.float32([-0.0, 0.0, np.inf, -np.inf, 1.0, -1.0])
+        objs = vals[rng.integers(0, len(vals), (p, m))]
+    elif kind == "viol":
+        viol = rng.choice(np.float32([0.0, 1e-4, 2e-4, 0.5, 0.5, 3.0]), p)
+    elif kind == "viol_zero":
+        viol = np.zeros(p, np.float32)
+    return (torch.from_numpy(objs).to(dev),
+            None if viol is None else torch.from_numpy(viol).to(dev))
+
+
+def n1_small_shapes(n1, dev):
+    """Phase 3's N1 part: the kernel against its plain version under
+    ``torch.equal`` at P = 1, 31, 1,024, 1,025, 2,049, 4,096 and M = 1, 2,
+    3 on random points, and on every edge case, with its front count."""
+    cases = [("random", p, m) for p in (1, 31, 1024, 1025, 2049, 4096)
+             for m in (1, 2, 3)]
+    cases += [("chain", p, m) for p in (1024, 1300, 4096) for m in (1, 2)]
+    cases += [(kind, p, m) for kind in ("equal", "duplicates", "signed",
+                                        "viol", "viol_zero")
+              for p in (31, 1025, 4096) for m in (1, 2, 3)]
+    fronts = torch.zeros(1, dtype=torch.int32, device=dev)
+    most = 0
+    for kind, p, m in cases:
+        objs, viol = n1_case(kind, p, m, p * 3 + m, dev)
+        got = n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL, fronts)
+        want = n1.nsga2_ranks_plain(objs, viol, N1_FEAS_TOL)
+        check(torch.equal(got, want)
+              and int(fronts) == int(want.max()) + 1,
+              f"N1 differs from its plain version: {kind}, P={p}, M={m}")
+        most = max(most, int(fronts))
+    record(phase="kernel_vs_plain", kernel="nsga2_ranks", cases=len(cases),
+           most_fronts=most, rule="torch.equal on the ranks and the front "
+           "count")
+
+
+def nsga2_cpu_vs_gpu(dsa, dev):
+    """Phase 4's NSGA-II part: three generations on the card with handed
+    draws, each held against the CPU with the same state and draws: the
+    children within the band of pow (each device's own), the selection from
+    the card's parents and children (ranks by N1 on the card, the plain
+    loop on the CPU) equal in survivors, ranks and crowding."""
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    st = tn.nsga2_init(tn.zdt1, MOO_N, MOO_DIM, seed=5, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    worst = 0.0
+    for _ in range(3):
+        cpu = st.replace(**{f: getattr(st, f).cpu()
+                            for f in tn.NSGA2_TENSOR_FIELDS})
+        draws = tn.variation_draws(cpu.pos, gen)
+        on = lambda x: x.to(dev)  # noqa: E731
+        draws_c = (on(draws[0]), on(draws[1]), tuple(map(on, draws[2])),
+                   tuple(map(on, draws[3])))
+        kids_c = tn.nsga2_offspring(st, draws=draws_c)
+        kids = tn.nsga2_offspring(cpu, draws=draws)
+        worst = max(worst, float((kids_c.cpu() - kids).abs().max()))
+        check(torch.allclose(kids_c.cpu(), kids, rtol=1e-6, atol=1e-6),
+              "NSGA-II: the card's children leave the band of the CPU's")
+        objs = torch.cat([st.objs, tn.zdt1(kids_c)])
+        viol = torch.cat([st.viol, torch.zeros_like(st.viol)])
+        got = tn.nsga2_select(objs, viol, MOO_N)
+        want = tn.nsga2_select(objs.cpu(), viol.cpu(), MOO_N)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              "NSGA-II: the card's survivors, ranks or crowding differ "
+              "from the CPU's")
+        st = tn.nsga2_step(st, tn.zdt1, draws=draws_c)
+        check(torch.equal(st.rank, got[1].index_select(0, got[0])),
+              "NSGA-II: the step's ranks are not its selection's")
+    record(phase="cpu_vs_gpu", model="NSGA2", generations=3, pop=MOO_N,
+           dim=MOO_DIM, children_max_abs_diff=worst,
+           survivors_ranks_crowding="equal")
+
+
+def n1_bound_ms(p, m):
+    """N1's bound: P^2 M comparisons at the f32 peak against its bytes
+    (objs and viol read once, the ranks and the front count written)."""
+    ops = p * p * m
+    nbytes = 4 * (p * m + p + p + 1)
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def n1_timed(n1, objs, viol, label, smi):
+    """N1 on one population: equal to its plain version, timed back to
+    back and from a CUDA graph, beside the plain version and the bound."""
+    fronts = torch.zeros(1, dtype=torch.int32, device=objs.device)
+    got = n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL, fronts)
+    want, plain_ms = timed(lambda: n1.nsga2_ranks_plain(objs, viol,
+                                                        N1_FEAS_TOL))
+    check(torch.equal(got, want), f"N1 differs from its plain version: "
+          f"{label}")
+    ms = cuda_ms(lambda: n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL), 200)
+    g_ms = graph_ms(lambda: n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL),
+                    200)
+    bound, bound_by = n1_bound_ms(*objs.shape)
+    rec = dict(state=label, shape=list(objs.shape), fronts=int(fronts),
+               kernel_ms=ms, kernel_graph_ms=g_ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, smi=smi)
+    record(phase="nsga2_ranks_timing", **rec)
+    return rec
+
+
+def nsga2_full_width(dsa, n1, kernels, smi, t_start, dev):
+    """Phase 15's NSGA-II part: bench_nsga2.py's configuration (ZDT1, a
+    population of 512, D = 30) through ``NSGA2`` for 1,000 generations
+    after a warm-up run, timed with CUDA events: one N1 launch a
+    generation and no other kernel, HV@(1.1, 1.1), IGD against the
+    256-point front and the front's size; the population inside [0, 1] and
+    every rank-0 member undominated; the device's busy share from a trace
+    of 16 generations; N1 at the first generation's population and at the
+    final one's, against its plain version, timed beside it and its
+    bound."""
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    reset_launches(kernels)
+    opt = dsa.NSGA2("zdt1", n=MOO_N, dim=MOO_DIM, seed=0)
+    init_launches = n1.LAUNCHES
+    # The first generation's parents and children, the random state.
+    first = opt.state
+    kids = tn.nsga2_offspring(first)
+    objs0 = torch.cat([first.objs, tn.zdt1(kids)])
+    viol0 = torch.zeros(2 * MOO_N, device=dev)
+    opt.run(MOO_WARM)                                    # warm-up run
+    reset_launches(kernels)
+    _, run_ms = timed(lambda: opt.run(MOO_STEPS))
+    launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    st = opt.state
+    hv, igd = opt.hypervolume([1.1, 1.1]), opt.igd()
+    front = opt.pareto_front()
+    ms_gen = run_ms / MOO_STEPS
+    busy, per_gen, top = device_time(lambda: opt.run(16), 16)
+    rec = dict(phase="full_width", model="NSGA2", problem="zdt1", pop=MOO_N,
+               dim=MOO_DIM, generations=MOO_STEPS, launches=launches,
+               run_ms=run_ms, ms_per_generation=ms_gen,
+               generations_per_sec=MOO_STEPS / (run_ms / 1e3),
+               hypervolume_at_1_1=hv, igd_256=igd,
+               front_size=int(front.shape[0]), init_launches=init_launches,
+               device_busy_ms_per_generation=busy,
+               device_idle_share=None if busy is None else 1.0 - busy / ms_gen,
+               device_ops_per_generation=per_gen, top_device_ops=top,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    record(**rec)
+    hashgrid_launch_check(launches, "nsga2_ranks", MOO_STEPS)
+    check(bool((st.pos >= 0).all() and (st.pos <= 1).all()),
+          "NSGA-II: a position left [0, 1]")
+    dom = n1.domination_matrix(st.objs, st.viol, N1_FEAS_TOL)
+    check(not bool(dom[:, st.rank == 0].any()),
+          "NSGA-II: a rank-0 member is dominated")
+    check(np.isfinite(hv) and 0.0 < hv <= 1.21 and np.isfinite(igd),
+          f"NSGA-II: HV {hv} or IGD {igd} out of range")
+    # N1 at the final generation's parents and children.
+    kids = tn.nsga2_offspring(st)
+    objs1 = torch.cat([st.objs, tn.zdt1(kids)])
+    viol1 = torch.cat([st.viol, torch.zeros_like(st.viol)])
+    n1_timed(n1, objs0, viol0, "first generation (random)", smi)
+    final = n1_timed(n1, objs1, viol1, "final generation", smi)
+    return dict(name="nsga2_ranks", route="cuda",
+                source="distributed_swarm_algorithm_tpu_torch/csrc/"
+                       "nsga2_ranks.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/nsga2.py:113",
+                launches=launches["nsga2_ranks"], max_abs_err=0.0,
+                ms=final["kernel_ms"], plain_ms=final["plain_ms"],
+                bound_ms=final["bound_ms"], bound_by=final["bound_by"],
+                library_ms=None)
+
+
+def chunked_run(opt, steps, chunks, snap):
+    """``opt.run(steps)`` in ``chunks`` equal parts, timed with CUDA events
+    as one, with ``snap(opt)`` (device copies, no read) after each."""
+    seen = [snap(opt)]
+
+    def go():
+        for _ in range(chunks):
+            opt.run(steps // chunks)
+            seen.append(snap(opt))
+
+    _, ms = timed(go)
+    return ms, seen
+
+
+def zoo_rest_full_width(dsa, kernels, smi, t_start):
+    """Phase 15's CMA-ES, ES and MAP-Elites: each at its configuration
+    after a warm-up run, timed with CUDA events, no kernel of the port
+    launched; the best never rising (CMA-ES, ES), no cell's fitness rising
+    and the coverage never falling (MAP-Elites), across chunks of the
+    run."""
+    for lam in CMA_LAMBDAS:
+        opt = dsa.CMAES("rosenbrock", dim=CMA_DIM, n=lam, seed=0)
+        opt.run(CMA_WARM)
+        reset_launches(kernels)
+        ms, bests = chunked_run(opt, CMA_STEPS, 5,
+                                lambda o: o.state.best_fit.clone())
+        launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        bests = [float(b) for b in bests]
+        record(phase="full_width", model="CMAES", objective="rosenbrock",
+               dim=CMA_DIM, popsize=opt.params.popsize,
+               generations=CMA_STEPS, run_ms=ms,
+               generations_per_sec=CMA_STEPS / (ms / 1e3),
+               best_by_chunk=bests, sigma=float(opt.state.sigma),
+               launches=sum(launches.values()), smi=smi,
+               seconds_so_far=time.perf_counter() - t_start)
+        check(all(a >= b for a, b in zip(bests, bests[1:]))
+              and np.isfinite(bests[-1]), f"CMA-ES: the best rose: {bests}")
+        check(bool(torch.isfinite(opt.state.cov).all()),
+              "CMA-ES: the covariance is not finite")
+        check(not any(launches.values()), "CMA-ES launched a port kernel")
+
+    opt = dsa.ES("rastrigin", n=ES_N, dim=ES_DIM, seed=0)
+    opt.run(ES_WARM)
+    reset_launches(kernels)
+    ms, bests = chunked_run(opt, ES_STEPS, 5,
+                            lambda o: o.state.best_fit.clone())
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    bests = [float(b) for b in bests]
+    record(phase="full_width", model="ES", objective="rastrigin", samples=ES_N,
+           dim=ES_DIM, generations=ES_STEPS, run_ms=ms,
+           generations_per_sec=ES_STEPS / (ms / 1e3), best_by_chunk=bests,
+           max_abs_mean=float(opt.state.mean.abs().max()),
+           launches=sum(launches.values()), smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    check(all(a >= b for a, b in zip(bests, bests[1:]))
+          and np.isfinite(bests[-1]), f"ES: the best rose: {bests}")
+    check(float(opt.state.mean.abs().max()) <= float(np.float32(5.12)),
+          "ES: the mean left the domain")
+    check(not any(launches.values()), "ES launched a port kernel")
+
+    opt = dsa.MAPElites("rastrigin", dim=ME_DIM, bins=ME_BINS, batch=ME_BATCH,
+                        seed=0)
+    opt.run(ME_WARM)
+    reset_launches(kernels)
+    ms, fits = chunked_run(opt, ME_STEPS, 5,
+                           lambda o: o.state.archive_fit.clone())
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    cover = [float(torch.isfinite(f).float().mean()) for f in fits]
+    record(phase="full_width", model="MAPElites", objective="rastrigin",
+           dim=ME_DIM, bins=ME_BINS, batch=ME_BATCH, generations=ME_STEPS,
+           run_ms=ms, generations_per_sec=ME_STEPS / (ms / 1e3),
+           coverage_by_chunk=cover, qd_score_offset_200=opt.qd_score(200.0),
+           best=opt.best, launches=sum(launches.values()), smi=smi,
+           seconds_so_far=time.perf_counter() - t_start)
+    check(all(bool((b <= a).all()) for a, b in zip(fits, fits[1:])),
+          "MAP-Elites: a cell's fitness rose")
+    check(all(a <= b for a, b in zip(cover, cover[1:])),
+          f"MAP-Elites: the coverage fell: {cover}")
+    check(not any(launches.values()), "MAP-Elites launched a port kernel")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4243,6 +4546,9 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
         firefly_fused as ff,
     )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        nsga2_ranks as n1,
+    )
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
     from distributed_swarm_algorithm_tpu_torch.ops import objectives
     from distributed_swarm_algorithm_tpu_torch.parallel import islands
@@ -4260,12 +4566,14 @@ def main():
                **{f"{fam}_fused": mod for fam, mod in levy.items()},
                "firefly_fused": ff,
                "aco_tours": LaunchCount(af, "TOURS_LAUNCHES"),
-               "aco_deposit": LaunchCount(af, "DEPOSIT_LAUNCHES")}
+               "aco_deposit": LaunchCount(af, "DEPOSIT_LAUNCHES"),
+               "nsga2_ranks": n1}
     sources = ["separation", "window_separation", "grid_separation",
                "candidate_sweep", "pso_fused",
                *(f"{fam}_fused" for fam in zoo),
                *(f"{fam}_fused" for fam in rot),
-               *LEVY_SOURCES.values(), "firefly_fused", "aco_fused"]
+               *LEVY_SOURCES.values(), "firefly_fused", "aco_fused",
+               "nsga2_ranks"]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -4345,6 +4653,7 @@ def main():
     rot_small_shapes(rot, pf, dev)
     levy_small_shapes(levy, pf, dev)
     ff_aco_small_shapes(ff, af, dev)
+    n1_small_shapes(n1, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -4375,6 +4684,7 @@ def main():
     rot_cpu_vs_gpu(rot, dev)
     levy_cpu_vs_gpu(levy, dev)
     ff_aco_cpu_vs_gpu(dsa, ff, af, dev)
+    nsga2_cpu_vs_gpu(dsa, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     # A warm-up swarm first: a process's first ticks at this size pay the
@@ -4876,6 +5186,10 @@ def main():
     ff_row = firefly_full_width(dsa, ff, kernels, smi, t_start, dev)
     aco_rows = aco_full_width(dsa, af, kernels, smi, t_start, dev, census)
 
+    # 15. NSGA-II, CMA-ES, ES and MAP-Elites at full width -----------------
+    n1_row = nsga2_full_width(dsa, n1, kernels, smi, t_start, dev)
+    zoo_rest_full_width(dsa, kernels, smi, t_start)
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -4974,6 +5288,7 @@ def main():
         *levy_rows,
         ff_row,
         *aco_rows,
+        n1_row,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

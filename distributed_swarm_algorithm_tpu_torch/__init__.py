@@ -28,7 +28,11 @@ colony and parallel tempering (``Cuckoo``, ``HarrisHawks``, ``ABC``,
 ``csrc/hho_fused.cu``, ``csrc/abc_fused.cu``,
 ``csrc/tempering_fused.cu``), and the firefly algorithm and ant-colony
 TSP (``Firefly``, ``ACO``) with theirs (``csrc/firefly_fused.cu``,
-``csrc/aco_fused.cu``).
+``csrc/aco_fused.cu``).  And the four families the JAX package runs with
+no kernel of its own: NSGA-II (``NSGA2``), whose non-dominated ranks run on
+the card in one hand-written CUDA kernel (``csrc/nsga2_ranks.cu``, N1),
+CMA-ES (``CMAES``), OpenAI-ES (``ES``) and MAP-Elites (``MAPElites``), in
+plain PyTorch.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -76,6 +80,10 @@ from .models.abc_bees import ABC
 from .models.tempering import ParallelTempering
 from .models.firefly import Firefly
 from .models.aco import ACO
+from .models.nsga2 import NSGA2
+from .models.es import ES
+from .models.map_elites import MAPElites
+from .models.cmaes import CMAES
 from .ops.firefly import (
     FireflyState,
     firefly_init,
@@ -192,6 +200,24 @@ from .ops.tempering import (
     pt_state_to_numpy,
     pt_step,
 )
+from .ops.nsga2 import (
+    NSGA2State,
+    nsga2_init,
+    nsga2_run,
+    nsga2_state_from_numpy,
+    nsga2_state_to_numpy,
+    nsga2_step,
+)
+from .ops.es import ESState, es_init, es_run, es_step
+from .ops.map_elites import MapElitesState, me_init, me_run, me_step
+from .ops.cmaes import (
+    CMAESParams,
+    CMAESState,
+    cmaes_init,
+    cmaes_params,
+    cmaes_run,
+    cmaes_step,
+)
 from .ops.cuda.bat_fused import fused_bat_run
 from .ops.cuda.gwo_fused import fused_gwo_run
 from .ops.cuda.salp_fused import fused_salp_run
@@ -293,6 +319,12 @@ __all__ = [
     "ACO", "ACOState", "aco_init", "aco_step", "aco_run", "fused_aco_run",
     "construct_tours", "deposit", "tour_lengths", "coords_to_dist",
     "aco_state_from_numpy", "aco_state_to_numpy",
+    "NSGA2", "NSGA2State", "nsga2_init", "nsga2_step", "nsga2_run",
+    "nsga2_state_from_numpy", "nsga2_state_to_numpy",
+    "ES", "ESState", "es_init", "es_step", "es_run",
+    "MAPElites", "MapElitesState", "me_init", "me_step", "me_run",
+    "CMAES", "CMAESState", "CMAESParams", "cmaes_params", "cmaes_init",
+    "cmaes_step", "cmaes_run",
     "neighbor_best", "ring_best", "von_neumann_best", "objectives",
     "FOLLOWER", "ELECTION_WAIT", "LEADER",
     "TASK_OPEN", "TASK_TENTATIVE", "TASK_ASSIGNED", "TASK_LOCKED",

@@ -11,6 +11,9 @@
           tempering, firefly algorithm), on the card or with
           ``--device cpu``
   aco     the ant-colony TSP solver, on the card or with ``--device cpu``
+  cmaes, es, mapelites, nsga2
+          CMA-ES, OpenAI-ES, MAP-Elites and NSGA-II (its ranks by the CUDA
+          kernel N1 on the card), on the card or with ``--device cpu``
 
 The other subcommands of the JAX package's CLI are ported with their
 slices (ROADMAP Queue A).
@@ -167,15 +170,17 @@ def _cmd_pso_islands(args) -> int:
 
 def _path(opt) -> str:
     """Which path an optimizer's ``run`` takes: the fused kernel on the
-    card, its plain version on the CPU, or the portable step."""
-    if not opt.use_pallas:
+    card, its plain version on the CPU, or the portable step (the only one
+    of a family without a fused kernel)."""
+    if not getattr(opt, "use_pallas", False):
         return "portable"
     return "cuda-fused" if opt.device.type == "cuda" else "plain-fused"
 
 
-def _run_report(opt, args, count_key: str, extra=None) -> int:
-    """The optimizer subcommands' tail: a timed run and one JSON line
-    (with ``extra``'s keys added)."""
+def _run_report(opt, args, count_key: str, extra=None, count=None) -> int:
+    """The optimizer subcommands' tail: a timed run and one JSON line (with
+    ``extra``'s keys added, a callable value read after the run;
+    ``count`` replaces ``args.n`` as the population)."""
     start = time.perf_counter()
     opt.run(args.steps)
     # run() does not wait for the card; reading the best does, so the
@@ -184,14 +189,14 @@ def _run_report(opt, args, count_key: str, extra=None) -> int:
     elapsed = time.perf_counter() - start
     print(json.dumps({
         "objective": args.objective,
-        count_key: args.n,
+        count_key: args.n if count is None else count,
         "dim": args.dim,
         "iters": args.steps,
         "path": _path(opt),
         "backend": f"torch-{opt.device.type}",
         "best": best,
         "steps_per_sec": round(args.steps / elapsed, 1),
-        **(extra or {}),
+        **{k: v() if callable(v) else v for k, v in (extra or {}).items()},
     }))
     return 0
 
@@ -286,6 +291,57 @@ def _cmd_aco(args) -> int:
         "path": _path(colony),
         "backend": f"torch-{colony.device.type}",
         "best_length": round(best, 4),
+        "steps_per_sec": round(args.steps / elapsed, 1),
+    }))
+    return 0
+
+
+def _cmd_cmaes(args) -> int:
+    from .models.cmaes import CMAES
+
+    opt = CMAES(args.objective, dim=args.dim, n=args.n, seed=args.seed,
+                device=args.device)
+    return _run_report(opt, args, "popsize", count=opt.params.popsize,
+                       extra={"sigma": lambda: float(opt.state.sigma)})
+
+
+def _cmd_es(args) -> int:
+    from .models.es import ES
+
+    opt = ES(args.objective, n=args.n, dim=args.dim, seed=args.seed,
+             device=args.device)
+    return _run_report(opt, args, "samples")
+
+
+def _cmd_mapelites(args) -> int:
+    from .models.map_elites import MAPElites
+
+    opt = MAPElites(args.objective, dim=args.dim, bins=args.bins,
+                    batch=args.n, seed=args.seed, device=args.device)
+    return _run_report(
+        opt, args, "batch",
+        extra={"bins": args.bins,
+               "coverage": lambda: round(opt.coverage, 4)})
+
+
+def _cmd_nsga2(args) -> int:
+    from .models.nsga2 import NSGA2
+
+    opt = NSGA2(args.problem, n=args.n, dim=args.dim, seed=args.seed,
+                device=args.device)
+    start = time.perf_counter()
+    opt.run(args.steps)
+    # run() does not wait for the card; the front's read does.
+    front = opt.pareto_front()
+    elapsed = time.perf_counter() - start
+    print(json.dumps({
+        "problem": args.problem,
+        "pop": args.n,
+        "dim": args.dim,
+        "iters": args.steps,
+        "backend": f"torch-{opt.device.type}",
+        "front_size": int(front.shape[0]),
+        "hypervolume@(1.1,1.1)": round(opt.hypervolume([1.1, 1.1]), 4),
         "steps_per_sec": round(args.steps / elapsed, 1),
     }))
     return 0
@@ -429,6 +485,27 @@ def build_parser() -> argparse.ArgumentParser:
     p_ff.add_argument("--alpha0", type=float, default=0.25,
                       help="initial random-walk scale")
     p_ff.set_defaults(fn=_cmd_firefly)
+
+    # --n is lambda, 4 + 3 ln D when omitted.
+    optimizer_parser("cmaes", "CMA-ES evolution strategy",
+                     n=None).set_defaults(objective="rosenbrock",
+                                          fn=_cmd_cmaes)
+    optimizer_parser("es", "OpenAI-style evolution strategy",
+                     n=256).set_defaults(fn=_cmd_es)
+    p_me = optimizer_parser("mapelites", "MAP-Elites quality-diversity",
+                            n=256)
+    p_me.set_defaults(dim=6, steps=300, fn=_cmd_mapelites)
+    p_me.add_argument("--bins", type=int, default=16)
+
+    p_nsga2 = sub.add_parser("nsga2", help="NSGA-II multi-objective")
+    p_nsga2.add_argument("--problem", default="zdt1",
+                         choices=["zdt1", "zdt2", "zdt3"])
+    p_nsga2.add_argument("--n", type=int, default=128)
+    p_nsga2.add_argument("--dim", type=int, default=12)
+    p_nsga2.add_argument("--steps", type=int, default=200)
+    p_nsga2.add_argument("--seed", type=int, default=0)
+    _add_device(p_nsga2)
+    p_nsga2.set_defaults(fn=_cmd_nsga2)
 
     p_aco = sub.add_parser("aco", help="ant-colony TSP solver")
     p_aco.add_argument("--cities", type=int, default=32,

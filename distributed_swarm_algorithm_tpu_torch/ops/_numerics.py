@@ -8,6 +8,7 @@ the port divides too.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,21 +23,50 @@ def div(x: torch.Tensor, y: float) -> torch.Tensor:
     return x / torch.full((), y, dtype=x.dtype, device=x.device)
 
 
+def recip_mul(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a static constant ``c`` as XLA compiles it under
+    ``jit``: a product with the f32 reciprocal of f32(c).  Where a compiled
+    JAX step divides by a constant and a discrete result reads the
+    quotient (a cell index, a rank), the port computes this form."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full f32 on the card: TF32 off for the call (the
+    tensor cores otherwise round f32 inputs to 10-bit mantissas)."""
+    if a.device.type != "cuda":
+        return a @ b
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, through f64: PyTorch's on the
+    CPU is not, for about 0.7% of f32 inputs; XLA's and the card's are."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, ``sqrt(sum(x * x))``, as
     ``jnp.linalg.norm`` computes it."""
     return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once, as a fused multiply-add, for f32 inputs.
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, as a fused multiply-add, for f32 inputs
+    (``b`` and ``c`` tensors or Python floats that f32 holds exactly).
 
     The product of two f32 values is exact in f64, so the f64 sum rounded
     to f32 is the fused result, except where the f64 rounding lands on an
     f32 tie (about one case in 2^29).  XLA on the CPU contracts these
     forms, and the hashgrid path takes discrete decisions (the Verlet
     trigger, the cut at the personal space) on them."""
-    return (a.double() * b.double() + c.double()).to(a.dtype)
+    f64 = lambda v: v.double() if torch.is_tensor(v) else v  # noqa: E731
+    return (a.double() * f64(b) + f64(c)).to(a.dtype)
 
 
 def monotone(bits: torch.Tensor, mask: int) -> torch.Tensor:

@@ -12,7 +12,7 @@ parents replace the worst children, ranked as ``lax.top_k`` ranks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +20,15 @@ import torch
 from ..utils.platform import DeviceLike
 from . import _family
 from ._numerics import top_k
-from .nsga2 import ETA_C, ETA_M, P_CROSS, polynomial_mutation, sbx_crossover
+from .nsga2 import (
+    ETA_C,
+    ETA_M,
+    P_CROSS,
+    NSGA2Draws,
+    polynomial_mutation,
+    sbx_crossover,
+    variation_draws,
+)
 
 N_ELITE = 2  # unconditionally surviving best individuals
 
@@ -39,11 +47,10 @@ class GAState(_family.FamilyState):
 
 GA_TENSOR_FIELDS = _family.tensor_fields(GAState)
 
-# One generation's draws, H = ceil(N / 2): the two tournaments' index pairs
-# t1, t2 [2, H] in [0, N); SBX's (u [H, D], do [H, 1]); the mutation's
-# (u [N, D], do [N, D]).
-GADraws = Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...],
-                Tuple[torch.Tensor, ...]]
+# One generation's draws, NSGA-II's layout: H = ceil(N / 2), the two
+# tournaments' index pairs t1, t2 [2, H] in [0, N); SBX's (u [H, D],
+# do [H, 1]); the mutation's (u [N, D], do [N, D]).
+GADraws = NSGA2Draws
 
 
 def ga_init(
@@ -66,14 +73,7 @@ def ga_init(
 
 def ga_draws(state: GAState) -> GADraws:
     """One generation's draws from ``state.gen``."""
-    n, d = state.pos.shape
-    half = (n + 1) // 2
-    dt, dev, gen = state.pos.dtype, state.device, state.gen
-    u = lambda *s: torch.rand(s, generator=gen, dtype=dt,  # noqa: E731
-                              device=dev)
-    idx = lambda: torch.randint(0, n, (2, half), generator=gen,  # noqa
-                                device=dev)
-    return idx(), idx(), (u(half, d), u(half, 1)), (u(n, d), u(n, d))
+    return variation_draws(state.pos, state.gen)
 
 
 def ga_step(

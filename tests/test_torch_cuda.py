@@ -4322,3 +4322,166 @@ def test_mfo_redesign_builds_spill_no_registers(cuda):
     assert len(spills) >= len(entries) + 2, spills
     assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in spills), spills
+
+
+# --------------------------------------------------------------------------
+# NSGA-II's ranks, kernel N1 (csrc/nsga2_ranks.cu), against its plain
+# version under torch.equal (comparisons only), and the four families
+# without a TPU kernel (NSGA-II, ES, MAP-Elites, CMA-ES) on the card.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    nsga2_ranks as port_n1,
+)
+
+# Device waits of one CMA-ES generation on the card: torch.linalg.eigh
+# reads cuSOLVER's error code back on the host.
+CMAES_EIGH_SYNCS = 1
+
+
+def rank_case(kind, p, m, seed):
+    """(objs [p, m] f32, viol [p] f32 or None): the cases N1 is held to
+    (random points, a single chain of P fronts, all equal, duplicates, +-0
+    and +-inf, feasible, infeasible and tied violations)."""
+    rng = np.random.default_rng(seed)
+    objs = rng.uniform(0.0, 1.0, (p, m)).astype(np.float32)
+    viol = None
+    if kind == "chain":        # P fronts: point k dominates k + 1
+        objs = np.repeat(np.arange(p, dtype=np.float32)[:, None], m, 1)
+        objs = objs[rng.permutation(p)]
+    elif kind == "equal":      # one front
+        objs[:] = 0.25
+    elif kind == "duplicates":
+        objs = objs[rng.integers(0, max(1, p // 4), p)]
+    elif kind == "signed":     # -0 equals +0; +-inf compare as numbers
+        vals = np.float32([-0.0, 0.0, np.inf, -np.inf, 1.0, -1.0])
+        objs = vals[rng.integers(0, len(vals), (p, m))]
+    elif kind == "viol":       # feasible, infeasible, tied violations
+        viol = rng.choice(np.float32([0.0, 1e-4, 2e-4, 0.5, 0.5, 3.0]),
+                          p).astype(np.float32)
+    elif kind == "viol_zero":  # the generation's unconstrained form
+        viol = np.zeros(p, np.float32)
+    return objs, viol
+
+
+N1_CASES = (
+    [("random", p, m) for p in (1, 31, 1024, 1025, 2049, 4096)
+     for m in (1, 2, 3)]
+    + [("chain", p, m) for p in (33, 1024, 1300, 4096) for m in (1, 2)]
+    + [(kind, p, m) for kind in ("equal", "duplicates", "signed", "viol",
+                                 "viol_zero")
+       for p in (31, 1024, 2049) for m in (1, 2, 3)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,p,m", N1_CASES)
+def test_nsga2_ranks_kernel_equals_its_plain_version(cuda, kind, p, m):
+    objs, viol = rank_case(kind, p, m, seed=p + m)
+    o = torch.from_numpy(objs).to(cuda)
+    v = None if viol is None else torch.from_numpy(viol).to(cuda)
+    want = port_n1.nsga2_ranks_plain(o, v, 1e-4)   # its loop on the card
+    fronts = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = port_n1.LAUNCHES
+    got = port_n1.nsga2_ranks_cuda(o, v, 1e-4, fronts)
+    torch.cuda.synchronize()
+    assert port_n1.LAUNCHES == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want), (kind, p, m)
+    assert int(fronts) == int(want.max()) + 1
+    if kind == "chain":
+        assert int(fronts) == p
+
+
+@pytest.mark.cuda
+def test_nsga2_ranks_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["nsga2_ranks"])
+    log = _build.build_log("nsga2_ranks")
+    entries = [ln for ln in log.splitlines() if "Compiling entry" in ln]
+    assert len(entries) == 3, entries      # pack, peel on chip, peel global
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= 3 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
+
+
+@pytest.mark.cuda
+def test_nsga2_ranks_cuda_rejects_what_it_cannot_take(cuda):
+    objs = torch.rand(64, 2, device=cuda)
+    with pytest.raises(ValueError):
+        port_n1.nsga2_ranks_cuda(objs.cpu(), None, 1e-4)
+    with pytest.raises(ValueError):
+        port_n1.nsga2_ranks_cuda(objs.double(), None, 1e-4)
+    with pytest.raises(ValueError):
+        port_n1.nsga2_ranks_cuda(objs, torch.zeros(63, device=cuda), 1e-4)
+    with pytest.raises(TypeError):
+        port_n1.nsga2_ranks_cuda(objs, torch.zeros(64, dtype=torch.float64,
+                                                   device=cuda), 1e-4)
+
+
+def _sync_waits(run):
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:120] for w in seen
+                 if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_moo_qd_es_generations_never_wait_for_the_device(cuda):
+    opts = {"nsga2": tdsa.NSGA2("zdt1", n=512, dim=30, seed=0),
+            "es": tdsa.ES("rastrigin", n=256, dim=30, seed=0),
+            "mapelites": tdsa.MAPElites("rastrigin", dim=6, bins=24,
+                                        batch=512, seed=0)}
+    for name, opt in opts.items():
+        opt.run(2)                                   # warm up
+        before = port_n1.LAUNCHES
+        _, waits = _sync_waits(lambda: opt.run(3))
+        assert not waits, (name, waits)
+        assert port_n1.LAUNCHES == before + (3 if name == "nsga2" else 0)
+
+
+@pytest.mark.cuda
+def test_cmaes_generation_waits_only_for_eigh(cuda):
+    opt = tdsa.CMAES("rosenbrock", dim=30, n=64, seed=0)
+    opt.run(2)
+    _, waits = _sync_waits(lambda: opt.run(3))
+    assert len(waits) == 3 * CMAES_EIGH_SYNCS, waits
+    eig = torch.linalg.eigh(opt.state.cov)
+    _, waits = _sync_waits(lambda: opt.step(eig=eig))
+    assert not waits, waits
+
+
+@pytest.mark.cuda
+def test_nsga2_generation_on_the_card_selects_as_the_cpu_does(cuda):
+    # The same state and draws on both devices: the children within the
+    # band of pow, and the selection from the card's own parents and
+    # children (ranks by N1) equal to the CPU's (the plain loop).
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    st = tn.nsga2_init(tn.zdt1, 256, 30, seed=1, device="cpu")
+    st = tn.nsga2_run(st, tn.zdt1, 5)
+    gen = torch.Generator().manual_seed(3)
+    draws = tn.variation_draws(st.pos, gen)
+    on = lambda x: x.to(cuda)  # noqa: E731
+    st_c = st.replace(**{f: on(getattr(st, f))
+                         for f in tn.NSGA2_TENSOR_FIELDS})
+    draws_c = (on(draws[0]), on(draws[1]), tuple(map(on, draws[2])),
+               tuple(map(on, draws[3])))
+    kids_c = tn.nsga2_offspring(st_c, draws=draws_c)
+    kids = tn.nsga2_offspring(st, draws=draws)
+    assert torch.allclose(kids_c.cpu(), kids, rtol=1e-6, atol=1e-6)
+    objs_c = torch.cat([st_c.objs, tn.zdt1(kids_c)])
+    viol_c = torch.zeros(512, device=cuda)
+    got = tn.nsga2_select(objs_c, viol_c, 256)
+    want = tn.nsga2_select(objs_c.cpu(), viol_c.cpu(), 256)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    out = tn.nsga2_step(st_c, tn.zdt1, draws=draws_c)
+    assert bool((out.pos >= 0).all() and (out.pos <= 1).all())

@@ -35,7 +35,8 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    ``redesigned_builds_bat_abc``, ``redesigned_builds_pt_hho``,
    ``redesigned_builds_ga``, ``redesigned_builds_salp_woa``,
    ``redesigned_builds_shade_window`` and ``redesigned_builds_grid_cand``);
-   and N1, NSGA-II's ranks (``csrc/nsga2_ranks.cu``), with the others;
+   and N1, NSGA-II's ranks (``csrc/nsga2_ranks.cu``), and N2, the
+   auction's bidding loop (``csrc/auction.cu``), with the others;
 3. kernel vs plain: the separation kernel against its plain PyTorch
    version on the card at eight shapes (N below a warp, N one past a
    block's 256 receivers, all dead, a dead receiver among live ones, D = 3,
@@ -53,7 +54,12 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    count, at P = 1, 31, 1,024, 1,025, 2,049 and 4,096 by M = 1, 2, 3 on
    random points, single chains of P fronts (P up to 4,096, past the bits
    that fit in shared memory), all points equal, duplicates, +-0 and
-   +-inf, and feasible, infeasible and tied violations;
+   +-inf, and feasible, infeasible and tied violations; N2 against its
+   plain version under ``torch.equal`` on all four outputs (agent_task,
+   task_agent, prices, rounds) at S = 1, 2, 3, 31, 33, 1,000, 1,023 and
+   1,025, all ties, an infeasible agent and task, N != T squared, the
+   round cap, warm prices, the run flag off, and S = 10,000 (its state in
+   global scratch);
 4. CPU vs GPU: the port's tick on the CPU and on the card, 100 ticks with
    the same injected jitter and a leader kill, ends in equal discrete
    state, in "pallas" mode, in "window" mode with a re-sort every 8 ticks
@@ -280,6 +286,25 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    timed with CUDA events in five chunks, no kernel of the port launched,
    the best never rising across the chunks (CMA-ES, ES), no cell's
    fitness rising and the coverage never falling (MAP-Elites).
+16. full width, the protocol tick's last two options (Queue A items 9 and
+   10): BASELINE config 4 (benchmarks/bench_allocation.py:22-32, 4,096
+   agents from make_swarm(seed=0, spread=50), 4,096 tasks uniform in
+   [-50, 50]^2) as an auction tick (``allocation_mode="auction"``,
+   ``auction_every`` 10, the "pallas" separation) through ``swarm_tick``,
+   100 ticks with an awarded winner killed at tick 60, each tick timed
+   with CUDA events and split into re-solve ticks and the others, one N2
+   launch a tick, one task per agent, every winner alive; N2 at the final
+   tick's own values and at bench_auction.py's instances (uniform at
+   1024^2 and 4096^2, its price war at 1024^2; 141, 314 and 398 rounds)
+   against its plain version, timed back to back and from a CUDA graph,
+   beside the plain version and its bound (the value rows its rounds
+   read); phase 4 the auction tick at 256 x 256 for 20 ticks on the CPU
+   and on the card, discrete state equal.  Then the field tick at
+   decompose_rebuild.py:67-94, 287-294's station (65,536 agents, k_align
+   0.3, k_coh 0.1) on the slots kernel in both deposits beside the field
+   off: B2 once a tick, two runs bit for bit equal, the replayed rollout
+   equal to the eager one across a kill, a trace of two replayed chunks,
+   the deposit twice equal and within the band of the CPU's.
 
 Each main-path run sets every kernel's launch count to 0 just before it
 and reads the counts just after.
@@ -584,6 +609,22 @@ SECOND_GEOMETRY = {"de": "global_geometry", "cuckoo": "global_geometry",
                    "mfo": "lane_geometry"}
 H100_SMS = 132
 
+# The auction: bench_auction.py's instances at flat eps 0.25 and
+# BASELINE config 4 (bench_allocation.py:22-32, 4,096 agents x 4,096
+# tasks) as an auction tick, auction_every 10, 100 ticks, an awarded
+# winner killed at tick 60; the CPU comparison at 256 x 256, 20 ticks.
+AUC_N, AUC_TICKS, AUC_EVERY, AUC_KILL_AT = 4096, 100, 10, 60
+AUC_CMP_N, AUC_CMP_TICKS = 256, 20
+AUC_EPS, AUC_MAX_ROUNDS = 0.25, 100_000
+AUC_CFG = dict(allocation_mode="auction", auction_every=AUC_EVERY,
+               auction_eps=AUC_EPS, separation_mode="pallas")
+# The field tick: decompose_rebuild.py:67-94, 287-294 (65,536 agents at the
+# station, hw 256, skin 0, cap 16, rescue 1,024, max_speed 1, sort_every 1,
+# four tasks; k_align 0.3, k_coh 0.1), on the slots kernel (the auto
+# backend on the card); the replay compared across a kill.
+FIELD_TICKS, FIELD_CMP_TICKS = 200, (20, 13)
+FIELD_CFG = dict(HG_BASE, max_speed=1.0, sort_every=1, k_align=0.3,
+                 k_coh=0.1)
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
 # NSGA-II at benchmarks/bench_nsga2.py:14-16 (ZDT1, population 512, D =
 # 30, 1,000 generations); CMA-ES on Rosenbrock-30D at the CLI's lambda (4 +
@@ -4515,6 +4556,396 @@ def zoo_rest_full_width(dsa, kernels, smi, t_start):
 
 
 
+
+def n2_case(kind, s, seed, dev):
+    """[S, S] square values on the card for N2's cases: uniform utilities
+    in [1, 100), all ties, an infeasible agent (a zero row) and column,
+    and a rectangular [S, 2S/3] problem squared by ``_square_values``
+    (N != T, a third of its pairs infeasible)."""
+    from distributed_swarm_algorithm_tpu_torch.ops import auction as au
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(1.0, 100.0, (s, s)).astype(np.float32)
+    if kind == "ties":
+        v[:] = 10.0
+    elif kind == "infeasible":
+        v[s // 3] = 0.0
+        v[:, s // 2] = 0.0
+    elif kind == "rect":
+        util = torch.from_numpy(v[:, :2 * s // 3].copy())
+        feasible = torch.from_numpy(rng.random(tuple(util.shape)) < 0.67)
+        return au._square_values(util, feasible).to(dev)
+    return torch.from_numpy(v).to(dev)
+
+
+def n2_pair(n2, values, prices=None, cap=AUC_MAX_ROUNDS, run=True,
+            counts=None):
+    """(kernel's outputs, plain version's outputs, whether all four are
+    equal) of one solve on the card."""
+    s = values.shape[0]
+    dev = values.device
+    prices = torch.zeros(s, device=dev) if prices is None else prices
+    eps = torch.full((), AUC_EPS, device=dev)
+    flag = torch.full((), run, dtype=torch.bool, device=dev)
+    got = n2.auction_square_cuda(values, prices, eps, cap, flag)
+    want = n2.auction_square_plain(values, prices, eps, cap, flag,
+                                   counts=counts)
+    return got, want, all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def n2_small_shapes(n2, dev):
+    """Phase 3's N2 part: the kernel against its plain version under
+    ``torch.equal`` on all four outputs at S = 1 and sizes off the block's
+    multiple, all ties, an infeasible agent, N != T, the round cap, warm
+    prices, the run flag off, and S = 10,000 (its state past shared
+    memory, in the global scratch)."""
+    cases = ([("uniform", s) for s in (1, 2, 3, 31, 33, 1000, 1023, 1025)]
+             + [("ties", 40), ("ties", 1024), ("infeasible", 50),
+                ("infeasible", 1031), ("rect", 300), ("rect", 1500),
+                ("uniform", 10_000)])
+    rounds = {}
+    for kind, s in cases:
+        values = n2_case(kind, s, s + 7, dev)
+        got, _, equal = n2_pair(n2, values)
+        check(equal, f"N2 differs from its plain version: {kind}, S={s}")
+        rounds[f"{kind} {s}"] = int(got[3])
+        del values
+    values = n2_case("uniform", 256, 3, dev)
+    warm = torch.rand(256, generator=torch.Generator(device=dev)
+                      .manual_seed(1), device=dev) * 5.0
+    for label, kw in (("cap 7", dict(cap=7)), ("warm prices",
+                                              dict(prices=warm)),
+                      ("run off", dict(run=False))):
+        got, _, equal = n2_pair(n2, values, **kw)
+        check(equal, f"N2 differs from its plain version: {label}")
+        rounds[label] = int(got[3])
+    check(rounds["run off"] == 0 and rounds["cap 7"] == 7,
+          f"N2's round count is off: {rounds}")
+    record(phase="kernel_vs_plain", kernel="auction", cases=len(cases) + 3,
+           rounds=rounds, state_in_shared_up_to=9680,
+           rule="torch.equal on agent_task, task_agent, prices and rounds")
+
+
+def n2_bound_ms(s, bidder_rows):
+    """N2's bound on one solve: the value rows its rounds read (the unseated
+    agents of each round, S floats each), the starting prices and the four
+    outputs, at HBM's rate (the L2's is not published; where [S, S] fits
+    the 50 MB L2 the floor is lower still), against its operations (a
+    subtraction and two comparisons a value read) at the f32 peak."""
+    nbytes = 4 * (bidder_rows * s + s + 3 * s + 1)
+    ops = 3 * bidder_rows * s
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def n2_timed(n2, values, label, smi, reps=5):
+    """N2 on one instance: equal to its plain version, its rounds and the
+    rows they read, timed back to back and from a CUDA graph, beside the
+    plain version's time and the bound."""
+    counts = {}
+    _, want, equal = n2_pair(n2, values, counts=counts)
+    check(equal, f"N2 differs from its plain version: {label}")
+    s = values.shape[0]
+    prices = torch.zeros(s, device=values.device)
+    eps = torch.full((), AUC_EPS, device=values.device)
+    flag = torch.ones((), dtype=torch.bool, device=values.device)
+    solve = lambda: n2.auction_square_cuda(  # noqa: E731
+        values, prices, eps, AUC_MAX_ROUNDS, flag)
+    ms = cuda_ms(solve, reps)
+    g_ms = graph_ms(solve, reps)
+    _, plain_ms = timed(lambda: n2.auction_square_plain(
+        values, prices, eps, AUC_MAX_ROUNDS, flag))
+    bound, bound_by = n2_bound_ms(s, counts["bidder_rows"])
+    rec = dict(instance=label, shape=[s, s], rounds=int(want[3]),
+               bidder_rows=counts["bidder_rows"], kernel_ms=ms,
+               kernel_graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by, seated=int((want[0] >= 0).sum()), smi=smi)
+    record(phase="auction_timing", **rec)
+    return rec
+
+
+def auction_benches(n2, dev, smi):
+    """bench_auction.py's instances: uniform(1, 100) utilities from
+    ``default_rng(0)`` at 1024^2 and 4096^2 (141 and 314 rounds in its
+    docstring), and its shallow price war at 1024^2 (``price_war_util``:
+    8 hot tasks at 100 plus a jitter below 0.01, the rest in [0.5, 1);
+    398 rounds), each at flat eps 0.25."""
+    out = []
+    for n in (1024, 4096):
+        u = np.random.default_rng(0).uniform(1.0, 100.0, size=(n, n))
+        out.append(n2_timed(n2, torch.from_numpy(u.astype(np.float32))
+                            .to(dev), f"uniform {n}", smi))
+    rng = np.random.default_rng(7)
+    u = rng.uniform(0.5, 1.0, size=(1024, 1024)).astype(np.float32)
+    u[:, :8] = 100.0 + rng.uniform(0.0, 0.01, size=(1024, 8)).astype(
+        np.float32)
+    out.append(n2_timed(n2, torch.from_numpy(u).to(dev),
+                        "price war 1024, hot 100", smi, reps=2))
+    check([r["rounds"] for r in out] == [141, 314, 398],
+          f"the bench instances' rounds moved: {[r['rounds'] for r in out]}")
+    return out
+
+
+def auction_swarm(dsa, n, cfg, dev, tasks_seed=0):
+    """BASELINE config 4's swarm (bench_allocation.py:22-32): ``n`` agents
+    from make_swarm(seed=0, spread=50) and ``n`` tasks uniform in
+    [-50, 50]^2 (numpy's draw from ``tasks_seed``)."""
+    st = dsa.make_swarm(n, seed=0, spread=50.0, device=dev)
+    task_pos = np.random.default_rng(tasks_seed).uniform(-50.0, 50.0,
+                                                         (n, 2))
+    return dsa.with_tasks(st, torch.from_numpy(task_pos.astype(np.float32))
+                          .to(dev))
+
+
+def auction_cpu_vs_gpu(dsa, dev):
+    """Phase 4's auction part: the auction tick at 256 agents x 256 tasks
+    on the CPU and on the card for 20 ticks from the same state (25 ticks
+    in, so a leader emerges at tick 32 and the cadence re-solves at 40;
+    an awarded winner killed at tick 35), with the same jitter and the
+    agents pinned (max_speed 0, so both devices' utilities come from the
+    same positions): task_winner, task_claimed and the FSM equal at every
+    tick, one task per agent."""
+    cfg = dsa.DEFAULT_CONFIG.replace(**AUC_CFG, max_speed=0.0)
+    cpu = auction_swarm(dsa, AUC_CMP_N, cfg, "cpu")
+    cpu = dsa.swarm_rollout(cpu, None, cfg, 25)
+    gpu = dsa.state_from_numpy(dsa.state_to_numpy(cpu), device=dev)
+    jitter = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.election_jitter_ticks + 1, (AUC_CMP_TICKS, AUC_CMP_N))
+        .astype(np.int32))
+    unequal, resolves = [], 0
+    for k in range(AUC_CMP_TICKS):
+        if k == 10:
+            won = cpu.task_winner[cpu.task_winner >= 0]
+            check(won.numel() > 0, "no task awarded at the kill")
+            cpu = dsa.kill(cpu, [int(won[0])])
+            gpu = dsa.kill(gpu, [int(won[0])])
+        before = cpu.task_winner.clone()
+        cpu = dsa.swarm_tick(cpu, None, cfg, jitter[k])
+        gpu = dsa.swarm_tick(gpu, None, cfg, jitter[k].to(dev))
+        resolves += int(not torch.equal(before, cpu.task_winner))
+        for f in ("task_winner", "task_claimed", "fsm", "leader_id"):
+            if not torch.equal(getattr(cpu, f), getattr(gpu, f).cpu()):
+                unequal.append((k, f))
+        won = cpu.task_winner[cpu.task_winner >= 0]
+        check(won.unique().numel() == won.numel(),
+              "the auction gave an agent two tasks")
+    awarded = int((cpu.task_winner >= 0).sum())
+    record(phase="cpu_vs_gpu", model="auction tick", agents=AUC_CMP_N,
+           tasks=AUC_CMP_N, ticks=AUC_CMP_TICKS, awarded=awarded,
+           ticks_with_new_awards=resolves, unequal=unequal,
+           max_util_diff=float((cpu.task_util - gpu.task_util.cpu()).abs()
+                               .max()))
+    check(not unequal, f"the auction tick differs CPU vs GPU: {unequal}")
+    check(awarded > 0 and resolves >= 2,
+          "the compared ticks re-solved too rarely")
+
+
+def auction_full_width(dsa, n2, kernels, smi, t_start, dev):
+    """Phase 16's auction: BASELINE config 4 as an auction tick
+    (``allocation_mode="auction"``, ``auction_every`` 10, the "pallas"
+    separation, B1) through ``swarm_tick``, 100 ticks with an awarded
+    winner killed at tick 60, each tick timed with CUDA events and split
+    into re-solve ticks and the others (a tick re-solves where a leader
+    exists and the cadence, an eviction or the leader's emergence calls
+    for it, as the tick decides on the device); N2 once a tick; one task
+    per agent, every winner alive; N2 at the final tick's own values
+    against its plain version, timed beside it and its bound; then the
+    bench instances."""
+    from distributed_swarm_algorithm_tpu_torch.ops import allocation as al
+    from distributed_swarm_algorithm_tpu_torch.ops import auction as au
+    from distributed_swarm_algorithm_tpu_torch.state import LEADER
+    cfg = dsa.DEFAULT_CONFIG.replace(**AUC_CFG)
+    warm = auction_swarm(dsa, AUC_N, cfg, dev)
+    for _ in range(4):
+        warm = dsa.swarm_tick(warm, None, cfg)
+    del warm
+    st = auction_swarm(dsa, AUC_N, cfg, dev)
+    reset_launches(kernels)
+    ms, resolve, had = [], [], False
+    for k in range(AUC_TICKS):
+        evict = False
+        if k == AUC_KILL_AT:
+            won = st.task_winner[st.task_winner >= 0]
+            check(won.numel() > 0, "no task awarded at the kill")
+            st = dsa.kill(st, [int(won[0])])
+            evict = True
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = dsa.swarm_tick(st, None, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        has = bool((st.alive & (st.fsm == LEADER)).any())
+        resolve.append(has and (int(st.tick) % AUC_EVERY == 0 or evict
+                                or not had))
+        had = has
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    won = st.task_winner[st.task_winner >= 0]
+    alive_ids = st.agent_id[st.alive]
+    solve_ms = [m for m, r in zip(ms, resolve) if r]
+    other_ms = [m for m, r in zip(ms, resolve) if not r]
+    rec = dict(phase="full_width", model="auction tick", agents=AUC_N,
+               tasks=AUC_N, ticks=AUC_TICKS, auction_every=AUC_EVERY,
+               separation_mode=cfg.separation_mode, launches=launches,
+               resolve_ticks=[k + 1 for k, r in enumerate(resolve) if r],
+               ms_per_tick=sum(ms) / AUC_TICKS,
+               ms_per_resolve_tick=float(np.mean(solve_ms)),
+               ms_resolve_ticks=solve_ms,
+               ms_per_other_tick=float(np.mean(other_ms)),
+               ms_per_other_tick_median=float(np.median(other_ms)),
+               awarded=int(won.numel()), task_util_sum=float(st.task_util
+                                                             .sum()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               smi=smi, seconds_so_far=time.perf_counter() - t_start)
+    record(**rec)
+    want = {name: 0 for name in launches}
+    want.update(auction=AUC_TICKS, separation=AUC_TICKS)
+    check(launches == want, f"unexpected launches {launches}")
+    check(len(solve_ms) >= 3, f"too few re-solves: {rec['resolve_ticks']}")
+    check(won.unique().numel() == won.numel() and won.numel() > 0,
+          "the auction gave an agent two tasks, or none was awarded")
+    check(bool(torch.isin(won, alive_ids).all()), "a dead agent won a task")
+    # N2 at the main path's shape: the final tick's own square values.
+    u = al.utility_matrix(st, cfg)
+    values = au._square_values(u, st.alive[:, None]
+                               & (u > cfg.utility_threshold))
+    main = n2_timed(n2, values, "the final tick's utilities", smi)
+    benches = auction_benches(n2, dev, smi)
+    return dict(name="auction", route="cuda",
+                source="distributed_swarm_algorithm_tpu_torch/csrc/"
+                       "auction.cu",
+                replaces="distributed_swarm_algorithm_tpu/ops/auction.py:148",
+                launches=launches["auction"], max_abs_err=0.0,
+                ms=main["kernel_ms"], graph_ms=main["kernel_graph_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                rounds=main["rounds"],
+                benches={r["instance"]: dict(
+                    rounds=r["rounds"], ms=r["kernel_ms"],
+                    graph_ms=r["kernel_graph_ms"], bound_ms=r["bound_ms"])
+                    for r in benches})
+
+
+def field_swarm(dsa, dev):
+    """decompose_rebuild.py:67-80's station: 65,536 agents from
+    make_swarm(seed=0, spread=250), four tasks, each agent's target its
+    own start."""
+    st = dsa.make_swarm(HG_N, seed=0, spread=HG_SPREAD, device=dev)
+    st = dsa.with_tasks(st, BENCH_TASKS)
+    return st.replace(target=st.pos.clone(),
+                      has_target=torch.ones_like(st.has_target))
+
+
+def copy_gen(state, dev):
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.gen.get_state())
+    return state.replace(gen=gen)
+
+
+def field_full_width(dsa, kernels, smi, t_start, dev):
+    """Phase 16's field: the field tick at decompose_rebuild.py:67-94,
+    287-294's station (65,536 agents, hw 256, skin 0, cap 16, rescue
+    1,024, max_speed 1, sort_every 1; k_align 0.3, k_coh 0.1) on the slots
+    kernel (B2), in both deposits, beside the same tick with the field
+    off: each rollout of FIELD_TICKS ticks replayed in chunks, B2 once a
+    tick and no other kernel; two runs from the same state equal bit for
+    bit; the replayed rollout equal to the eager one across a kill; a
+    trace of two replayed chunks; the deposit twice on the final state
+    equal, and within the field's band of the CPU's."""
+    from distributed_swarm_algorithm_tpu_torch.models import swarm as swm
+    from distributed_swarm_algorithm_tpu_torch.ops import grid_moments as gm
+    from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
+    from distributed_swarm_algorithm_tpu_torch.state import TENSOR_FIELDS
+    base = dsa.DEFAULT_CONFIG.replace(**FIELD_CFG)
+    chunk = swm.HASHGRID_CHUNK
+    rows = {}
+    for name, cfg in (("field off", base.replace(k_align=0.0, k_coh=0.0)),
+                      ("scatter", base),
+                      ("sorted", base.replace(field_deposit="sorted"))):
+        st0 = field_swarm(dsa, dev)
+        plan = dsa.build_tick_plan(st0, cfg)
+        check(plan.has_field == (name != "field off"),
+              f"{name}: the plan carries the field keys wrongly")
+        st = copy_gen(st0, dev)
+        dsa.swarm_rollout(st, None, cfg, chunk)   # the capture, kept
+        saved = st.gen.get_state()
+        reset_launches(kernels)
+        out, run_ms = timed(lambda: dsa.swarm_rollout(st, None, cfg,
+                                                      FIELD_TICKS))
+        launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        hashgrid_launch_check(launches, "grid_separation", FIELD_TICKS)
+        st.gen.set_state(saved)
+        again = dsa.swarm_rollout(st, None, cfg, FIELD_TICKS)
+        repeat_unequal = [f for f in TENSOR_FIELDS
+                          if not torch.equal(getattr(out, f),
+                                             getattr(again, f))]
+        outs = {}
+        for replay in (False, True):
+            s = copy_gen(st0, dev)
+            with replaying(swm, replay):
+                s = dsa.swarm_rollout(s, None, cfg, FIELD_CMP_TICKS[0])
+                s = dsa.kill(s, [HG_N - 1, 7])
+                s = dsa.swarm_rollout(s, None, cfg, FIELD_CMP_TICKS[1])
+            outs[replay] = s
+        replay_unequal = [f for f in TENSOR_FIELDS
+                          if not torch.equal(getattr(outs[False], f),
+                                             getattr(outs[True], f))]
+        busy, ops, top = device_time(
+            lambda: dsa.swarm_rollout(out, None, cfg, 2 * chunk), 2 * chunk)
+        ms_tick = run_ms / FIELD_TICKS
+        rows[name] = dict(ms_per_tick=ms_tick, launches=launches)
+        record(phase="full_width", model="field tick", scenario=name,
+               agents=HG_N, ticks=FIELD_TICKS, chunk_ticks=chunk,
+               launches=launches, run_ms=run_ms, ms_per_tick=ms_tick,
+               agent_steps_per_sec=HG_N * FIELD_TICKS / (run_ms / 1e3),
+               plan_has_field=plan.has_field,
+               repeat_unequal_fields=repeat_unequal,
+               replay_vs_eager_unequal_fields=replay_unequal,
+               device_busy_ms_per_tick=busy,
+               device_idle_share=None if busy is None else 1.0 - busy
+               / ms_tick, device_ops_per_tick=ops, top_device_ops=top,
+               max_abs_vel=float(out.vel.abs().max()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               smi=smi, seconds_so_far=time.perf_counter() - t_start)
+        check(not repeat_unequal, f"{name}: two runs differ in "
+              f"{repeat_unequal}")
+        check(not replay_unequal, f"{name}: the replayed rollout differs "
+              f"from the eager one in {replay_unequal}")
+        check(bool(torch.isfinite(out.pos).all()), f"{name}: non-finite")
+    # The deposit on the final state, twice on the card and on the CPU.
+    cfg = base.replace(field_deposit="sorted")
+    plan = dsa.build_tick_plan(out, cfg)
+    keys = hp.plan_field_keys(plan)
+    args = (out.pos, out.vel, out.alive, HG_HW, base.grid_cell)
+    for deposit, kw in (("scatter", {}), ("sorted", dict(plan=plan))):
+        one = gm.cic_field_commensurate(*args, keys=keys, deposit=deposit,
+                                        **kw)
+        two = gm.cic_field_commensurate(*args, keys=keys, deposit=deposit,
+                                        **kw)
+        check(all(torch.equal(a, b) for a, b in zip(one, two)),
+              f"the {deposit} deposit differs between two runs")
+        cpu = gm.cic_field_commensurate(*(a.cpu() if torch.is_tensor(a)
+                                          else a for a in args),
+                                        deposit="scatter")
+        worst = max(float(((a.cpu() - b).abs() - 2e-4 * b.abs()).max()
+                          / max(float(b.abs().max()), 1.0))
+                    for a, b in zip(one, cpu))
+        dep_ms = cuda_ms(lambda: gm.cic_field_commensurate(
+            *args, keys=keys, deposit=deposit, **kw), 20)
+        record(phase="field_deposit", deposit=deposit, agents=HG_N,
+               ms=dep_ms, repeat_equal=True,
+               worst_excess_over_band_vs_cpu=worst, smi=smi)
+        check(worst <= 2e-5, f"the {deposit} field leaves the band of the "
+              f"CPU's: {worst}")
+    off, on = rows["field off"]["ms_per_tick"], rows["scatter"]["ms_per_tick"]
+    record(phase="field_tick_cost", ms_per_tick_field_off=off,
+           ms_per_tick_scatter=on,
+           ms_per_tick_sorted=rows["sorted"]["ms_per_tick"],
+           field_ms_per_tick=on - off, smi=smi)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4549,6 +4980,9 @@ def main():
     from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
         nsga2_ranks as n1,
     )
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import (
+        auction as n2,
+    )
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan as hp
     from distributed_swarm_algorithm_tpu_torch.ops import objectives
     from distributed_swarm_algorithm_tpu_torch.parallel import islands
@@ -4567,13 +5001,13 @@ def main():
                "firefly_fused": ff,
                "aco_tours": LaunchCount(af, "TOURS_LAUNCHES"),
                "aco_deposit": LaunchCount(af, "DEPOSIT_LAUNCHES"),
-               "nsga2_ranks": n1}
+               "nsga2_ranks": n1, "auction": n2}
     sources = ["separation", "window_separation", "grid_separation",
                "candidate_sweep", "pso_fused",
                *(f"{fam}_fused" for fam in zoo),
                *(f"{fam}_fused" for fam in rot),
                *LEVY_SOURCES.values(), "firefly_fused", "aco_fused",
-               "nsga2_ranks"]
+               "nsga2_ranks", "auction"]
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -4654,6 +5088,7 @@ def main():
     levy_small_shapes(levy, pf, dev)
     ff_aco_small_shapes(ff, af, dev)
     n1_small_shapes(n1, dev)
+    n2_small_shapes(n2, dev)
 
     # 4. the port on the CPU and on the card --------------------------------
     rng = np.random.default_rng(2)
@@ -4685,6 +5120,7 @@ def main():
     levy_cpu_vs_gpu(levy, dev)
     ff_aco_cpu_vs_gpu(dsa, ff, af, dev)
     nsga2_cpu_vs_gpu(dsa, dev)
+    auction_cpu_vs_gpu(dsa, dev)
 
     # 5. the main path at full width, "pallas" ------------------------------
     # A warm-up swarm first: a process's first ticks at this size pay the
@@ -5190,6 +5626,10 @@ def main():
     n1_row = nsga2_full_width(dsa, n1, kernels, smi, t_start, dev)
     zoo_rest_full_width(dsa, kernels, smi, t_start)
 
+    # 16. the auction tick, N2 and the field tick at full width -----------
+    n2_row = auction_full_width(dsa, n2, kernels, smi, t_start, dev)
+    field_full_width(dsa, kernels, smi, t_start, dev)
+
     print(json.dumps({"kernels": [
         {
             "name": "separation",
@@ -5289,6 +5729,7 @@ def main():
         ff_row,
         *aco_rows,
         n1_row,
+        n2_row,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

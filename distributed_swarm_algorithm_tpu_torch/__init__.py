@@ -10,7 +10,11 @@ Ported so far: the whole-swarm protocol tick (``swarm_tick``,
 ``swarm_rollout``, ``VectorSwarm``) with dense, all-pairs kernel
 ("pallas"), Morton-window kernel ("window"), spatial-hash ("grid"),
 torus hashgrid ("hashgrid", with its shared plan and Verlet carry) or no
-separation, and greedy allocation.  The kernels are hand-written CUDA C++
+separation, greedy or auction allocation (``allocation_mode="auction"``:
+Bertsekas' auction, ``ops/auction.py``, its bidding loop one hand-written
+kernel on the card, ``csrc/auction.cu``, N2), and the commensurate moments
+field's alignment and cohesion (``k_align`` / ``k_coh``,
+``ops/grid_moments.py``).  The separation kernels are hand-written CUDA C++
 (``csrc/separation.cu``, ``csrc/window_separation.cu``,
 ``csrc/grid_separation.cu``, ``csrc/candidate_sweep.cu``), built with
 ``nvcc`` on first use.  Also ported: the PSO family (``PSO``,

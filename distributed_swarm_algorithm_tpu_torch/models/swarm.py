@@ -25,8 +25,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.allocation import allocation_step, task_status_view
+from ..ops.allocation import (
+    allocation_step,
+    auction_allocation_step,
+    task_status_view,
+)
 from ..ops.coordination import coordination_step, current_leader, kill, revive
+from ..ops.cuda import auction as _cuda_auction
 from ..ops.cuda import candidate_sweep as _cuda_candidates
 from ..ops.cuda import grid_separation as _cuda_grid
 from ..ops.cuda import window_separation as _cuda_window
@@ -37,9 +42,11 @@ from ..ops.physics import (
     build_tick_plan,
     physics_step,
     physics_step_plan,
+    prepare_tick,
     tick_uses_hashgrid_kernel,
 )
 from ..state import (
+    LEADER,
     TENSOR_FIELDS,
     SwarmState,
     make_swarm,
@@ -69,7 +76,8 @@ def _protocol_steps(
     jitter: Optional[torch.Tensor] = None,
 ) -> SwarmState:
     """The tick before physics: tick stamp, the cadenced Morton re-sort
-    (window mode), coordination, allocation."""
+    (window mode), coordination, allocation (greedy, or the auction, told
+    whether the swarm became led this tick)."""
     if cfg.telemetry.enabled:
         raise NotImplementedError(
             "the in-tick flight recorder is not ported yet (ROADMAP Queue "
@@ -86,6 +94,12 @@ def _protocol_steps(
         # never comes here.
         if int(state.tick) % cfg.sort_every == 1:
             state = _morton_sorted(state, cfg)
+    if cfg.allocation_mode == "auction":
+        had_leader = (state.alive & (state.fsm == LEADER)).any()
+        state = coordination_step(state, cfg, jitter)
+        has_leader = (state.alive & (state.fsm == LEADER)).any()
+        return auction_allocation_step(state, cfg,
+                                       leader_emerged=~had_leader & has_leader)
     state = coordination_step(state, cfg, jitter)
     return allocation_step(state, cfg)
 
@@ -202,9 +216,10 @@ class _Chunk(NamedTuple):
     writes (its generator is the rollout's), the chunk's input saved by
     the graph and the flag it sets (a carried plan only: a tick needed a
     full rebuild), the static jitter rows it reads (or None), the
-    obstacles it read, the kernel module and the launches its capture
-    recorded, and what it was captured for (the config, the fields'
-    shapes and dtypes, the jitter's dtype)."""
+    obstacles it read, the separation kernel's module and the launches its
+    capture recorded, what it was captured for (the config, the fields'
+    shapes and dtypes, the jitter's dtype), and the other kernels' modules
+    with their launches (the auction's N2 in auction mode)."""
 
     graph: torch.cuda.CUDAGraph
     static: SwarmState
@@ -216,6 +231,7 @@ class _Chunk(NamedTuple):
     kernel: object
     launches: int
     key: tuple
+    others: tuple = ()
 
 
 # The last captured chunk, replayed by the next rollout whose state has the
@@ -234,10 +250,14 @@ def _capture_chunk(state, plan, obstacles, cfg, jitter_dtype, key) -> _Chunk:
     the state's generator registered (the election jitter draws from it).
     With a plan the graph first copies its input aside and ends by
     setting a flag when a tick needed a full rebuild.  Raises if the
-    capture fails or did not record one kernel launch a tick."""
+    capture fails or did not record one launch a tick of the separation
+    kernel (and, in auction mode with tasks, of the auction's N2)."""
     dev = state.device
     ticks = _chunk_length(cfg)
-    kernel = _replayed_kernel(cfg, state)
+    kernels = [_replayed_kernel(cfg, state)]
+    if cfg.allocation_mode == "auction" and state.n_tasks > 0:
+        kernels.append(_cuda_auction)
+    prepare_tick(state, cfg)
     static = state.replace(**{f: getattr(state, f).clone()
                               for f in TENSOR_FIELDS})
     splan = None if plan is None else _clone_plan(plan)
@@ -262,15 +282,17 @@ def _capture_chunk(state, plan, obstacles, cfg, jitter_dtype, key) -> _Chunk:
             _copy_into(splan, oplan, pfields)
             flag.copy_(full)
 
-    kernel._captured = 0
+    for kernel in kernels:
+        kernel._captured = 0
     graph = capture_graph(body, state.gen, dev)
-    launches = kernel._captured
-    if launches != ticks:
-        raise RuntimeError(
-            f"a captured chunk of {ticks} ticks must launch its kernel once "
-            f"a tick, got {launches}")
-    return _Chunk(graph, static, splan, saved, flag, jit, obstacles, kernel,
-                  launches, key)
+    launches = [(kernel, kernel._captured) for kernel in kernels]
+    for kernel, n in launches:
+        if n != ticks:
+            raise RuntimeError(
+                f"a captured chunk of {ticks} ticks must launch each of its "
+                f"kernels once a tick, got {n} of {kernel.__name__}")
+    return _Chunk(graph, static, splan, saved, flag, jit, obstacles,
+                  *launches[0], key, tuple(launches[1:]))
 
 
 def _replayed_rollout(
@@ -323,7 +345,8 @@ def _replayed_rollout(
         gen_state = None if r.flag is None else state.gen.get_state()
         r.graph.replay()
         if r.flag is None or not bool(r.flag):
-            r.kernel.LAUNCHES += r.launches
+            for kernel, n in ((r.kernel, r.launches),) + r.others:
+                kernel.LAUNCHES += n
         else:
             CHUNKS_RERUN += 1
             state.gen.set_state(gen_state)

@@ -44,6 +44,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in full f32 on the card: TF32 off for the call, as
+    :func:`matmul`."""
+    if ops[0].device.type != "cuda":
+        return torch.einsum(eq, *ops)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.einsum(eq, *ops)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root, through f64: PyTorch's on the
     CPU is not, for about 0.7% of f32 inputs; XLA's and the card's are."""

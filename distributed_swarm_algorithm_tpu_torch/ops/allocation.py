@@ -1,15 +1,24 @@
-"""Task allocation as a bid matrix, greedy mode: the counterpart of
-``ops/allocation.py`` of the JAX package, which documents the claim rule,
-the leader's arbitration and the deliberate fixes over the reference.
+"""Task allocation as a bid matrix: the counterpart of ``ops/allocation.py``
+of the JAX package, which documents the claim rule, the leader's
+arbitration and the deliberate fixes over the reference.
 
-All claims of a tick land in a utility matrix ``U[N, T]``; arbitration is
-a per-task reduction with the +hysteresis against the incumbent.  Ties go
-to the lowest agent id by value, through a masked min.
+Greedy mode: all claims of a tick land in a utility matrix ``U[N, T]``;
+arbitration is a per-task reduction with the +hysteresis against the
+incumbent.  Ties go to the lowest agent id by value, through a masked min.
+
+Auction mode (:func:`auction_allocation_step`): the leader solves an
+eps-optimal one-task-per-agent assignment (``ops/auction.py``) on a
+cadence, on a winner's death and when a leader emerges.  JAX decides
+under ``lax.cond``; here the decision stays a device flag that the
+auction's kernel reads (zero rounds where it is false) and the state is
+selected with ``torch.where``, so the tick never waits for the card.  The
+utility matrix is therefore computed every tick, where JAX computes it on
+re-solve ticks only.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -25,11 +34,7 @@ from ..state import (
 )
 from ..utils.config import SwarmConfig
 from ._numerics import norm, rdiv
-
-_AUCTION_TODO = (
-    "allocation_mode='auction' is not ported yet (ROADMAP Queue A item "
-    "10: ops/auction.py + allocation.auction_allocation_step)"
-)
+from .auction import auction_assign
 
 
 def utility_matrix(state: SwarmState, cfg: SwarmConfig) -> torch.Tensor:
@@ -78,8 +83,6 @@ def dead_winner_tasks(state: SwarmState) -> torch.Tensor:
 def allocation_step(state: SwarmState, cfg: SwarmConfig) -> SwarmState:
     """One allocation tick: dead-winner eviction, greedy claims, leader
     arbitration, award."""
-    if cfg.allocation_mode != "greedy":
-        raise NotImplementedError(_AUCTION_TODO)
     if state.n_tasks == 0:
         return state
 
@@ -119,9 +122,48 @@ def allocation_step(state: SwarmState, cfg: SwarmConfig) -> SwarmState:
     )
 
 
-def auction_allocation_step(state: SwarmState, cfg: SwarmConfig, *a, **kw):
-    """Not ported yet; see ROADMAP Queue A item 10."""
-    raise NotImplementedError(_AUCTION_TODO)
+def auction_allocation_step(
+    state: SwarmState,
+    cfg: SwarmConfig,
+    leader_emerged: Union[bool, torch.Tensor] = False,
+) -> SwarmState:
+    """Allocation tick in ``allocation_mode="auction"``: dead winners are
+    evicted at once; then, where a leader exists and the cadence
+    (``tick % auction_every == 0``), an eviction or ``leader_emerged`` (a
+    bool, or a device scalar: the swarm became led this tick) calls for
+    it, the flat auction re-solves over the alive agents' utilities above
+    ``utility_threshold``, and every task goes to its winner (unassigned
+    ones read OPEN again).  Otherwise the state keeps its awards."""
+    if state.n_tasks == 0:
+        return state
+    t = state.n_tasks
+    evict = dead_winner_tasks(state)
+    state = state.replace(
+        task_winner=torch.where(evict, NO_WINNER, state.task_winner),
+        task_util=torch.where(evict, 0.0, state.task_util),
+        task_claimed=state.task_claimed & ~evict[None, :],
+    )
+    leader_exists = (state.alive & (state.fsm == LEADER)).any()
+    trigger = (state.tick % cfg.auction_every == 0) | evict.any()
+    if isinstance(leader_emerged, torch.Tensor):
+        trigger = trigger | leader_emerged
+    elif leader_emerged:
+        trigger = torch.ones_like(trigger)
+    resolve = leader_exists & trigger
+
+    u = utility_matrix(state, cfg)
+    feasible = state.alive[:, None] & (u > cfg.utility_threshold)
+    res = auction_assign(u, feasible, eps=cfg.auction_eps, run=resolve)
+    got = res.task_agent >= 0                                   # [T]
+    row = res.task_agent.clamp(min=0).long()
+    winner = torch.where(got, state.agent_id.index_select(0, row), NO_WINNER)
+    util = torch.where(got, u.gather(0, row[None, :])[0], 0.0)
+    claimed = got[None, :].expand(state.n_agents, t)
+    return state.replace(
+        task_winner=torch.where(resolve, winner, state.task_winner),
+        task_util=torch.where(resolve, util, state.task_util),
+        task_claimed=torch.where(resolve, claimed, state.task_claimed),
+    )
 
 
 def agent_task_view(state: SwarmState) -> torch.Tensor:

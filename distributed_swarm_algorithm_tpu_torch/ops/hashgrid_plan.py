@@ -35,10 +35,15 @@ needed one.  A plan built every tick (``hashgrid_skin == 0``) never
 waits.  The occupancy (``counts``, ``starts``) comes from a searchsorted
 of the sorted keys, not a scatter-add.
 
-Not ported: the moments-field binning (``fkey``/``xt``/``yt``,
-:func:`plan_field_keys`, :func:`plan_cell_sums`; ROADMAP Queue A item 9)
-and the ``tiebreak`` sort key of the spatially-sharded tick (item 16).
-They raise.
+The moments field's binning rides the plan when the field's fine grid is
+the plan's (``field_sep_cell``): ``fkey``/``xt``/``yt`` follow
+``grid_moments.fine_cell_keys`` (positions wrapped onto the torus first),
+the separation keys ``torus_cell_xy`` (clipped); the two agree for every
+agent inside ``[-hw, hw)``.  :func:`plan_cell_sums` sums per-agent rows
+over the plan's own cell sort (the ``field_deposit="sorted"`` deposit).
+
+Not ported: the ``tiebreak`` sort key of the spatially-sharded tick
+(ROADMAP Queue A item 16).  It raises.
 """
 
 from __future__ import annotations
@@ -52,12 +57,15 @@ import torch
 
 from ..utils.platform import DeviceLike, resolve_device
 from ._numerics import sq_norm2, torus_wrap
+from .grid_moments import (
+    commensurate_geometry,
+    fine_cell_keys,
+    sorted_cell_sums,
+)
 from .neighbors import torus_cell_xy
 
 I32 = torch.int32
 
-_ITEM_9 = ("is not ported yet (ROADMAP Queue A item 9: "
-           "ops/grid_moments.py, the moments field)")
 _ITEM_16 = ("is not ported yet (ROADMAP Queue A item 16: "
             "parallel/spatial.py, the spatially-sharded tick)")
 
@@ -95,8 +103,8 @@ class HashgridPlan:
     sy: torch.Tensor              # [N] f32
     counts: Optional[torch.Tensor] = None      # [g*g] i32 live occupancy
     starts: Optional[torch.Tensor] = None      # [g*g] i32
-    fkey: Optional[torch.Tensor] = None        # item 9: never built here
-    xt: Optional[torch.Tensor] = None
+    fkey: Optional[torch.Tensor] = None        # [N] i32 field keys, g*g dead
+    xt: Optional[torch.Tensor] = None          # [N] f32 fine-cell-local x
     yt: Optional[torch.Tensor] = None
     ref_pos: Optional[torch.Tensor] = None     # [N, 2] build snapshot
     ref_alive: Optional[torch.Tensor] = None   # [N] bool
@@ -170,9 +178,6 @@ def plan_from_numpy(arrays: Mapping, device: DeviceLike = None
     for f in ("g", "cell_eff", "torus_hw", "max_per_cell"):
         if f not in kw:
             raise ValueError(f"plan_from_numpy: missing aux field {f!r}")
-    if kw.get("field_sep_cell") is not None:
-        raise NotImplementedError(f"a plan carrying the field binning "
-                                  f"{_ITEM_9}")
     for f in HashgridPlan.ARRAY_FIELDS:
         v = arrays.get(f)
         kw[f] = (None if v is None
@@ -205,9 +210,10 @@ def build_hashgrid_plan(
     counted in ``cand_overflow``; needs ``g >= 3``.  ``recv_cap`` (RK >
     0): the receiver table, each cell's own live agents in sort order
     (not truncated at ``max_per_cell``), rows past RK counted in
-    ``recv_overflow``.  Nothing here waits for the device."""
-    if field_sep_cell is not None:
-        raise NotImplementedError(f"the plan's field binning {_ITEM_9}")
+    ``recv_overflow``.  ``field_sep_cell`` (and ``field_align_cell``):
+    also bin the swarm onto the moments field's fine grid, which must be
+    the plan's (else this raises: the plan carries one binning).  Nothing
+    here waits for the device."""
     if tiebreak is not None:
         raise NotImplementedError(f"build_hashgrid_plan(tiebreak=) "
                                   f"{_ITEM_16}")
@@ -246,12 +252,28 @@ def build_hashgrid_plan(
         recv = _receiver_rows(cells, order, counts, starts, recv_cap, n)
         recv_overflow = (counts - recv_cap).clamp(min=0).sum().to(I32)
 
+    fkey = xt = yt = None
+    if field_sep_cell is not None:
+        g_fine = commensurate_geometry(torus_hw, field_sep_cell,
+                                       field_align_cell)[0]
+        if g_fine != g:
+            raise ValueError(
+                f"moments-field fine grid (g_fine={g_fine}, from "
+                f"sep_cell={field_sep_cell}) does not coincide with "
+                f"the plan grid (g={g}, from cell={cell}); the shared "
+                "plan only carries ONE binning — bin the field "
+                "separately (pass field_sep_cell=None) for split "
+                "geometries"
+            )
+        fkey, xt, yt = fine_cell_keys(pos, alive, torus_hw, g_fine)
+
     zero = torch.zeros((), dtype=I32, device=pos.device)
     return HashgridPlan(
         g=g, cell_eff=cell_eff, torus_hw=torus_hw,
         max_per_cell=max_per_cell, skin=float(skin),
+        field_sep_cell=field_sep_cell, field_align_cell=field_align_cell,
         cx=cx, cy=cy, key=key, order=order, skey=skey, rank=rank, ok=ok,
-        sx=sx, sy=sy, counts=counts, starts=starts,
+        sx=sx, sy=sy, counts=counts, starts=starts, fkey=fkey, xt=xt, yt=yt,
         ref_pos=pos, ref_alive=alive, age=zero, rebuilds=zero,
         cells_rebuilt=zero, cand=cand, cand_overflow=cand_overflow,
         cap_overflow=cap_overflow, recv=recv, recv_overflow=recv_overflow,
@@ -353,6 +375,8 @@ def _rebuild(pos, alive, plan):
     p = build_hashgrid_plan(
         pos, alive, plan.torus_hw, plan.cell_eff, plan.max_per_cell,
         need_csr=plan.has_csr, g=plan.g, skin=plan.skin,
+        field_sep_cell=plan.field_sep_cell,
+        field_align_cell=plan.field_align_cell,
         neighbor_cap=plan.cand.shape[1] if plan.has_list else 0,
         recv_cap=plan.recv.shape[1] if plan.has_recv else 0,
     )
@@ -561,11 +585,19 @@ def refresh_plan_on_device(
 
 
 def plan_field_keys(plan: HashgridPlan):
-    """Not ported yet: the moments field's keys off the plan."""
-    raise NotImplementedError(f"plan_field_keys {_ITEM_9}")
+    """The ``keys=(key, x~, y~)`` triple the moments field takes, or
+    ``None`` when the plan was built without the field binning."""
+    if plan.fkey is None:
+        return None
+    return plan.fkey, plan.xt, plan.yt
 
 
 def plan_cell_sums(plan: HashgridPlan, vals: torch.Tensor) -> torch.Tensor:
-    """Not ported yet: per-cell sums off the plan's sort (the
-    ``field_deposit="sorted"`` deposit)."""
-    raise NotImplementedError(f"plan_cell_sums {_ITEM_9}")
+    """[g*g, C] per-cell sums of the per-agent ``vals`` [N, C] over the
+    plan's existing cell sort (its separation cells: clipped binning, dead
+    agents dropped), each cell's run summed by
+    ``grid_moments.sorted_cell_sums``: a fixed order, no scatter.  For the
+    moments deposit these are the field's cells for every agent inside
+    the torus (the hashgrid caller's contract)."""
+    svals = vals.index_select(0, plan.order.long())
+    return sorted_cell_sums(plan.skey, svals, plan.g * plan.g)

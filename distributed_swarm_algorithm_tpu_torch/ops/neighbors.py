@@ -22,6 +22,8 @@ package.
 - ``separation_grid_plan``: the portable hashgrid sweep off a shared
   ``HashgridPlan`` (``ops/hashgrid_plan.py``): the 3x3 stencil over the
   plan's CSR tables, or the union sweep over its candidate table.
+- ``neighbor_counts_sampled`` / ``suggest_window``: the density probe that
+  sizes the Morton window.
 
 Every norm is clamped at ``eps``, so co-located agents get a finite force.
 The grid sweeps round their distances as the JAX package does on the CPU
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ._numerics import norm, rdiv, sq_norm2, torus_wrap, wrap_select
@@ -464,17 +467,61 @@ def separation_union_sweep(
     return torch.where(alive.bool()[:, None], force, 0.0)
 
 
-def neighbor_counts_sampled(*args, **kwargs):
-    """Not ported yet: the density probe behind ``suggest_window``."""
-    raise NotImplementedError(
-        "neighbor_counts_sampled is not ported yet (ROADMAP Queue A item "
-        "6: the window sizing helpers)"
-    )
+def neighbor_counts_sampled(
+    pos: torch.Tensor,
+    radius: float,
+    sample: int = 4096,
+    seed: int = 0,
+    chunk: int = 256,
+    idx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[S] int64 in-radius neighbour counts of ``sample`` agents chosen
+    without replacement (exact for each: distances to every agent, in
+    chunks of ``chunk`` sampled agents, so memory stays O(chunk * N)): the
+    density probe behind :func:`suggest_window`.
+
+    ``idx`` ([S] agent indices) hands the sample in; else it is drawn from
+    a generator seeded with ``seed`` (JAX draws with ``jax.random.choice``,
+    whose choice the tests hand in).  The squared distance is the f32
+    difference form, in 2-D rounded as XLA rounds ``sum(d * d, -1)`` on the
+    CPU (``_numerics.sq_norm2``)."""
+    n = pos.shape[0]
+    if idx is None:
+        s = min(sample, n)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        idx = torch.randperm(n, generator=gen)[:s].to(pos.device)
+    sample_pos = pos.index_select(0, idx.long())
+    r2 = radius * radius
+    counts = []
+    for start in range(0, sample_pos.shape[0], chunk):
+        diff = sample_pos[start:start + chunk, None, :] - pos[None, :, :]
+        if pos.shape[1] == 2:
+            d2 = sq_norm2(diff[..., 0], diff[..., 1])
+        else:
+            d2 = (diff * diff).sum(-1)
+        counts.append((d2 < r2).sum(1) - 1)              # minus self
+    if not counts:
+        return torch.zeros(0, dtype=torch.int64, device=pos.device)
+    return torch.cat(counts)
 
 
-def suggest_window(*args, **kwargs):
-    """Not ported yet: sizes ``window_size`` from the measured density."""
-    raise NotImplementedError(
-        "suggest_window is not ported yet (ROADMAP Queue A item 6: the "
-        "window sizing helpers)"
-    )
+def suggest_window(
+    pos: torch.Tensor,
+    personal_space: float,
+    sample: int = 4096,
+    seed: int = 0,
+    safety: float = 2.0,
+    lo: int = 4,
+    hi: int = 64,
+    idx: Optional[torch.Tensor] = None,
+) -> int:
+    """The Morton window sized from the swarm's measured density:
+    ``clip(ceil(safety * max(p95, 1)), lo, hi)`` of the in-radius
+    neighbour counts of a sample (:func:`neighbor_counts_sampled`; the JAX
+    package's docstring gives the calibration).  A Python int: it sizes
+    a static loop, so it reads the counts back; call it at setup, outside
+    a tick."""
+    counts = neighbor_counts_sampled(pos, personal_space, sample=sample,
+                                     seed=seed, idx=idx).cpu().numpy()
+    p95 = float(np.quantile(counts, 0.95)) if counts.size else 0.0
+    return int(np.clip(int(np.ceil(safety * max(p95, 1.0))), lo, hi))

@@ -4,8 +4,10 @@ and the deliberate fixes over the reference.
 
 Per tick: followers retarget on the V formation from their view of the
 leader; the force is target attraction + obstacle repulsion + neighbor
-separation; the velocity command is the force clamped to ``max_speed``,
-and an explicit Euler step moves the agents that have a target.
+separation + (with ``k_align`` / ``k_coh``) the commensurate moments
+field's alignment and cohesion (``ops/grid_moments.py``); the velocity
+command is the force clamped to ``max_speed``, and an explicit Euler step
+moves the agents that have a target.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..state import FOLLOWER, I32, SwarmState
 from ..utils.config import SwarmConfig
+from . import grid_moments as _gm
 from . import hashgrid_plan as _hp
 from . import neighbors as _neighbors
 from ._numerics import norm, rdiv
@@ -23,10 +26,6 @@ from .cuda import candidate_sweep as _cuda_candidates
 from .cuda import grid_separation as _cuda_grid
 from .cuda import separation as _cuda_separation
 from .cuda import window_separation as _cuda_window
-
-_ITEM_9 = ("ROADMAP Queue A item 9: ops/grid_moments.py, the moments "
-           "field")
-
 
 def formation_targets(state: SwarmState, cfg: SwarmConfig) -> SwarmState:
     """Followers derive their nav target from their view of the leader
@@ -155,33 +154,51 @@ def tick_uses_hashgrid_kernel(cfg: SwarmConfig, dim: int, dtype,
     )
 
 
-def _check_field_off(cfg: SwarmConfig) -> None:
-    if cfg.k_align != 0.0 or cfg.k_coh != 0.0:
-        raise NotImplementedError(
-            f"k_align/k_coh field forces are not ported yet ({_ITEM_9})"
+def tick_field_enabled(cfg: SwarmConfig) -> bool:
+    """Whether the tick adds the moments field's forces (``k_align`` or
+    ``k_coh`` non-zero).  Checks the field's geometry at once, so a
+    misconfiguration fails at dispatch."""
+    if cfg.k_align == 0.0 and cfg.k_coh == 0.0:
+        return False
+    if cfg.world_hw <= 0:
+        raise ValueError(
+            "k_align/k_coh need world_hw > 0 (the torus the "
+            "alignment field tiles); set it in SwarmConfig"
         )
+    # Raises where align_cell is not an even multiple of grid_cell.
+    _gm.commensurate_geometry(cfg.world_hw, cfg.grid_cell,
+                              _gm.align_cell_arg(cfg.align_cell))
+    return True
 
 
 def resolve_plan_geometry(use_kernel, world_hw, sep_cell, personal_space,
-                          skin):
-    """(g_plan, cell_plan) of a hashgrid plan.  Kernel path: the slots
-    kernel's 16-aligned grid on the skin-inflated cell.  Portable path:
-    ``floor(2hw / (max(sep_cell, personal_space) + skin))``.  (The JAX
-    package also returns whether the moments field shares the plan; with
-    the field not ported, it never does.)"""
+                          skin, field_on=False, field_sep_cell=None,
+                          align_cell=0.0):
+    """(g_plan, cell_plan, share_field) of a hashgrid plan.  Kernel path:
+    the slots kernel's 16-aligned grid on the skin-inflated cell.
+    Portable path: ``floor(2hw / (max(sep_cell, personal_space) +
+    skin))``.  ``share_field``: the moments field's keys ride the plan,
+    which they do only with the field on, at skin 0 (a stale binning would
+    misplace deposits) and where the field's fine grid is the plan's."""
     if use_kernel:
         g_plan, _ = _cuda_grid._geometry(world_hw, sep_cell + skin)
-        return g_plan, sep_cell
-    cell_plan = max(sep_cell, personal_space)
-    g_plan = max(1, int(2.0 * world_hw / (cell_plan + skin)))
-    if g_plan < 3:
-        raise ValueError(
-            f"torus [-{world_hw}, {world_hw}) tiled by cell "
-            f"{cell_plan + skin} gives a {g_plan}-cell grid; the wrapping "
-            "3x3 stencil needs g >= 3 (use the dense separation mode for "
-            "such tiny worlds)"
-        )
-    return g_plan, cell_plan
+        cell_plan = sep_cell
+    else:
+        cell_plan = max(sep_cell, personal_space)
+        g_plan = max(1, int(2.0 * world_hw / (cell_plan + skin)))
+        if g_plan < 3:
+            raise ValueError(
+                f"torus [-{world_hw}, {world_hw}) tiled by cell "
+                f"{cell_plan + skin} gives a {g_plan}-cell grid; the "
+                "wrapping 3x3 stencil needs g >= 3 (use the dense "
+                "separation mode for such tiny worlds)"
+            )
+    share_field = False
+    if skin == 0.0 and field_on:
+        share_field = _gm.commensurate_geometry(
+            world_hw, field_sep_cell, _gm.align_cell_arg(align_cell)
+        )[0] == g_plan
+    return g_plan, cell_plan, share_field
 
 
 def build_tick_plan(state: SwarmState, cfg: SwarmConfig,
@@ -191,7 +208,9 @@ def build_tick_plan(state: SwarmState, cfg: SwarmConfig,
     by ``hashgrid_skin``.  The candidates flavor always carries its
     ``cand`` and ``recv`` tables; the portable flavor carries the
     candidate table only for a rollout that reuses the plan (``amortized``
-    with a skin).  Nothing here waits for the device."""
+    with a skin).  The moments field's keys ride along where
+    :func:`resolve_plan_geometry` shares them.  Nothing here waits for the
+    device."""
     pos = state.pos
     if cfg.world_hw <= 0:
         raise ValueError(
@@ -203,13 +222,13 @@ def build_tick_plan(state: SwarmState, cfg: SwarmConfig,
             "separation_mode='hashgrid' is 2-D only (the cell grid tiles a "
             f"2-D torus); got dim={pos.shape[1]}"
         )
-    _check_field_off(cfg)
     skin = float(cfg.hashgrid_skin)
     use_kernel = tick_uses_hashgrid_kernel(cfg, 2, pos.dtype, pos.device)
     candidates = cfg.hashgrid_kernel == "candidates"
-    g_plan, cell_plan = resolve_plan_geometry(
+    g_plan, cell_plan, share_field = resolve_plan_geometry(
         use_kernel and not candidates, cfg.world_hw, cfg.grid_cell,
-        cfg.personal_space, skin,
+        cfg.personal_space, skin, field_on=tick_field_enabled(cfg),
+        field_sep_cell=cfg.grid_cell, align_cell=cfg.align_cell,
     )
     if candidates:
         neighbor_cap, recv_cap = _candidate_table_shape(cfg)
@@ -221,6 +240,9 @@ def build_tick_plan(state: SwarmState, cfg: SwarmConfig,
     return _hp.build_hashgrid_plan(
         pos, state.alive, float(cfg.world_hw), float(cell_plan),
         cfg.grid_max_per_cell, need_csr=not use_kernel or candidates,
+        field_sep_cell=float(cfg.grid_cell) if share_field else None,
+        field_align_cell=(_gm.align_cell_arg(cfg.align_cell) if share_field
+                          else None),
         g=g_plan, skin=skin, neighbor_cap=neighbor_cap, recv_cap=recv_cap,
     )
 
@@ -296,10 +318,49 @@ def apf_forces_plan(
     plan=None,
 ):
     """(total APF force [N, D], the hashgrid plan the tick dispatched on
-    or None)."""
-    _check_field_off(cfg)
+    or None).  With ``k_align`` / ``k_coh`` it adds the moments field,
+    binned off the hashgrid plan where it carries the field's keys, else
+    binned here; ``field_deposit="sorted"`` needs those keys."""
+    pos = state.pos
+    f_point = _apf_point_forces(state, obstacles, cfg)
     f_sep, plan = separation_force(state, cfg, plan)
-    return _apf_point_forces(state, obstacles, cfg) + f_sep, plan
+    if not tick_field_enabled(cfg):
+        return f_point + f_sep, plan
+    if pos.shape[1] != 2:
+        raise ValueError(
+            "k_align/k_coh field forces are 2-D only (the field "
+            f"tiles a 2-D torus); got dim={pos.shape[1]}"
+        )
+    field_keys = None if plan is None else _hp.plan_field_keys(plan)
+    if cfg.field_deposit == "sorted" and field_keys is None:
+        raise ValueError(
+            "field_deposit='sorted' runs the deposit off the "
+            "shared plan's existing cell sort (plan_cell_sums), "
+            "so it needs the plan to carry the field keys: "
+            "separation_mode='hashgrid' with a commensurate "
+            "geometry and hashgrid_skin == 0 (a stale sort "
+            "cannot deposit).  Use field_deposit='scatter' here."
+        )
+    align, coh = _gm.cic_field_commensurate(
+        pos, state.vel, state.alive, torus_hw=float(cfg.world_hw),
+        sep_cell=float(cfg.grid_cell),
+        align_cell=_gm.align_cell_arg(cfg.align_cell), keys=field_keys,
+        plan=plan if cfg.field_deposit == "sorted" else None,
+        deposit=cfg.field_deposit,
+    )
+    f_field = cfg.k_align * align + cfg.k_coh * coh
+    return f_point + f_sep + f_field, plan
+
+
+def prepare_tick(state: SwarmState, cfg: SwarmConfig) -> None:
+    """Ready the tick's first use on the state's device (the moments
+    field's tables and BLAS handle, ``grid_moments.prepare``), so that a
+    tick captured in a CUDA graph, which can neither copy from the host
+    nor create a handle, finds them."""
+    if tick_field_enabled(cfg):
+        _gm.prepare(cfg.world_hw, cfg.grid_cell,
+                    _gm.align_cell_arg(cfg.align_cell), state.pos.dtype,
+                    state.device)
 
 
 def apf_forces(

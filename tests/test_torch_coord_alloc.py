@@ -141,8 +141,14 @@ def test_port_draws_its_own_jitter_in_range():
 
 
 def test_auction_mode_raises_with_its_roadmap_item():
+    # ROADMAP Queue A item 10 is ported: nothing raises in auction mode.
+    # allocation_step is the greedy arbiter whatever the mode (as in JAX);
+    # the tick dispatches to the auction (tests/test_torch_auction.py).
     s = tdsa.with_tasks(tdsa.make_swarm(4, device="cpu"), [[0.0, 0.0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tdsa.allocation_step(
-            s, tdsa.DEFAULT_CONFIG.replace(allocation_mode="auction")
-        )
+    s = s.replace(fsm=torch.full_like(s.fsm, tdsa.LEADER))
+    auction = tdsa.DEFAULT_CONFIG.replace(allocation_mode="auction")
+    greedy = tdsa.allocation_step(s, tdsa.DEFAULT_CONFIG)
+    same = tdsa.allocation_step(s, auction)
+    assert torch.equal(same.task_winner, greedy.task_winner)
+    out = tdsa.swarm_tick(s, None, auction)
+    assert out.task_winner.shape == (1,)

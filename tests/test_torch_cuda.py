@@ -4485,3 +4485,264 @@ def test_nsga2_generation_on_the_card_selects_as_the_cpu_does(cuda):
         assert torch.equal(g.cpu(), w)
     out = tn.nsga2_step(st_c, tn.zdt1, draws=draws_c)
     assert bool((out.pos >= 0).all() and (out.pos <= 1).all())
+
+
+# --------------------------------------------------------------------------
+# Queue A items 9 and 10: N2 (the auction's bidding loop), the auction tick
+# and the moments field on the card.
+# --------------------------------------------------------------------------
+
+from distributed_swarm_algorithm_tpu_torch.ops import (  # noqa: E402
+    auction as port_auction,
+)
+from distributed_swarm_algorithm_tpu_torch.ops import (  # noqa: E402
+    grid_moments as port_gm,
+)
+from distributed_swarm_algorithm_tpu_torch.ops.cuda import (  # noqa: E402
+    auction as port_n2,
+)
+
+
+def n2_values(kind, s, seed):
+    """[S, S] float32 square values: uniform in [1, 100), all ties, an
+    infeasible agent and task (a zero row and column), a price war (eight
+    hot tasks near 100, the rest below 1), or a rectangular [S, 2S/3]
+    problem with a third of its pairs infeasible, squared."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(1.0, 100.0, (s, s)).astype(np.float32)
+    if kind == "ties":
+        v[:] = 10.0
+    elif kind == "infeasible":
+        v[s // 3] = 0.0
+        v[:, s // 2] = 0.0
+    elif kind == "price-war":
+        v = rng.uniform(0.5, 1.0, (s, s)).astype(np.float32)
+        v[:, :8] = 100.0 + rng.uniform(0.0, 0.01, (s, 8)).astype(np.float32)
+    elif kind == "rect":
+        util = torch.from_numpy(v[:, :2 * s // 3].copy())
+        feas = torch.from_numpy(rng.random(tuple(util.shape)) < 0.67)
+        return port_auction._square_values(util, feas)
+    return torch.from_numpy(v)
+
+
+N2_CASES = ([("uniform", s) for s in (1, 2, 3, 5, 31, 33, 100, 1023, 1025)]
+            + [("ties", 40), ("ties", 97), ("infeasible", 50),
+               ("infeasible", 257), ("price-war", 256), ("rect", 90),
+               ("rect", 600)])
+
+
+def _n2_both(cuda, values, prices=None, cap=100_000, run=True):
+    s = values.shape[0]
+    v = values.to(cuda)
+    p = torch.zeros(s, device=cuda) if prices is None else prices.to(cuda)
+    eps = torch.full((), 0.25, device=cuda)
+    flag = torch.full((), run, dtype=torch.bool, device=cuda)
+    before = port_n2.LAUNCHES
+    got = port_n2.auction_square_cuda(v, p, eps, cap, flag)
+    torch.cuda.synchronize()
+    assert port_n2.LAUNCHES == before + 1
+    want = port_n2.auction_square_plain(v, p, eps, cap, flag)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,s", N2_CASES)
+def test_auction_kernel_equals_its_plain_version(cuda, kind, s):
+    got, want = _n2_both(cuda, n2_values(kind, s, seed=s + 1))
+    assert [t.dtype for t in got] == [torch.int32, torch.int32,
+                                      torch.float32, torch.int32]
+    for name, a, b in zip(("agent_task", "task_agent", "prices", "rounds"),
+                          got, want):
+        assert torch.equal(a, b), (kind, s, name)
+    assert bool((got[0] >= 0).all())            # every agent seated
+
+
+@pytest.mark.cuda
+def test_auction_kernel_cap_warm_prices_run_flag_and_global_state(cuda):
+    v = n2_values("uniform", 256, seed=3)
+    warm = torch.rand(256, generator=torch.Generator().manual_seed(2)) * 5.0
+    for kw in (dict(cap=7), dict(prices=warm), dict(run=False)):
+        got, want = _n2_both(cuda, v, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+    off, _ = _n2_both(cuda, v, run=False)
+    assert int(off[3]) == 0 and bool((off[0] == -1).all())
+    # Past ~9,680 tasks the state leaves shared memory for the scratch.
+    got, want = _n2_both(cuda, n2_values("uniform", 9_800, seed=4))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_auction_assign_on_the_card_equals_the_cpu(cuda):
+    # Rectangular and scaled: the whole entry (padding, N2 a phase,
+    # unpadding) on the card against the same on the CPU.
+    rng = np.random.default_rng(5)
+    util = torch.from_numpy(rng.uniform(0.0, 100.0, (300, 170))
+                            .astype(np.float32))
+    feas = torch.from_numpy(rng.random((300, 170)) < 0.8)
+    for fn in (port_auction.auction_assign,
+               port_auction.auction_assign_scaled):
+        before = port_n2.LAUNCHES
+        got = fn(util.to(cuda), feas.to(cuda))
+        want = fn(util, feas)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        assert port_n2.LAUNCHES == before + (
+            1 if fn is port_auction.auction_assign else 4)
+
+
+@pytest.mark.cuda
+def test_auction_builds_spill_no_registers(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops.cuda import _build
+    _build.build(["auction"])
+    log = _build.build_log("auction")
+    entries = [ln for ln in log.splitlines() if "Compiling entry" in ln]
+    assert len(entries) == 4, entries   # shared or global state, float4 or not
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= 4 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
+
+
+@pytest.mark.cuda
+def test_auction_cuda_rejects_what_it_cannot_take(cuda):
+    v = torch.rand(8, 8, device=cuda)
+    p = torch.zeros(8, device=cuda)
+    eps = torch.full((), 0.25, device=cuda)
+    run = torch.ones((), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        port_n2.auction_square_cuda(v.cpu(), p.cpu(), eps.cpu(), 10,
+                                    run.cpu())
+    with pytest.raises(ValueError):
+        port_n2.auction_square_cuda(v[:, :7].contiguous(), p, eps, 10, run)
+    with pytest.raises(TypeError):
+        port_n2.auction_square_cuda(v.double(), p, eps, 10, run)
+    with pytest.raises(ValueError):
+        port_n2.auction_square_cuda(v, p[:7], eps, 10, run)
+    with pytest.raises(ValueError):
+        port_n2.auction_square_cuda(v, p, eps, 10, run.int())
+
+
+def _auction_cfg(**kw):
+    return tdsa.DEFAULT_CONFIG.replace(
+        allocation_mode="auction", auction_every=2, utility_threshold=5.0,
+        separation_mode="pallas", **kw)
+
+
+def _field_cfg(**kw):
+    return tdsa.DEFAULT_CONFIG.replace(
+        separation_mode="hashgrid", formation_shape="none", world_hw=64.0,
+        grid_max_per_cell=16, k_align=0.3, k_coh=0.1, **kw)
+
+
+def _led_swarm(cuda, n, tasks, spread, seed=0):
+    """A swarm whose top agent already leads (so every tick may solve)."""
+    from distributed_swarm_algorithm_tpu_torch.state import LEADER
+    st = tdsa.make_swarm(n, spread=spread, seed=seed, device=cuda)
+    rng = np.random.default_rng(seed)
+    st = tdsa.with_tasks(st, torch.from_numpy(rng.uniform(
+        -spread, spread, (tasks, 2)).astype(np.float32)).to(cuda))
+    fsm = st.fsm.clone()
+    fsm[-1] = LEADER
+    return st.replace(fsm=fsm)
+
+
+@pytest.mark.cuda
+def test_auction_and_field_ticks_never_wait_for_the_device(cuda):
+    st = _led_swarm(cuda, 512, 64, 20.0)
+    cfg = _auction_cfg()
+    st = tdsa.swarm_tick(st, None, cfg)              # warm up
+
+    def ticks(s, k):
+        for _ in range(k):
+            s = tdsa.swarm_tick(s, None, cfg)
+        return s
+
+    before = port_n2.LAUNCHES
+    out, waits = _sync_waits(lambda: ticks(st, 4))
+    assert not waits, waits
+    assert port_n2.LAUNCHES == before + 4
+    assert bool((out.task_winner >= 0).any())
+    fs = tdsa.make_swarm(4096, spread=60.0, seed=1, device=cuda)
+    for deposit in ("scatter", "sorted"):
+        fcfg = _field_cfg(field_deposit=deposit)
+        fs = tdsa.swarm_tick(fs, None, fcfg)         # the tables land
+        _, waits = _sync_waits(lambda: tdsa.swarm_tick(fs, None, fcfg))
+        assert not waits, (deposit, waits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["field-scatter", "field-sorted",
+                                  "auction", "auction-field",
+                                  "window-auction-field"])
+def test_graph_replayed_rollout_with_field_or_auction_equals_eager(
+        cuda, monkeypatch, case):
+    # A hashgrid rollout on the slots kernel (or a window rollout with its
+    # re-sort) with the field, the auction or both: replayed in chunks, it
+    # equals the eager rollout on every field across a kill, and launches
+    # its separation kernel (and N2) once a tick.
+    extra = {}
+    if case.startswith("field"):
+        extra["field_deposit"] = case.split("-")[1]
+    cfg = _field_cfg(**extra)
+    sep_mod = port_grid
+    if "auction" in case:
+        cfg = cfg.replace(allocation_mode="auction", auction_every=3,
+                          utility_threshold=5.0)
+        if case == "auction":
+            cfg = cfg.replace(k_align=0.0, k_coh=0.0)
+    if case.startswith("window"):
+        cfg = cfg.replace(separation_mode="window", sort_every=8)
+        sep_mod = port_win
+    # The auction pads to S = max(N, T): agents past the tasks bid for
+    # zero-valued slots, a price war of thousands of rounds at 8,192.
+    n = 1024 if "auction" in case else 8192
+    spans = (20, 13) if sep_mod is port_grid else (24, 16)
+    runs = {}
+    replays = port_swarm.replays_graphs
+    for replay in (False, True):
+        monkeypatch.setattr(port_swarm, "replays_graphs",
+                            replays if replay else lambda dev: False)
+        monkeypatch.setattr(port_swarm, "_chunk", None)
+        st = _led_swarm(cuda, n, 32, 60.0, seed=2)
+        before = (sep_mod.LAUNCHES, port_n2.LAUNCHES)
+        for k, ticks in enumerate(spans):
+            if k:
+                st = tdsa.kill(st, [n - 1, 5])
+            st = port_swarm.swarm_rollout(st, None, cfg, ticks)
+        torch.cuda.synchronize()
+        auction = cfg.allocation_mode == "auction"
+        assert (sep_mod.LAUNCHES - before[0],
+                port_n2.LAUNCHES - before[1]) == (
+            sum(spans), sum(spans) if auction else 0)
+        runs[replay] = st
+        if replay:
+            assert port_swarm._chunk is not None
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(runs[False], f), getattr(runs[True], f)), f
+    if cfg.allocation_mode == "auction":
+        won = runs[True].task_winner[runs[True].task_winner >= 0]
+        assert won.numel() > 0 and won.unique().numel() == won.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deposit", ["scatter", "sorted"])
+def test_field_deposit_repeats_bit_for_bit_on_the_card(cuda, deposit):
+    # The per-cell sums take a fixed order (no atomics), so two runs are
+    # equal; against the CPU the field keeps its band (2e-4 relative,
+    # 2e-5 of the largest value).
+    rng = np.random.default_rng(6)
+    pos = torch.from_numpy(rng.uniform(-64.0, 64.0, (65536, 2))
+                           .astype(np.float32))
+    vel = torch.from_numpy(rng.normal(size=(65536, 2)).astype(np.float32))
+    alive = torch.from_numpy(rng.random(65536) > 0.05)
+    g = port_gm.commensurate_geometry(64.0, 2.0)[0]
+    plan = port_hp.build_hashgrid_plan(pos.to(cuda), alive.to(cuda), 64.0,
+                                       2.0, 16, g=g, field_sep_cell=2.0)
+    args = (pos.to(cuda), vel.to(cuda), alive.to(cuda), 64.0, 2.0)
+    kw = dict(keys=port_hp.plan_field_keys(plan), deposit=deposit,
+              plan=plan if deposit == "sorted" else None)
+    one = port_gm.cic_field_commensurate(*args, **kw)
+    two = port_gm.cic_field_commensurate(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    cpu = port_gm.cic_field_commensurate(pos, vel, alive, 64.0, 2.0)
+    for a, b in zip(one, cpu):
+        scale = max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5 * scale)

@@ -297,9 +297,17 @@ def test_plan_numpy_roundtrip_and_unported_parts():
     assert back.g == tp.g and back.skin == tp.skin
     with pytest.raises(ValueError, match="not array fields"):
         tp.replace(g=3)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # The field binning (item 9) is ported: it rides the plan and the
+    # round trip; the sharded tick's tiebreak (item 16) still raises.
+    fp = thp.build_hashgrid_plan(t(pos), t(alive), P_HW, P_CELL, P_CAP,
+                                 field_sep_cell=2.0)
+    back = thp.plan_from_numpy(thp.plan_to_numpy(fp), device="cpu")
+    assert back.has_field and back.field_sep_cell == 2.0
+    assert all(torch.equal(getattr(fp, f), getattr(back, f))
+               for f in ("fkey", "xt", "yt"))
+    with pytest.raises(NotImplementedError, match="item 16"):
         thp.build_hashgrid_plan(t(pos), t(alive), P_HW, P_CELL, P_CAP,
-                                field_sep_cell=2.0)
+                                tiebreak=t(np.arange(200, dtype=np.int32)))
 
 
 # --- forces, in bands -------------------------------------------------------

@@ -217,10 +217,11 @@ def test_entry_points_without_cuda_raise(monkeypatch, capsys):
     "mode", ["k_align-hashgrid", "window", "field-deposit-sorted",
              "tiebreak", "island-telemetry", "island-shift-fn"])
 def test_unported_modes_raise_with_their_roadmap_item(mode):
-    # Every separation mode runs since slice 3; what still raises is the
-    # moments field (item 9), the window sizing helpers (item 6), the
-    # sharded tick's tiebreak (item 16) and, of the island model, its
-    # telemetry (item 11) and the sharded ring shift (item 17).
+    # Every separation mode runs since slice 3, and the moments field
+    # (item 9), the window sizing helpers (item 6) since slice 22: their
+    # cases now check that they run.  What still raises is the sharded
+    # tick's tiebreak (item 16) and, of the island model, its telemetry
+    # (item 11) and the sharded ring shift (item 17).
     from distributed_swarm_algorithm_tpu_torch.ops import hashgrid_plan
 
     if mode.startswith("island"):
@@ -246,13 +247,11 @@ def test_unported_modes_raise_with_their_roadmap_item(mode):
         return
 
     s = tdsa.make_swarm(4, device="cpu", spread=3.0)
-    if mode == "window":   # the tick is ported; its sizing helpers are not
+    if mode == "window":   # the tick and its sizing helpers are ported
         from distributed_swarm_algorithm_tpu_torch.ops import neighbors
 
-        for helper in (neighbors.suggest_window,
-                       neighbors.neighbor_counts_sampled):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-                helper(s.pos, 2.0)
+        assert neighbors.suggest_window(s.pos, 2.0) == 4
+        assert neighbors.neighbor_counts_sampled(s.pos, 2.0).shape == (4,)
         return
     hashgrid = tdsa.DEFAULT_CONFIG.replace(separation_mode="hashgrid",
                                            world_hw=16.0)
@@ -264,26 +263,24 @@ def test_unported_modes_raise_with_their_roadmap_item(mode):
         return
     if mode == "field-deposit-sorted":
         cfg = hashgrid.replace(k_coh=0.5, field_deposit="sorted")
-        for call in (lambda: hashgrid_plan.plan_cell_sums(plan, s.pos),
-                     lambda: hashgrid_plan.plan_field_keys(plan)):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                call()
+        sums = hashgrid_plan.plan_cell_sums(plan, s.pos)
+        assert sums.shape == (plan.g * plan.g, 2)
+        assert hashgrid_plan.plan_field_keys(plan) is None   # field off
     else:
         cfg = hashgrid.replace(k_align=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        tdsa.swarm_tick(s, None, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        tdsa.build_tick_plan(s, cfg)
+    assert hashgrid_plan.plan_field_keys(tdsa.build_tick_plan(s, cfg))
+    out = tdsa.swarm_tick(s, None, cfg)
+    assert torch.isfinite(out.pos).all()
 
 
 def test_unported_options_raise():
     s = tdsa.make_swarm(4, device="cpu")
-    for cfg in (
-        tdsa.DEFAULT_CONFIG.replace(telemetry=tdsa.TELEMETRY_ON),
-        tdsa.DEFAULT_CONFIG.replace(k_align=1.0),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            tdsa.swarm_tick(s, None, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        tdsa.swarm_tick(s, None,
+                        tdsa.DEFAULT_CONFIG.replace(telemetry=tdsa.TELEMETRY_ON))
+    # The field is ported (item 9); without a torus it raises JAX's error.
+    with pytest.raises(ValueError, match="world_hw"):
+        tdsa.swarm_tick(s, None, tdsa.DEFAULT_CONFIG.replace(k_align=1.0))
     with pytest.raises(ValueError, match="unknown separation_mode"):
         tdsa.swarm_tick(
             s, None, tdsa.DEFAULT_CONFIG.replace(separation_mode="nope")

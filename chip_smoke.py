@@ -57,9 +57,14 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    +-inf, and feasible, infeasible and tied violations; N2 against its
    plain version under ``torch.equal`` on all four outputs (agent_task,
    task_agent, prices, rounds) at S = 1, 2, 3, 31, 33, 1,000, 1,023 and
-   1,025, all ties, an infeasible agent and task, N != T squared, the
-   round cap, warm prices, the run flag off, and S = 10,000 (its state in
-   global scratch);
+   1,025, all ties, an infeasible agent and task, N != T squared, a third
+   of the agents with zero rows (+0 and -0, S not a multiple of 4),
+   virtual zero rows, the round cap (also mid-war), warm prices, the run
+   flag off, both schedules the entry chooses at the edge between them
+   (S = 7,792, a cluster of 16 with its state in shared memory, and
+   7,793, one block on the global scratch, both with zero rows), and
+   S = 9,800 with zero rows and 10,000 (one block, its state in global
+   scratch);
 4. CPU vs GPU: the port's tick on the CPU and on the card, 100 ticks with
    the same injected jitter and a leader kill, ends in equal discrete
    state, in "pallas" mode, in "window" mode with a re-sort every 8 ticks
@@ -297,9 +302,14 @@ toolkit.  It imports nothing of JAX.  Phases, each of which must pass:
    tick's own values and at bench_auction.py's instances (uniform at
    1024^2 and 4096^2, its price war at 1024^2; 141, 314 and 398 rounds)
    against its plain version, timed back to back and from a CUDA graph,
-   beside the plain version and its bound (the value rows its rounds
-   read); phase 4 the auction tick at 256 x 256 for 20 ticks on the CPU
-   and on the card, discrete state equal.  Then the field tick at
+   beside the plain version and its bound (the value rows the function
+   needs: every row once, then the unseated agents' rows that are not all
+   zero), with its rounds, zero rows, needed rows, cluster size and ms a
+   round; every re-solve tick under the 100 ms period; the same tick in
+   "window" separation (a re-sort every 10 ticks), 100 ticks with an
+   awarded winner killed at tick 60, replayed from CUDA graphs and eager,
+   every state field equal bit for bit, N2 once a tick; phase 4 the auction tick at 256 x 256 for
+   20 ticks on the CPU and on the card, discrete state equal.  Then the field tick at
    decompose_rebuild.py:67-94, 287-294's station (65,536 agents, k_align
    0.3, k_coh 0.1) on the slots kernel in both deposits beside the field
    off: B2 once a tick, two runs bit for bit equal, the replayed rollout
@@ -4560,8 +4570,9 @@ def zoo_rest_full_width(dsa, kernels, smi, t_start):
 def n2_case(kind, s, seed, dev):
     """[S, S] square values on the card for N2's cases: uniform utilities
     in [1, 100), all ties, an infeasible agent (a zero row) and column,
-    and a rectangular [S, 2S/3] problem squared by ``_square_values``
-    (N != T, a third of its pairs infeasible)."""
+    a rectangular [S, 2S/3] problem squared by ``_square_values`` (N != T,
+    a third of its pairs infeasible), a third of the agents with zero rows
+    (some -0), and S/2 agents squared (S/2 virtual zero rows)."""
     from distributed_swarm_algorithm_tpu_torch.ops import auction as au
     rng = np.random.default_rng(seed)
     v = rng.uniform(1.0, 100.0, (s, s)).astype(np.float32)
@@ -4573,6 +4584,14 @@ def n2_case(kind, s, seed, dev):
     elif kind == "rect":
         util = torch.from_numpy(v[:, :2 * s // 3].copy())
         feasible = torch.from_numpy(rng.random(tuple(util.shape)) < 0.67)
+        return au._square_values(util, feasible).to(dev)
+    elif kind == "zeros":
+        rows = rng.choice(s, s // 3, replace=False)
+        v[rows] = 0.0
+        v[rows[::2], ::3] = -0.0
+    elif kind == "virtual":
+        util = torch.from_numpy(v[:s // 2].copy())
+        feasible = torch.from_numpy(rng.random(tuple(util.shape)) < 0.5)
         return au._square_values(util, feasible).to(dev)
     return torch.from_numpy(v).to(dev)
 
@@ -4595,20 +4614,29 @@ def n2_pair(n2, values, prices=None, cap=AUC_MAX_ROUNDS, run=True,
 def n2_small_shapes(n2, dev):
     """Phase 3's N2 part: the kernel against its plain version under
     ``torch.equal`` on all four outputs at S = 1 and sizes off the block's
-    multiple, all ties, an infeasible agent, N != T, the round cap, warm
-    prices, the run flag off, and S = 10,000 (its state past shared
-    memory, in the global scratch)."""
+    multiple, all ties, an infeasible agent, N != T, zero rows (+-0, S not
+    a multiple of 4) and virtual ones, the round cap (also mid-war), warm
+    prices, the run flag off, both schedules the entry chooses at the edge
+    between them (S = 7,792 on a cluster of 16, 7,793 on one block with
+    the global scratch, both with zero rows), and S = 9,800 (zero rows)
+    and 10,000 (the state past shared memory, in the global scratch of
+    one block)."""
     cases = ([("uniform", s) for s in (1, 2, 3, 31, 33, 1000, 1023, 1025)]
              + [("ties", 40), ("ties", 1024), ("infeasible", 50),
                 ("infeasible", 1031), ("rect", 300), ("rect", 1500),
+                ("zeros", 101), ("zeros", 1030), ("virtual", 514),
+                ("virtual", 4096), ("zeros", 7792), ("zeros", 7793),
                 ("uniform", 10_000)])
-    rounds = {}
+    rounds, clusters = {}, {}
     for kind, s in cases:
         values = n2_case(kind, s, s + 7, dev)
         got, _, equal = n2_pair(n2, values)
         check(equal, f"N2 differs from its plain version: {kind}, S={s}")
         rounds[f"{kind} {s}"] = int(got[3])
+        clusters[f"{kind} {s}"] = n2.cluster_size(s)
         del values
+    check(clusters["zeros 7792"] == 16 and clusters["zeros 7793"] == 1,
+          f"N2's schedules moved: {clusters}")
     values = n2_case("uniform", 256, 3, dev)
     warm = torch.rand(256, generator=torch.Generator(device=dev)
                       .manual_seed(1), device=dev) * 5.0
@@ -4618,30 +4646,48 @@ def n2_small_shapes(n2, dev):
         got, _, equal = n2_pair(n2, values, **kw)
         check(equal, f"N2 differs from its plain version: {label}")
         rounds[label] = int(got[3])
+    got, _, equal = n2_pair(n2, n2_case("zeros", 600, 5, dev), cap=150)
+    check(equal and int(got[3]) == 150 and bool((got[0] < 0).any()),
+          "N2 differs from its plain version at the cap mid-war")
+    rounds["cap 150 mid-war"] = int(got[3])
+    values = n2_case("uniform", 9_800, 4, dev)
+    values[::200] = 0.0
+    got, _, equal = n2_pair(n2, values)
+    check(equal and n2.cluster_size(9_800) == 1,
+          "N2 differs from its plain version: zero rows, global scratch")
+    rounds["zero rows 9800"] = int(got[3])
     check(rounds["run off"] == 0 and rounds["cap 7"] == 7,
           f"N2's round count is off: {rounds}")
-    record(phase="kernel_vs_plain", kernel="auction", cases=len(cases) + 3,
-           rounds=rounds, state_in_shared_up_to=9680,
+    record(phase="kernel_vs_plain", kernel="auction",
+           cases=len(cases) + 5, rounds=rounds, clusters=clusters,
+           state_in_shared_up_to=max(s for s in range(1, 20_000)
+                                     if n2._lib()[2](s)),
            rule="torch.equal on agent_task, task_agent, prices and rounds")
 
 
-def n2_bound_ms(s, bidder_rows):
-    """N2's bound on one solve: the value rows its rounds read (the unseated
-    agents of each round, S floats each), the starting prices and the four
-    outputs, at HBM's rate (the L2's is not published; where [S, S] fits
-    the 50 MB L2 the floor is lower still), against its operations (a
-    subtraction and two comparisons a value read) at the f32 peak."""
-    nbytes = 4 * (bidder_rows * s + s + 3 * s + 1)
-    ops = 3 * bidder_rows * s
+def n2_bound_ms(s, needed_rows, rounds):
+    """N2's bound on one solve by the work the function needs: every value
+    row once (round 1), then the rows of the unseated agents whose row is
+    not all zero (the plain version's ``needed_rows``, S floats each), the
+    starting prices and the four outputs, at HBM's rate (the L2's is not
+    published; where [S, S] fits the 50 MB L2 the floor is lower still),
+    against its operations (a subtraction and two comparisons a value read,
+    and the zero rows' shared bid from the prices, a price a round) at the
+    f32 peak.  The prices stay on the chip between rounds, so their scan
+    counts as operations, not bytes."""
+    nbytes = 4 * (needed_rows * s + s + 3 * s + 1)
+    ops = 3 * (needed_rows + rounds) * s
     by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(by_ops, by_bytes) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes")
 
 
 def n2_timed(n2, values, label, smi, reps=5):
-    """N2 on one instance: equal to its plain version, its rounds and the
-    rows they read, timed back to back and from a CUDA graph, beside the
-    plain version's time and the bound."""
+    """N2 on one instance: equal to its plain version, its rounds, the rows
+    they read in the plain version, the zero rows among them and the rows
+    the function needs, the cluster, timed back to back and from a CUDA
+    graph (and a round's time), beside the plain version's time and the
+    bound."""
     counts = {}
     _, want, equal = n2_pair(n2, values, counts=counts)
     check(equal, f"N2 differs from its plain version: {label}")
@@ -4655,32 +4701,42 @@ def n2_timed(n2, values, label, smi, reps=5):
     g_ms = graph_ms(solve, reps)
     _, plain_ms = timed(lambda: n2.auction_square_plain(
         values, prices, eps, AUC_MAX_ROUNDS, flag))
-    bound, bound_by = n2_bound_ms(s, counts["bidder_rows"])
-    rec = dict(instance=label, shape=[s, s], rounds=int(want[3]),
-               bidder_rows=counts["bidder_rows"], kernel_ms=ms,
-               kernel_graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=bound_by, seated=int((want[0] >= 0).sum()), smi=smi)
+    rounds = int(want[3])
+    bound, bound_by = n2_bound_ms(s, counts["needed_rows"], rounds)
+    rec = dict(instance=label, shape=[s, s], rounds=rounds,
+               bidder_rows=counts["bidder_rows"],
+               zero_rows=counts["zero_rows"],
+               needed_rows=counts["needed_rows"],
+               cluster=n2.cluster_size(s), kernel_ms=ms,
+               kernel_graph_ms=g_ms, ms_per_round=ms / max(rounds, 1),
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+               seated=int((want[0] >= 0).sum()), smi=smi)
     record(phase="auction_timing", **rec)
     return rec
 
 
-def auction_benches(n2, dev, smi):
-    """bench_auction.py's instances: uniform(1, 100) utilities from
-    ``default_rng(0)`` at 1024^2 and 4096^2 (141 and 314 rounds in its
-    docstring), and its shallow price war at 1024^2 (``price_war_util``:
-    8 hot tasks at 100 plus a jitter below 0.01, the rest in [0.5, 1);
-    398 rounds), each at flat eps 0.25."""
-    out = []
+def bench_values(dev):
+    """bench_auction.py's instances on the card, by label: uniform(1, 100)
+    utilities from ``default_rng(0)`` at 1024^2 and 4096^2 (141 and 314
+    rounds in its docstring), and its shallow price war at 1024^2
+    (``price_war_util``: 8 hot tasks at 100 plus a jitter below 0.01, the
+    rest in [0.5, 1); 398 rounds)."""
+    out = {}
     for n in (1024, 4096):
         u = np.random.default_rng(0).uniform(1.0, 100.0, size=(n, n))
-        out.append(n2_timed(n2, torch.from_numpy(u.astype(np.float32))
-                            .to(dev), f"uniform {n}", smi))
+        out[f"uniform {n}"] = torch.from_numpy(u.astype(np.float32)).to(dev)
     rng = np.random.default_rng(7)
     u = rng.uniform(0.5, 1.0, size=(1024, 1024)).astype(np.float32)
     u[:, :8] = 100.0 + rng.uniform(0.0, 0.01, size=(1024, 8)).astype(
         np.float32)
-    out.append(n2_timed(n2, torch.from_numpy(u).to(dev),
-                        "price war 1024, hot 100", smi, reps=2))
+    out["price war 1024, hot 100"] = torch.from_numpy(u).to(dev)
+    return out
+
+
+def auction_benches(n2, instances, smi):
+    """N2 at bench_auction.py's instances, each at flat eps 0.25."""
+    out = [n2_timed(n2, values, label, smi, reps=2 if "war" in label else 5)
+           for label, values in instances.items()]
     check([r["rounds"] for r in out] == [141, 314, 398],
           f"the bench instances' rounds moved: {[r['rounds'] for r in out]}")
     return out
@@ -4738,6 +4794,56 @@ def auction_cpu_vs_gpu(dsa, dev):
     check(not unequal, f"the auction tick differs CPU vs GPU: {unequal}")
     check(awarded > 0 and resolves >= 2,
           "the compared ticks re-solved too rarely")
+
+
+def auction_replay_vs_eager(dsa, kernels, smi, dev):
+    """Phase 16's auction rollout replayed from CUDA graphs against the
+    eager one: BASELINE config 4 as the auction tick in "window"
+    separation with a re-sort every ``AUC_EVERY`` ticks (the "pallas"
+    tick runs eagerly; the window rollout replays its chunks, N2 captured
+    in each tick), ``AUC_KILL_AT`` ticks, the first awarded winner killed,
+    the rest of ``AUC_TICKS``; each run from its own copy of the
+    generator.  Every state field equal bit for bit, N2 and B4 once a
+    tick in each run, re-solves in the span."""
+    from distributed_swarm_algorithm_tpu_torch.models import swarm as swm
+    from distributed_swarm_algorithm_tpu_torch.state import TENSOR_FIELDS
+    cfg = dsa.DEFAULT_CONFIG.replace(**dict(
+        AUC_CFG, separation_mode="window", sort_every=AUC_EVERY))
+    st0 = auction_swarm(dsa, AUC_N, cfg, dev)
+    outs, runs = {}, {}
+    for replay in (False, True):
+        st = copy_gen(st0, dev)
+        reset_launches(kernels)
+        with replaying(swm, replay):
+            def rollout(s=st):
+                s = dsa.swarm_rollout(s, None, cfg, AUC_KILL_AT)
+                won = s.task_winner[s.task_winner >= 0]
+                check(won.numel() > 0, "no task awarded at the kill")
+                s = dsa.kill(s, [int(won[0])])
+                return dsa.swarm_rollout(s, None, cfg,
+                                         AUC_TICKS - AUC_KILL_AT)
+            out, ms = timed(rollout)
+        launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        outs[replay] = out
+        runs["replayed" if replay else "eager"] = dict(
+            ms_per_tick=ms / AUC_TICKS, launches=launches)
+        want = {name: 0 for name in launches}
+        want.update(auction=AUC_TICKS, window_separation=AUC_TICKS)
+        check(launches == want, f"unexpected launches {launches}, "
+              f"replay {replay}")
+    unequal = [f for f in TENSOR_FIELDS
+               if not torch.equal(getattr(outs[False], f),
+                                  getattr(outs[True], f))]
+    won = outs[True].task_winner[outs[True].task_winner >= 0]
+    record(phase="auction_replay_vs_eager", agents=AUC_N, tasks=AUC_N,
+           ticks=AUC_TICKS, kill_at=AUC_KILL_AT, separation_mode="window",
+           sort_every=AUC_EVERY, chunk_captured=swm._chunk is not None,
+           awarded=int(won.numel()), runs=runs, unequal_fields=unequal,
+           smi=smi)
+    check(not unequal, f"the replayed auction rollout differs from the "
+          f"eager one in {unequal}")
+    check(won.numel() > 0 and won.unique().numel() == won.numel(),
+          "the replayed auction gave an agent two tasks, or none")
 
 
 def auction_full_width(dsa, n2, kernels, smi, t_start, dev):
@@ -4803,6 +4909,8 @@ def auction_full_width(dsa, n2, kernels, smi, t_start, dev):
     want.update(auction=AUC_TICKS, separation=AUC_TICKS)
     check(launches == want, f"unexpected launches {launches}")
     check(len(solve_ms) >= 3, f"too few re-solves: {rec['resolve_ticks']}")
+    check(max(solve_ms) < 100.0,
+          f"a re-solve tick passed the 100 ms period: {solve_ms}")
     check(won.unique().numel() == won.numel() and won.numel() > 0,
           "the auction gave an agent two tasks, or none was awarded")
     check(bool(torch.isin(won, alive_ids).all()), "a dead agent won a task")
@@ -4811,7 +4919,10 @@ def auction_full_width(dsa, n2, kernels, smi, t_start, dev):
     values = au._square_values(u, st.alive[:, None]
                                & (u > cfg.utility_threshold))
     main = n2_timed(n2, values, "the final tick's utilities", smi)
-    benches = auction_benches(n2, dev, smi)
+    instances = bench_values(dev)
+    benches = auction_benches(n2, instances, smi)
+    del values, instances
+    auction_replay_vs_eager(dsa, kernels, smi, dev)
     return dict(name="auction", route="cuda",
                 source="distributed_swarm_algorithm_tpu_torch/csrc/"
                        "auction.cu",
@@ -4820,10 +4931,13 @@ def auction_full_width(dsa, n2, kernels, smi, t_start, dev):
                 ms=main["kernel_ms"], graph_ms=main["kernel_graph_ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=None,
-                rounds=main["rounds"],
+                rounds=main["rounds"], ms_per_round=main["ms_per_round"],
+                needed_rows=main["needed_rows"],
+                zero_rows=main["zero_rows"], cluster=main["cluster"],
                 benches={r["instance"]: dict(
                     rounds=r["rounds"], ms=r["kernel_ms"],
-                    graph_ms=r["kernel_graph_ms"], bound_ms=r["bound_ms"])
+                    graph_ms=r["kernel_graph_ms"], bound_ms=r["bound_ms"],
+                    ms_per_round=r["ms_per_round"], cluster=r["cluster"])
                     for r in benches})
 
 

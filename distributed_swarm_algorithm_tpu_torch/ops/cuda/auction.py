@@ -6,8 +6,11 @@ _auction_square``, the loop at ``:148`` around ``_auction_round``), whose
 trip count only the device knows.  No ``pallas_call`` lies on it; this
 module is its counterpart on the card:
 
-- :func:`auction_square_cuda` launches ``csrc/auction.cu`` (one block runs
-  every round, the per-task state in shared memory) on CUDA tensors and
+- :func:`auction_square_cuda` launches ``csrc/auction.cu`` (a thread-block
+  cluster of :func:`cluster_size` blocks runs every round, each with a
+  replica of the per-task state in shared memory; the rows of agents with
+  no non-zero value are read once, in round 1, and after it the lowest
+  unseated such agent bids from the prices alone) on CUDA tensors and
   raises on anything else: a solve reads nothing back, and a launch whose
   device flag ``run`` is false runs zero rounds, so the swarm's tick
   launches it every tick and decides on the device whether to re-solve;
@@ -48,9 +51,8 @@ def _lib():
     if _fns is None:
         lib = _build.load("auction")
         fn = lib.dsa_auction_f32
-        fn.argtypes = ([ctypes.c_void_p] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         state = lib.dsa_auction_state_bytes
         state.argtypes = [ctypes.c_int]
@@ -58,8 +60,19 @@ def _lib():
         shared = lib.dsa_auction_state_in_shared
         shared.argtypes = [ctypes.c_int]
         shared.restype = ctypes.c_int
-        _fns = (fn, state, shared)
+        cluster = lib.dsa_auction_cluster
+        cluster.argtypes = [ctypes.c_int]
+        cluster.restype = ctypes.c_int
+        _fns = (fn, state, shared, cluster)
     return _fns
+
+
+def cluster_size(s: int) -> int:
+    """Blocks of the cluster N2's entry launches for S tasks: 16 where a
+    block's replica of the state fits its shared memory (S up to 7,792),
+    else 1, the state in a global scratch.  The entry chooses; this only
+    reads its choice."""
+    return _lib()[3](s)
 
 
 def auction_round(values: torch.Tensor, eps: torch.Tensor,
@@ -111,20 +124,30 @@ def auction_square_plain(values: torch.Tensor, prices: torch.Tensor,
     ``max_rounds`` rounds ran: ``(agent_task, task_agent, prices, rounds)``,
     the last a 0-dim int32.  With ``run`` false, zero rounds.  The flag is
     read on the host each round (the JAX loop, for a CPU tensor and as the
-    yardstick of the kernel).  ``counts`` (a dict) gains ``bidder_rows``,
-    the value rows the rounds read (the unseated agents, summed over the
-    rounds)."""
+    yardstick of the kernel).  ``counts`` (a dict) gains, summed over the
+    rounds, ``bidder_rows`` (the value rows a round reads: the unseated
+    agents), ``zero_rows`` (those of them whose row is all zero) and
+    ``needed_rows`` (the rows the kernel reads: every row in round 1, then
+    the unseated agents' rows that are not all zero; a zero row's bid is
+    the prices' own)."""
     s = values.shape[0]
     dev = values.device
     agent_task = torch.full((s,), -1, dtype=I32, device=dev)
     task_agent = torch.full((s,), -1, dtype=I32, device=dev)
     eps = torch.as_tensor(eps, dtype=values.dtype, device=dev)
     rounds = 0
+    if counts is not None:
+        zero = (values == 0).all(1)
+        for name in ("bidder_rows", "zero_rows", "needed_rows"):
+            counts.setdefault(name, 0)
     if run is None or bool(run):
         while rounds < max_rounds and bool((agent_task < 0).any()):
             if counts is not None:
-                counts["bidder_rows"] = (counts.get("bidder_rows", 0)
-                                         + int((agent_task < 0).sum()))
+                unseated = agent_task < 0
+                n, z = int(unseated.sum()), int((unseated & zero).sum())
+                counts["bidder_rows"] += n
+                counts["zero_rows"] += z
+                counts["needed_rows"] += s if rounds == 0 else n - z
             agent_task, task_agent, prices = auction_round(
                 values, eps, agent_task, task_agent, prices)
             rounds += 1
@@ -151,7 +174,7 @@ def auction_square_cuda(values: torch.Tensor, prices: torch.Tensor,
             values.device:
         raise ValueError("auction_square_cuda: run must be one bool on "
                          f"{values.device}")
-    fn, state, in_shared = _lib()
+    fn, state, in_shared, _ = _lib()
     scratch = (None if in_shared(s)
                else torch.empty(state(s), dtype=torch.uint8,
                                 device=values.device))

@@ -458,3 +458,153 @@ def test_replayed_rollout_in_auction_mode_equals_the_eager_one(
     ticks = 8 if sep_mod is twin else 10
     assert chunk.kernel is sep_mod and chunk.others == ((tn2, ticks),)
     assert (graph.task_winner >= 0).all()
+
+
+# --- N2's redesign: the zero rows' shared bid ---------------------------------
+
+
+def shortcut_square(values, prices, eps, max_rounds, counts=None):
+    """N2's round as the redesigned kernel runs it, in numpy f32: round 1
+    reads every row; after it only the unseated agents whose row is not all
+    zero read theirs, and the lowest unseated zero-row agent bids the zero
+    row's bid, taken from the prices alone (its net values are 0 - prices).
+    Each task takes its highest bid, ties to the lowest agent.  Returns
+    ``(agent_task, task_agent, prices, rounds)``; ``counts`` gains
+    ``rows``, the value rows read."""
+    v = np.asarray(values, np.float32)
+    s = v.shape[0]
+    zero = ~(v != 0).any(1)
+    at = np.full(s, -1, np.int32)
+    ta = np.full(s, -1, np.int32)
+    p = np.array(prices, np.float32)
+    eps = np.float32(eps)
+    rounds = 0
+
+    def bids_of(net):
+        """Bids of rows ``net`` [B, S] (the JAX round's bid, in f32)."""
+        b = np.arange(len(net))
+        j1 = net.argmax(1)
+        w1 = net[b, j1]
+        rest = net.copy()
+        rest[b, j1] = -np.inf
+        w2 = rest.max(1)
+        w2 = np.where(np.isfinite(w2), w2, w1)
+        return j1, (p[j1] + (w1 - w2)) + eps
+
+    while rounds < max_rounds and (at < 0).any():
+        unseated = at < 0
+        rows = (np.arange(s) if rounds == 0
+                else np.flatnonzero(unseated & ~zero))
+        if counts is not None:
+            counts["rows"] = counts.get("rows", 0) + len(rows)
+        j1, bid = bids_of(v[rows] - p[None, :])
+        agents = list(rows)
+        if rounds > 0 and (unseated & zero).any():
+            zj, zbid = bids_of((np.float32(0.0) - p)[None, :])
+            agents.append(int(np.flatnonzero(unseated & zero)[0]))
+            j1, bid = np.append(j1, zj), np.append(bid, zbid)
+        best = {}
+        for i, j, b in zip(agents, j1.tolist(), bid):
+            if not unseated[i]:
+                continue                    # round 1: only the unseated bid
+            if j not in best or b > best[j][0] or (b == best[j][0]
+                                                   and i < best[j][1]):
+                best[j] = (b, i)
+        for j, (b, i) in best.items():
+            if ta[j] >= 0:
+                at[ta[j]] = -1
+            at[i], ta[j], p[j] = j, i, b
+        rounds += 1
+    return at, ta, p, rounds
+
+
+def shortcut_assign(util, feasible, eps=0.25, max_rounds=100_000,
+                    phases=None, theta=5.0):
+    """``auction_assign`` (or, with ``phases``, ``auction_assign_scaled``)
+    over :func:`shortcut_square`, padded and unpadded by the port."""
+    values = tauc._square_values(t(util), t(feasible)).numpy()
+    p = np.zeros(len(values), np.float32)
+    total = 0
+    for k in (range(phases - 1, -1, -1) if phases else [0]):
+        at, ta, p, rounds = shortcut_square(
+            values, p, np.float32(eps * float(theta) ** k) if phases
+            else eps, max_rounds)
+        total += rounds
+    return tauc._unpad(t(util), t(feasible), t(at), t(ta), t(p),
+                       torch.tensor(total, dtype=torch.int32))
+
+
+def zero_row_instance(case):
+    """(util, feasible, kwargs) of the shortcut's cases."""
+    rng = np.random.default_rng(21)
+    util = rng.uniform(1.0, 100.0, (60, 60)).astype(np.float32)
+    feasible = rng.random((60, 60)) < 0.8
+    if case == "third-infeasible":     # a third of the agents, and the dead
+        feasible[rng.choice(60, 20, replace=False)] = False
+        alive = rng.random(60) > 0.1
+        feasible &= alive[:, None]
+    elif case == "virtual-rows":       # N < T: 24 virtual zero rows
+        util, feasible = util[:36], feasible[:36]
+    elif case == "virtual-columns":    # N > T, some agents infeasible
+        util, feasible = util[:, :37], feasible[:, :37]
+        feasible[::4] = False
+    elif case == "ties":
+        util[:] = 10.0
+        feasible[rng.choice(60, 25, replace=False)] = False
+    elif case == "cap-mid-war":
+        feasible[:30] = False
+        return util, feasible, dict(max_rounds=20)
+    elif case == "scaled":
+        feasible[rng.choice(60, 20, replace=False)] = False
+        return util, feasible, dict(phases=4)
+    return util, feasible, {}
+
+
+@pytest.mark.parametrize("case", ["third-infeasible", "virtual-rows",
+                                  "virtual-columns", "ties", "cap-mid-war",
+                                  "scaled"])
+def test_zero_rows_shared_bid_equals_jax_auction(case):
+    """The redesign's round (the zero rows' bid once a round from the
+    prices, only the lowest unseated zero-row agent bidding it) gives JAX's
+    assignment, prices and rounds exactly: flat, scaled (warm prices), with
+    virtual rows and columns, ties and the round cap reached mid-war."""
+    util, feasible, kw = zero_row_instance(case)
+    got = shortcut_assign(util, feasible, **kw)
+    if "phases" in kw:
+        want = jauc.auction_assign_scaled(jnp.asarray(util),
+                                          jnp.asarray(feasible),
+                                          phases=kw["phases"])
+    else:
+        want = jauc.auction_assign(jnp.asarray(util), jnp.asarray(feasible),
+                                   **kw)
+    for name, a, b in zip(got._fields, got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b)), (case, name)
+    if case == "cap-mid-war":
+        assert int(got.rounds) == 20
+
+
+def zero_row_square(s=512, n_zero=160, seed=0):
+    """[S, S] uniform(1, 100) values whose last ``n_zero`` rows are 0."""
+    v = np.random.default_rng(seed).uniform(1.0, 100.0, (s, s)).astype(
+        np.float32)
+    v[s - n_zero:] = 0.0
+    return v
+
+
+def test_plain_counts_pin_zero_and_needed_rows():
+    """On 512 agents, 160 of them with no feasible task: 161 rounds read
+    13,560 rows, 13,039 of them zero rows; the redesign needs 512 in round
+    1 and the 169 real re-bids after it, 681, as the shortcut model
+    reads."""
+    v = zero_row_square()
+    counts, model = {}, {}
+    out = tn2.auction_square_plain(t(v), torch.zeros(512), torch.tensor(0.25),
+                                   100_000, counts=counts)
+    assert int(out[3]) == 161
+    assert counts == dict(bidder_rows=13_560, zero_rows=13_039,
+                          needed_rows=681)
+    at, ta, p, rounds = shortcut_square(v, np.zeros(512, np.float32), 0.25,
+                                        100_000, counts=model)
+    assert model["rows"] == counts["needed_rows"] and rounds == 161
+    for a, b in zip((at, ta, p), out[:3]):
+        assert np.array_equal(a, b.numpy())

@@ -4522,13 +4522,26 @@ def n2_values(kind, s, seed):
         util = torch.from_numpy(v[:, :2 * s // 3].copy())
         feas = torch.from_numpy(rng.random(tuple(util.shape)) < 0.67)
         return port_auction._square_values(util, feas)
+    elif kind in ("zeros", "negzeros"):
+        # a third of the agents with no non-zero value (some of them -0):
+        # a price war over their slots, which they bid from the prices
+        rows = rng.choice(s, s // 3, replace=False)
+        v[rows] = 0.0
+        if kind == "negzeros":
+            v[rows[::2], ::3] = -0.0
+    elif kind == "virtual":
+        # N = S/2 agents, half their pairs feasible: S/2 virtual zero rows
+        util = torch.from_numpy(v[:s // 2].copy())
+        feas = torch.from_numpy(rng.random(tuple(util.shape)) < 0.5)
+        return port_auction._square_values(util, feas)
     return torch.from_numpy(v)
 
 
 N2_CASES = ([("uniform", s) for s in (1, 2, 3, 5, 31, 33, 100, 1023, 1025)]
             + [("ties", 40), ("ties", 97), ("infeasible", 50),
                ("infeasible", 257), ("price-war", 256), ("rect", 90),
-               ("rect", 600)])
+               ("rect", 600), ("zeros", 7), ("zeros", 101), ("zeros", 512),
+               ("negzeros", 300), ("virtual", 514), ("virtual", 2048)])
 
 
 def _n2_both(cuda, values, prices=None, cap=100_000, run=True):
@@ -4566,7 +4579,7 @@ def test_auction_kernel_cap_warm_prices_run_flag_and_global_state(cuda):
         assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
     off, _ = _n2_both(cuda, v, run=False)
     assert int(off[3]) == 0 and bool((off[0] == -1).all())
-    # Past ~9,680 tasks the state leaves shared memory for the scratch.
+    # Past ~7,900 tasks the state leaves shared memory for the scratch.
     got, want = _n2_both(cuda, n2_values("uniform", 9_800, seed=4))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -4620,6 +4633,72 @@ def test_auction_cuda_rejects_what_it_cannot_take(cuda):
         port_n2.auction_square_cuda(v, p, eps, 10, run.int())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cluster-16-shared", "one-block-scratch"])
+def test_auction_kernel_at_each_cluster_the_entry_chooses(cuda, layout):
+    # The entry runs two schedules: 16 blocks with the state in shared
+    # memory up to S = 7,792, one block on the global scratch past it.
+    # Each equals the plain version on every output, zero rows, warm
+    # prices and the round cap included.
+    _, _, in_shared, _ = port_n2._lib()
+    if layout == "cluster-16-shared":
+        sizes = (("uniform", 1025), ("uniform", 3), ("ties", 97),
+                 ("zeros", 101), ("negzeros", 300), ("virtual", 514),
+                 ("price-war", 256), ("rect", 600), ("zeros", 7792))
+        want_cluster, shared = 16, True
+    else:
+        sizes = (("uniform", 7793), ("negzeros", 7796))
+        want_cluster, shared = 1, False
+    for kind, s in sizes:
+        assert (port_n2.cluster_size(s), bool(in_shared(s))) == (
+            want_cluster, shared), (kind, s)
+        got, want = _n2_both(cuda, n2_values(kind, s, seed=s + 1))
+        for name, a, b in zip(("agent_task", "task_agent", "prices",
+                               "rounds"), got, want):
+            assert torch.equal(a, b), (layout, kind, s, name)
+    kind, s = sizes[-1]
+    v = n2_values(kind, s, seed=3)
+    warm = torch.rand(s, generator=torch.Generator().manual_seed(2)) * 5.0
+    for kw in (dict(cap=7), dict(prices=warm)):
+        got, want = _n2_both(cuda, v, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (layout,
+                                                                   kw)
+
+
+@pytest.mark.cuda
+def test_auction_kernel_stops_at_the_cap_mid_war(cuda):
+    # 200 zero rows at S = 600 take ~200 rounds: a cap of 150 stops the war
+    # with agents unseated, equal to the plain version there.
+    got, want = _n2_both(cuda, n2_values("zeros", 600, seed=5), cap=150)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[3]) == 150 and bool((got[0] < 0).any())
+
+
+@pytest.mark.cuda
+def test_auction_kernel_zero_rows_in_the_global_scratch(cuda):
+    # Zero rows past the shared-memory budget: at S = 9,800 the state fits
+    # no block's shared memory, so the entry runs one block from the global
+    # scratch.
+    _, _, in_shared, _ = port_n2._lib()
+    assert port_n2.cluster_size(9_800) == 1 and not in_shared(9_800)
+    v = n2_values("uniform", 9_800, seed=4)
+    v[torch.arange(0, 9_800, 200)] = 0.0            # 49 zero rows
+    got, want = _n2_both(cuda, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_auction_entry_refuses_what_it_cannot_run(cuda):
+    # No tasks, or a state past shared memory without its scratch, is
+    # refused, never run another way.
+    fn, _, in_shared, _ = port_n2._lib()
+    dev = cuda.index or 0
+    assert fn(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 10, dev, 0) != 0
+    big = 20_000
+    assert not in_shared(big)
+    assert fn(0, 0, 0, 0, 0, 0, 0, 0, 0, big, 10, dev, 0) != 0
+
+
 def _auction_cfg(**kw):
     return tdsa.DEFAULT_CONFIG.replace(
         allocation_mode="auction", auction_every=2, utility_threshold=5.0,
@@ -4666,6 +4745,26 @@ def test_auction_and_field_ticks_never_wait_for_the_device(cuda):
         fs = tdsa.swarm_tick(fs, None, fcfg)         # the tables land
         _, waits = _sync_waits(lambda: tdsa.swarm_tick(fs, None, fcfg))
         assert not waits, (deposit, waits)
+
+
+@pytest.mark.cuda
+def test_auction_tick_with_zero_rows_never_waits_for_the_device(cuda):
+    # 256 agents and 512 tasks: 256 virtual zero rows, a price war every
+    # re-solve, still no host wait and one N2 launch a tick.
+    st = _led_swarm(cuda, 256, 512, 20.0)
+    cfg = _auction_cfg().replace(auction_every=1)
+    st = tdsa.swarm_tick(st, None, cfg)              # warm up
+
+    def ticks(s, k):
+        for _ in range(k):
+            s = tdsa.swarm_tick(s, None, cfg)
+        return s
+
+    before = port_n2.LAUNCHES
+    out, waits = _sync_waits(lambda: ticks(st, 3))
+    assert not waits, waits
+    assert port_n2.LAUNCHES == before + 3
+    assert bool((out.task_winner >= 0).any())
 
 
 @pytest.mark.cuda

@@ -4330,11 +4330,17 @@ def n1_case(kind, p, m, seed, dev):
 
 def n1_small_shapes(n1, dev):
     """Phase 3's N1 part: the kernel against its plain version under
-    ``torch.equal`` at P = 1, 31, 1,024, 1,025, 2,049, 4,096 and M = 1, 2,
-    3 on random points, and on every edge case, with its front count."""
-    cases = [("random", p, m) for p in (1, 31, 1024, 1025, 2049, 4096)
+    ``torch.equal`` at P = 1, 31, 32, 33, 1,024, 1,025, 2,049, 4,096 and M
+    = 1, 2, 3 on random points, as chains (each peel's edges: one and 32
+    words of the register peel, the staged peel's first size), at M past
+    the pack's chunk of 64 objectives, and on every edge case, with its
+    front count."""
+    cases = [("random", p, m)
+             for p in (1, 31, 32, 33, 1024, 1025, 2049, 4096)
              for m in (1, 2, 3)]
-    cases += [("chain", p, m) for p in (1024, 1300, 4096) for m in (1, 2)]
+    cases += [("chain", p, m) for p in (32, 33, 1024, 1025, 1300, 4096)
+              for m in (1, 2)]
+    cases += [("random", 33, 65), ("random", 100, 200), ("viol", 1024, 130)]
     cases += [(kind, p, m) for kind in ("equal", "duplicates", "signed",
                                         "viol", "viol_zero")
               for p in (31, 1025, 4096) for m in (1, 2, 3)]
@@ -4400,18 +4406,19 @@ def n1_bound_ms(p, m):
             "operations" if by_ops >= by_bytes else "bytes")
 
 
-def n1_timed(n1, objs, viol, label, smi):
+def n1_timed(n1, objs, viol, label, smi, reps=200):
     """N1 on one population: equal to its plain version, timed back to
-    back and from a CUDA graph, beside the plain version and the bound."""
+    back and from a CUDA graph, beside the plain version and the bound,
+    with its front count."""
     fronts = torch.zeros(1, dtype=torch.int32, device=objs.device)
     got = n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL, fronts)
     want, plain_ms = timed(lambda: n1.nsga2_ranks_plain(objs, viol,
                                                         N1_FEAS_TOL))
-    check(torch.equal(got, want), f"N1 differs from its plain version: "
-          f"{label}")
-    ms = cuda_ms(lambda: n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL), 200)
+    check(torch.equal(got, want) and int(fronts) == int(want.max()) + 1,
+          f"N1 differs from its plain version: {label}")
+    ms = cuda_ms(lambda: n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL), reps)
     g_ms = graph_ms(lambda: n1.nsga2_ranks_cuda(objs, viol, N1_FEAS_TOL),
-                    200)
+                    reps)
     bound, bound_by = n1_bound_ms(*objs.shape)
     rec = dict(state=label, shape=list(objs.shape), fronts=int(fronts),
                kernel_ms=ms, kernel_graph_ms=g_ms, plain_ms=plain_ms,
@@ -4420,34 +4427,72 @@ def n1_timed(n1, objs, viol, label, smi):
     return rec
 
 
+def n1_front_cost(rows, smi):
+    """N1's cost a front and its fixed part: the least-squares line of its
+    times from a CUDA graph over the populations' front counts."""
+    fronts = np.array([r["fronts"] for r in rows], np.float64)
+    ms = np.array([r["kernel_graph_ms"] for r in rows], np.float64)
+    slope, fixed = np.polyfit(fronts, ms, 1)
+    rec = dict(phase="nsga2_ranks_fronts", fronts=fronts.tolist(),
+               kernel_graph_ms=ms.tolist(), us_per_front=slope * 1e3,
+               fixed_us=fixed * 1e3, smi=smi)
+    record(**rec)
+    return rec
+
+
+def nsga2_steps(opt, steps):
+    """``steps`` eager generations of ``opt`` (``NSGA2.step``): the loop
+    that ``NSGA2.run`` replays from a CUDA graph on the card."""
+    for _ in range(steps):
+        opt.step()
+
+
 def nsga2_full_width(dsa, n1, kernels, smi, t_start, dev):
     """Phase 15's NSGA-II part: bench_nsga2.py's configuration (ZDT1, a
-    population of 512, D = 30) through ``NSGA2`` for 1,000 generations
-    after a warm-up run, timed with CUDA events: one N1 launch a
-    generation and no other kernel, HV@(1.1, 1.1), IGD against the
-    256-point front and the front's size; the population inside [0, 1] and
-    every rank-0 member undominated; the device's busy share from a trace
-    of 16 generations; N1 at the first generation's population and at the
-    final one's, against its plain version, timed beside it and its
-    bound."""
+    population of 512, D = 30) through ``NSGA2.run`` (replayed from a CUDA
+    graph of one generation) for 1,000 generations after a warm-up run,
+    timed with CUDA events: one N1 launch a generation and no other
+    kernel, HV@(1.1, 1.1), IGD against the 256-point front and the front's
+    size; beside it an eager loop of ``NSGA2.step`` from the same seed,
+    timed in the same way, whose final state, HV, IGD and front equal the
+    replayed run's; the population inside [0, 1] and every rank-0 member
+    undominated; the device's busy share of each from a trace of 16
+    generations; N1 at the first generation's population, at the final
+    one's and on a chain of 1,024 fronts, against its plain version, timed
+    beside it and its bound, with its cost a front."""
     from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
     reset_launches(kernels)
     opt = dsa.NSGA2("zdt1", n=MOO_N, dim=MOO_DIM, seed=0)
     init_launches = n1.LAUNCHES
-    # The first generation's parents and children, the random state.
+    eager = dsa.NSGA2("zdt1", n=MOO_N, dim=MOO_DIM, seed=0)
+    # The first generation's parents and children, the random state, drawn
+    # from the run's generator; the eager loop's makes the same draw, so
+    # both follow the same generations.
     first = opt.state
     kids = tn.nsga2_offspring(first)
+    tn.nsga2_offspring(eager.state)
     objs0 = torch.cat([first.objs, tn.zdt1(kids)])
     viol0 = torch.zeros(2 * MOO_N, device=dev)
-    opt.run(MOO_WARM)                                    # warm-up run
+    opt.run(MOO_WARM)                          # warm-up run, the capture
+    nsga2_steps(eager, MOO_WARM)
     reset_launches(kernels)
     _, run_ms = timed(lambda: opt.run(MOO_STEPS))
     launches = {name: m.LAUNCHES for name, m in kernels.items()}
+    _, eager_ms = timed(lambda: nsga2_steps(eager, MOO_STEPS))
     st = opt.state
+    same = all(torch.equal(getattr(st, f), getattr(eager.state, f))
+               for f in tn.NSGA2_TENSOR_FIELDS)
+    same = same and torch.equal(st.gen.get_state(),
+                                eager.state.gen.get_state())
     hv, igd = opt.hypervolume([1.1, 1.1]), opt.igd()
     front = opt.pareto_front()
-    ms_gen = run_ms / MOO_STEPS
+    eager_hv, eager_igd = eager.hypervolume([1.1, 1.1]), eager.igd()
+    same = (same and hv == eager_hv and igd == eager_igd
+            and np.array_equal(front, eager.pareto_front()))
+    ms_gen, eager_gen = run_ms / MOO_STEPS, eager_ms / MOO_STEPS
     busy, per_gen, top = device_time(lambda: opt.run(16), 16)
+    e_busy, e_per_gen, e_top = device_time(lambda: nsga2_steps(eager, 16),
+                                           16)
     rec = dict(phase="full_width", model="NSGA2", problem="zdt1", pop=MOO_N,
                dim=MOO_DIM, generations=MOO_STEPS, launches=launches,
                run_ms=run_ms, ms_per_generation=ms_gen,
@@ -4457,10 +4502,19 @@ def nsga2_full_width(dsa, n1, kernels, smi, t_start, dev):
                device_busy_ms_per_generation=busy,
                device_idle_share=None if busy is None else 1.0 - busy / ms_gen,
                device_ops_per_generation=per_gen, top_device_ops=top,
+               eager_run_ms=eager_ms, eager_ms_per_generation=eager_gen,
+               eager_generations_per_sec=MOO_STEPS / (eager_ms / 1e3),
+               eager_device_busy_ms_per_generation=e_busy,
+               eager_device_idle_share=(None if e_busy is None
+                                        else 1.0 - e_busy / eager_gen),
+               eager_device_ops_per_generation=e_per_gen,
+               eager_top_device_ops=e_top, replayed_equals_eager=same,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                smi=smi, seconds_so_far=time.perf_counter() - t_start)
     record(**rec)
     hashgrid_launch_check(launches, "nsga2_ranks", MOO_STEPS)
+    check(same, "NSGA-II: the replayed run differs from the eager loop "
+          "(state, generator, HV, IGD or front)")
     check(bool((st.pos >= 0).all() and (st.pos <= 1).all()),
           "NSGA-II: a position left [0, 1]")
     dom = n1.domination_matrix(st.objs, st.viol, N1_FEAS_TOL)
@@ -4468,20 +4522,24 @@ def nsga2_full_width(dsa, n1, kernels, smi, t_start, dev):
           "NSGA-II: a rank-0 member is dominated")
     check(np.isfinite(hv) and 0.0 < hv <= 1.21 and np.isfinite(igd),
           f"NSGA-II: HV {hv} or IGD {igd} out of range")
-    # N1 at the final generation's parents and children.
+    # N1 at the final generation's parents and children, and on a chain.
     kids = tn.nsga2_offspring(st)
     objs1 = torch.cat([st.objs, tn.zdt1(kids)])
     viol1 = torch.cat([st.viol, torch.zeros_like(st.viol)])
-    n1_timed(n1, objs0, viol0, "first generation (random)", smi)
-    final = n1_timed(n1, objs1, viol1, "final generation", smi)
+    rows = [n1_timed(n1, objs0, viol0, "first generation (random)", smi),
+            n1_timed(n1, objs1, viol1, "final generation", smi)]
+    chain, _ = n1_case("chain", 2 * MOO_N, 2, 7, dev)
+    rows.append(n1_timed(n1, chain, None, "chain", smi, reps=20))
+    n1_front_cost(rows, smi)
+    final = rows[1]
     return dict(name="nsga2_ranks", route="cuda",
                 source="distributed_swarm_algorithm_tpu_torch/csrc/"
                        "nsga2_ranks.cu",
                 replaces="distributed_swarm_algorithm_tpu/ops/nsga2.py:113",
                 launches=launches["nsga2_ranks"], max_abs_err=0.0,
-                ms=final["kernel_ms"], plain_ms=final["plain_ms"],
-                bound_ms=final["bound_ms"], bound_by=final["bound_by"],
-                library_ms=None)
+                ms=final["kernel_ms"], graph_ms=final["kernel_graph_ms"],
+                plain_ms=final["plain_ms"], bound_ms=final["bound_ms"],
+                bound_by=final["bound_by"], library_ms=None)
 
 
 def chunked_run(opt, steps, chunks, snap):

@@ -6,8 +6,10 @@ count (the number of fronts) only the device knows.  No ``pallas_call``
 lies on it; this module is its counterpart on the card:
 
 - :func:`nsga2_ranks_cuda` launches ``csrc/nsga2_ranks.cu`` (the domination
-  packed into bits, then one block that peels every front) on CUDA tensors
-  and raises on anything else: a generation reads nothing back;
+  packed into bits, then one block that peels every front, each thread's
+  column of bits in registers up to P = 1,024) on CUDA tensors and raises
+  on anything else: a generation reads nothing back, and a CUDA graph can
+  capture the call;
 - :func:`nsga2_ranks_plain` is the JAX loop in plain PyTorch, one masked
   reduction over the [P, P] domination matrix a front, its flag read on the
   host each round;
@@ -26,8 +28,11 @@ import torch
 from . import family
 
 # Launches of the CUDA kernel (one a call: the pack and the peel) since the
-# count was last set to 0.  Only nsga2_ranks_cuda adds to it.
+# count was last set to 0.  Only nsga2_ranks_cuda adds to it; a launch while
+# the stream captures a CUDA graph adds to _captured instead, and each replay
+# adds what its capture recorded (ops/nsga2.nsga2_run).
 LAUNCHES = 0
+_captured = 0
 
 _fn = None   # the C entry, bound at the first launch
 
@@ -94,23 +99,26 @@ def nsga2_ranks_cuda(
     None: unconstrained) on one CUDA device.  Returns ``rank`` [P] int32
     without waiting for the card; ``fronts`` ([1] int32 on that device), if
     given, receives the number of fronts."""
-    global LAUNCHES
+    global LAUNCHES, _captured
     if objs.ndim != 2 or objs.dtype != torch.float32:
         raise ValueError(f"nsga2_ranks_cuda takes [P, M] float32 objectives, "
                          f"got {tuple(objs.shape)} {objs.dtype}")
     p, m = objs.shape
     if fronts is None:
         fronts = torch.empty((1,), dtype=torch.int32, device=objs.device)
-    objs_t = objs.t().contiguous()
-    family.check_operands("nsga2_ranks_cuda", fronts, 1, objs_t,
+    objs = objs.contiguous()    # the kernel reads [P, M] as it is given
+    family.check_operands("nsga2_ranks_cuda", fronts, 1, objs,
                           {"viol": (viol, (p,))})
     p_pad = -(-p // 32) * 32
     bits = torch.empty((p_pad // 32) * p_pad, dtype=torch.int32,
                        device=objs.device)
     rank = torch.empty((p,), dtype=torch.int32, device=objs.device)
-    err = _kernel()(objs_t.data_ptr(), family.ptr(viol), rank.data_ptr(),
+    err = _kernel()(objs.data_ptr(), family.ptr(viol), rank.data_ptr(),
                     fronts.data_ptr(), bits.data_ptr(), p, m,
                     float(feas_tol), *family.stream_args(objs))
     family.check_launch(err, "nsga2_ranks")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured += 1
+    else:
+        LAUNCHES += 1
     return rank

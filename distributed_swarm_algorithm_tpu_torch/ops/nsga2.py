@@ -18,13 +18,15 @@ crowding distance:
 Selection: binary tournament on (rank, -crowding); survivors are the best
 N of parents and offspring by the same key.  Each draw can be handed in
 (``NSGA2Draws``, the GA's layout), so a test gives both packages the same
-numbers.  A generation on the card reads nothing back.
+numbers.  A generation on the card reads nothing back, and
+:func:`nsga2_run` replays it from a CUDA graph there (the JAX package's
+run is one compiled ``lax.scan``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +36,7 @@ from ..utils.platform import DeviceLike, resolve_device
 from . import _family
 from ._numerics import fma, rdiv, sqrt_rn
 from .cuda import nsga2_ranks as _n1
+from .cuda.common import capture_graph, replays_graphs
 from .cuda.nsga2_ranks import domination_matrix  # noqa: F401 (the JAX
 #   package's ops/nsga2 holds it; here it lives beside the kernel it defines)
 
@@ -330,12 +333,94 @@ def nsga2_run(
     violation_fn: Optional[Callable] = None,
     draws: Optional[Sequence[NSGA2Draws]] = None,
 ) -> NSGA2State:
-    """``n_steps`` generations; ``draws[i]`` replaces generation i's."""
+    """``n_steps`` generations; ``draws[i]`` replaces generation i's.  On a
+    card without ``draws`` the generations are replayed from a CUDA graph
+    of one (``_replayed_run``), equal to the eager loop bit for bit; the
+    CPU and handed draws run the loop eagerly."""
+    params = (lb, ub, eta_c, eta_m, p_cross, p_mut)
+    if draws is None and n_steps > 0 and replays_graphs(state.pos.device):
+        return _replayed_run(state, objective, violation_fn, params, n_steps)
     for i in range(n_steps):
-        state = nsga2_step(state, objective, lb, ub, eta_c, eta_m, p_cross,
-                           p_mut, violation_fn,
+        state = nsga2_step(state, objective, *params,
+                           violation_fn=violation_fn,
                            draws=None if draws is None else draws[i])
     return state
+
+
+class _Replay(NamedTuple):
+    """A captured generation: its graph, the static state it reads and
+    writes (its generator is the run's), the N1 launches its capture
+    recorded, and what it was captured for (the objective, the constraint,
+    the parameters, the fields' shapes and dtypes)."""
+
+    graph: torch.cuda.CUDAGraph
+    static: NSGA2State
+    launches: int
+    key: tuple
+
+
+# The last capture, replayed by the next run whose state has the same
+# generator and key (a model's later runs).
+_replay: Optional[_Replay] = None
+
+
+def _capture(state: NSGA2State, objective, violation_fn, params,
+             key: tuple) -> _Replay:
+    """Capture one generation into a CUDA graph over static copies of the
+    state's tensors, with its generator registered, the generation's
+    outputs copied back into them.  Raises, naming the objective and the
+    constraint, if the capture fails (a function that waits for the device
+    or leaves it cannot be captured), or if it did not record one N1
+    launch."""
+    static = state.replace(**{f: getattr(state, f).clone()
+                              for f in NSGA2_TENSOR_FIELDS})
+
+    def body():
+        out = nsga2_step(static, objective, *params,
+                         violation_fn=violation_fn)
+        for f in NSGA2_TENSOR_FIELDS:
+            getattr(static, f).copy_(getattr(out, f))
+
+    _n1._captured = 0
+    try:
+        graph = capture_graph(body, state.gen, state.pos.device)
+    except Exception as err:
+        raise RuntimeError(
+            f"NSGA-II's generation could not be captured into a CUDA graph: "
+            f"the objective {objective!r} or the constraint {violation_fn!r} "
+            "must run on the card without waiting for it (no .item(), no "
+            "copy to the host, no numpy)") from err
+    if _n1._captured != 1:
+        raise RuntimeError("a captured NSGA-II generation must launch N1 "
+                           f"once, got {_n1._captured}")
+    return _Replay(graph, static, _n1._captured, key)
+
+
+def _replayed_run(state: NSGA2State, objective, violation_fn, params,
+                  n_steps: int) -> NSGA2State:
+    """``n_steps`` generations on the card, each a replay of one captured
+    generation (captured anew unless the last capture was made for this
+    generator and key).  The generator is registered with the graph, so a
+    replay draws from its offset at that replay and advances it as an
+    eager generation does.  The state is copied into the graph's static
+    tensors and the result copied out, so neither the caller's state nor
+    a state an earlier run returned is ever written.  Each replay adds
+    the N1 launches its capture recorded."""
+    global _replay
+    key = (objective, violation_fn, params,
+           tuple((tuple(getattr(state, f).shape), getattr(state, f).dtype)
+                 for f in NSGA2_TENSOR_FIELDS))
+    r = _replay
+    if r is None or r.static.gen is not state.gen or r.key != key:
+        _replay = r = None          # the old graph's memory goes first
+        r = _replay = _capture(state, objective, violation_fn, params, key)
+    for f in NSGA2_TENSOR_FIELDS:
+        getattr(r.static, f).copy_(getattr(state, f))
+    for _ in range(n_steps):
+        r.graph.replay()
+        _n1.LAUNCHES += r.launches
+    return r.static.replace(**{f: getattr(r.static, f).clone()
+                               for f in NSGA2_TENSOR_FIELDS})
 
 
 def nsga2_state_from_numpy(arrays: Mapping[str, np.ndarray],

@@ -4368,6 +4368,13 @@ N1_CASES = (
     [("random", p, m) for p in (1, 31, 1024, 1025, 2049, 4096)
      for m in (1, 2, 3)]
     + [("chain", p, m) for p in (33, 1024, 1300, 4096) for m in (1, 2)]
+    # Each peel's edge: the register peel's one-word and 32-word sets, the
+    # staged peel's first size.
+    + [(kind, p, m) for kind in ("random", "chain") for p in (32, 33, 1024,
+                                                              1025)
+       for m in (1, 3) if (kind, p) not in (("chain", 33), ("chain", 1024))]
+    # The pack stages 64 objectives at a time: one past a chunk, several.
+    + [("random", 33, 65), ("random", 100, 200), ("viol", 1024, 130)]
     + [(kind, p, m) for kind in ("equal", "duplicates", "signed", "viol",
                                  "viol_zero")
        for p in (31, 1024, 2049) for m in (1, 2, 3)]
@@ -4399,9 +4406,11 @@ def test_nsga2_ranks_builds_spill_no_registers(cuda):
     _build.build(["nsga2_ranks"])
     log = _build.build_log("nsga2_ranks")
     entries = [ln for ln in log.splitlines() if "Compiling entry" in ln]
-    assert len(entries) == 3, entries      # pack, peel on chip, peel global
+    # The pack, the register peel, the staged peel on chip and from global
+    # memory.
+    assert len(entries) == 4, entries
     spills = [ln for ln in log.splitlines() if "spill" in ln]
-    assert len(spills) >= 3 and all(
+    assert len(spills) >= 4 and all(
         "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
 
 
@@ -4485,6 +4494,105 @@ def test_nsga2_generation_on_the_card_selects_as_the_cpu_does(cuda):
         assert torch.equal(g.cpu(), w)
     out = tn.nsga2_step(st_c, tn.zdt1, draws=draws_c)
     assert bool((out.pos >= 0).all() and (out.pos <= 1).all())
+
+
+def _ineq_violation(x):
+    from distributed_swarm_algorithm_tpu_torch.ops.constraints import (
+        violation,
+    )
+    return violation(x, (lambda y: 0.3 - y[:, 0],), ())
+
+
+def _nsga2_eager(state, steps, violation_fn=None, **params):
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    for _ in range(steps):
+        state = tn.nsga2_step(state, tn.zdt1, violation_fn=violation_fn,
+                              **params)
+    return state
+
+
+def _nsga2_equal(a, b):
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    for f in tn.NSGA2_TENSOR_FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constrained", [False, True])
+def test_nsga2_replayed_run_equals_the_eager_loop(cuda, constrained):
+    # bench_nsga2.py's ZDT1 (512 x 30), and with an inequality: two runs
+    # replayed from one captured generation equal an eager loop of
+    # nsga2_step bit for bit, one N1 launch a generation.
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    vf = _ineq_violation if constrained else None
+    init = lambda: tn.nsga2_init(tn.zdt1, 512, 30, seed=4,  # noqa: E731
+                                 violation_fn=vf, device=cuda)
+    eager = _nsga2_eager(init(), 12, vf)
+    st = init()
+    assert bool((st.viol > 0).any()) == constrained
+    before = port_n1.LAUNCHES
+    st = tn.nsga2_run(tn.nsga2_run(st, tn.zdt1, 5, violation_fn=vf),
+                      tn.zdt1, 7, violation_fn=vf)
+    torch.cuda.synchronize()
+    assert port_n1.LAUNCHES == before + 12
+    _nsga2_equal(st, eager)
+    assert int(st.iteration) == 12
+
+
+@pytest.mark.cuda
+def test_nsga2_replayed_run_captures_again_when_a_parameter_changes(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    opt = tdsa.NSGA2("zdt1", n=128, dim=10, seed=2)
+    opt.run(2)
+    first = tn._replay
+    opt.run(2)
+    assert tn._replay is first
+    opt.p_cross = 0.5
+    opt.run(2)
+    assert tn._replay is not first
+    want = _nsga2_eager(tn.nsga2_init(tn.zdt1, 128, 10, seed=2,
+                                      device=cuda), 4)
+    _nsga2_equal(opt.state, _nsga2_eager(want, 2, p_cross=0.5))
+
+
+@pytest.mark.cuda
+def test_nsga2_replayed_run_never_writes_an_earlier_state(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+    opt = tdsa.NSGA2("zdt2", n=256, dim=12, seed=5)
+    first = opt.state
+    kept = {f: getattr(first, f).clone() for f in tn.NSGA2_TENSOR_FIELDS}
+    second = opt.run(3)
+    after = {f: getattr(second, f).clone() for f in tn.NSGA2_TENSOR_FIELDS}
+    opt.run(3)
+    torch.cuda.synchronize()
+    for f in tn.NSGA2_TENSOR_FIELDS:
+        assert torch.equal(getattr(first, f), kept[f]), f
+        assert torch.equal(getattr(second, f), after[f]), f
+    assert int(opt.state.iteration) == 6
+
+
+@pytest.mark.cuda
+def test_nsga2_replayed_run_raises_on_an_objective_it_cannot_capture(cuda):
+    from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+
+    def reads_the_card(pos):
+        if float(pos[0, 0]) > 2.0:        # waits for the device
+            pos = pos * 0.5
+        return tn.zdt1(pos)
+
+    st = tn.nsga2_init(reads_the_card, 64, 6, seed=1, device=cuda)
+    with pytest.raises(RuntimeError, match="could not be captured") as err:
+        tn.nsga2_run(st, reads_the_card, 2)
+    assert "reads_the_card" in str(err.value)
+    # The generator is where it was and the card stays usable: the eager
+    # loop from the state, and a replayed run from a fresh one, equal the
+    # eager loop from a fresh state.
+    eager = _nsga2_eager(tn.nsga2_init(tn.zdt1, 64, 6, seed=1,
+                                       device=cuda), 3)
+    _nsga2_equal(_nsga2_eager(st, 3), eager)
+    _nsga2_equal(tn.nsga2_run(tn.nsga2_init(tn.zdt1, 64, 6, seed=1,
+                                            device=cuda), tn.zdt1, 3), eager)
 
 
 # --------------------------------------------------------------------------

@@ -42,6 +42,7 @@ import distributed_swarm_algorithm_tpu_torch as tdsa
 from distributed_swarm_algorithm_tpu.ops import nsga2 as jn
 from distributed_swarm_algorithm_tpu_torch.models.nsga2 import NSGA2
 from distributed_swarm_algorithm_tpu_torch.ops import nsga2 as tn
+from distributed_swarm_algorithm_tpu_torch.ops.constraints import violation
 from distributed_swarm_algorithm_tpu_torch.ops.cuda import nsga2_ranks as n1
 
 REPO = Path(__file__).resolve().parent.parent
@@ -150,6 +151,86 @@ def test_ranks_on_a_cpu_tensor_take_the_plain_version_and_cuda_raises():
     assert n1.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         n1.nsga2_ranks_cuda(objs, None, tn.FEAS_TOL)
+
+
+def packed_domination(objs, viol, feas_tol=tn.FEAS_TOL):
+    """N1's pack in numpy: [W, p_pad] uint32, word w of column i holding
+    the j of 32w..32w+31 that dominate i.  The j past P read objectives and
+    violations of 0 (as the kernel stages them) and are cleared by the
+    last word's mask; the columns past P are 0."""
+    p, m = objs.shape
+    p_pad = -(-p // 32) * 32
+    obj_j = np.zeros((p_pad, m), np.float32)
+    obj_j[:p] = objs
+    a, b = obj_j[:, None, :], objs[None, :, :]          # [j, i, M]
+    word = (a <= b).all(-1) & (a < b).any(-1)           # Pareto, [j, i]
+    if viol is not None:
+        v_j = np.zeros(p_pad, np.float32)
+        v_j[:p] = viol
+        feas = (v_j <= np.float32(feas_tol))[:, None]
+        less = v_j[:, None] < viol[None, :]
+        word = np.where((viol <= np.float32(feas_tol))[None, :],
+                        feas & word, feas | less)
+    word &= (np.arange(p_pad) < p)[:, None]
+    cols = np.zeros((p_pad, p_pad), bool)
+    cols[:, :p] = word
+    shifts = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    return (cols.reshape(p_pad // 32, 32, p_pad)
+            * shifts[None, :, None]).sum(1, dtype=np.uint32)
+
+
+def register_peel(objs, viol, feas_tol=tn.FEAS_TOL):
+    """N1's register peel in numpy: (rank [P] int32, fronts).  The
+    unassigned set is W words (the last masked to P); a round ORs every
+    word of an unassigned column against the set, with no early exit, and
+    an unassigned point with no hit joins the front; a warp's ballot clears
+    its joiners from the next set.  At most P rounds."""
+    p = objs.shape[0]
+    bits = packed_domination(objs, viol, feas_tol)
+    n_words, p_pad = bits.shape
+    left = np.array([np.uint32(0xFFFFFFFF) if p - 32 * w >= 32
+                     else np.uint32((1 << (p - 32 * w)) - 1)
+                     for w in range(n_words)], np.uint32)
+    lanes = np.arange(p_pad)
+    rank = np.full(p_pad, -1, np.int32)
+    front, more = 0, True
+    while more and front < p:
+        mine = (left[lanes >> 5] >> (lanes & 31).astype(np.uint32)) & 1
+        hit = np.bitwise_or.reduce(bits & left[:, None], axis=0)
+        joins = (mine == 1) & (hit == 0)
+        rank[joins] = front
+        joined = (joins.reshape(n_words, 32).astype(np.uint32)
+                  << np.arange(32, dtype=np.uint32)).sum(1, dtype=np.uint32)
+        left = left & ~joined
+        more = bool(left.any())
+        front += 1
+    return rank[:p], front
+
+
+PEEL_CASES = (
+    [("random", p, 2) for p in (1, 31, 32, 33, 1000, 1024)]
+    + [("chain", p, 1) for p in (1, 32, 33, 1024)]
+    + [("chain", 31, 2), ("chain", 1000, 2)]
+    + [("equal", 33, 3), ("equal", 1024, 2), ("duplicates", 1000, 2),
+       ("duplicates", 33, 3), ("signed", 1024, 3), ("signed", 32, 2),
+       ("signed", 1000, 2), ("viol", 33, 2), ("viol", 1024, 2),
+       ("viol", 1000, 3), ("viol_zero", 1024, 2), ("viol_zero", 31, 2),
+       ("random", 1024, 3)]
+)
+
+
+@pytest.mark.parametrize("kind,p,m", PEEL_CASES)
+def test_register_peel_model_equals_the_jax_ranks(kind, p, m):
+    """The redesigned N1's word layout, last-word mask and round, with no
+    early exit and the cap of P rounds, give JAX's ranks and front count
+    exactly."""
+    objs, viol = rank_case(kind, p, m, seed=p * 5 + m)
+    got, fronts = register_peel(objs, viol)
+    want = jranks(objs, viol)
+    np.testing.assert_array_equal(got, want)
+    assert fronts == int(want.max()) + 1
+    if kind == "chain":
+        assert fronts == p
 
 
 # --------------------------------------------------------------------------
@@ -502,6 +583,146 @@ def test_model_igd_on_zdt1():
     assert opt.igd() < 0.02
     assert opt.igd(reference=tn.zdt1_front(128, device="cpu")) < 0.02
     assert opt.hypervolume([1.1, 1.1]) > 0.7
+
+
+# --------------------------------------------------------------------------
+# The replayed run (a CUDA graph of one generation), with a stand-in graph
+# --------------------------------------------------------------------------
+
+
+class StandInGraph:
+    """A CUDA graph stand-in: capturing runs the body once as the stream
+    would record it (N1's plain version counts into the capture tally, the
+    generator's state is put back); each replay runs it again."""
+
+    capturing = False
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        StandInGraph.capturing = True
+        try:
+            self.body()
+        finally:
+            StandInGraph.capturing = False
+
+    @classmethod
+    def capture(cls, body, gen, device):
+        state = gen.get_state()
+        graph = cls(body)
+        graph.replay()
+        gen.set_state(state)
+        return graph
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The replayed path on the CPU: ``nsga2_run`` replays stand-in graphs,
+    N1's plain version counts as the kernel's wrapper does, and the
+    captures made are listed."""
+    plain = n1.nsga2_ranks_plain
+    captures = []
+
+    def counted(*a, **kw):
+        if StandInGraph.capturing:
+            n1._captured += 1
+        else:
+            n1.LAUNCHES += 1
+        return plain(*a, **kw)
+
+    def capture(body, gen, device):
+        captures.append(gen)
+        return StandInGraph.capture(body, gen, device)
+
+    monkeypatch.setattr(n1, "nsga2_ranks_plain", counted)
+    monkeypatch.setattr(tn, "capture_graph", capture)
+    monkeypatch.setattr(tn, "replays_graphs", lambda dev: True)
+    monkeypatch.setattr(tn, "_replay", None)
+    return captures
+
+
+def eager_loop(state, objective, steps, violation_fn=None, **params):
+    for _ in range(steps):
+        state = tn.nsga2_step(state, objective, violation_fn=violation_fn,
+                              **params)
+    return state
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_replayed_run_equals_the_eager_loop(stand_in, constrained):
+    """Replayed generations (two runs, one capture) equal an eager loop of
+    ``nsga2_step`` on every field and on the generator's state, and count
+    one N1 launch a generation."""
+    vf = ((lambda x: violation(x, (constraint,), ())) if constrained
+          else None)
+    runs = {}
+    for replayed in (False, True):
+        st = tn.nsga2_init(tn.zdt1, 32, 5, seed=3, violation_fn=vf,
+                           device="cpu")
+        assert bool((st.viol > 0).any()) == constrained
+        before = n1.LAUNCHES
+        if replayed:
+            st = tn.nsga2_run(tn.nsga2_run(st, tn.zdt1, 2, violation_fn=vf),
+                              tn.zdt1, 3, violation_fn=vf)
+        else:
+            st = eager_loop(st, tn.zdt1, 5, violation_fn=vf)
+        runs[replayed] = (st, n1.LAUNCHES - before)
+    (eager, le), (graph, lg) = runs[False], runs[True]
+    for f in tn.NSGA2_TENSOR_FIELDS:
+        assert torch.equal(getattr(eager, f), getattr(graph, f)), f
+    assert torch.equal(eager.gen.get_state(), graph.gen.get_state())
+    assert le == lg == 5 and len(stand_in) == 1
+    assert int(graph.iteration) == 5
+
+
+def test_replayed_run_captures_again_when_a_parameter_changes(stand_in):
+    opt = NSGA2("zdt1", n=32, dim=5, seed=2, device="cpu")
+    opt.run(2)
+    opt.run(2)
+    assert len(stand_in) == 1
+    opt.p_cross = 0.5
+    opt.run(2)
+    assert len(stand_in) == 2
+    want = eager_loop(
+        tn.nsga2_init(tn.zdt1, 32, 5, seed=2, device="cpu"), tn.zdt1, 4)
+    want = eager_loop(want, tn.zdt1, 2, p_cross=0.5)
+    for f in tn.NSGA2_TENSOR_FIELDS:
+        assert torch.equal(getattr(opt.state, f), getattr(want, f)), f
+    other = NSGA2("zdt1", n=32, dim=5, seed=2, device="cpu")
+    other.run(1)                       # another generator: a new capture
+    assert len(stand_in) == 3 and stand_in[2] is other.state.gen
+
+
+def test_replayed_run_never_writes_an_earlier_state(stand_in):
+    opt = NSGA2("zdt2", n=32, dim=4, seed=5, device="cpu")
+    first = opt.state
+    kept = {f: getattr(first, f).clone() for f in tn.NSGA2_TENSOR_FIELDS}
+    second = opt.run(3)
+    after_second = {f: getattr(second, f).clone()
+                    for f in tn.NSGA2_TENSOR_FIELDS}
+    opt.run(3)
+    for f in tn.NSGA2_TENSOR_FIELDS:
+        assert torch.equal(getattr(first, f), kept[f]), f
+        assert torch.equal(getattr(second, f), after_second[f]), f
+    assert int(second.iteration) == 3 and int(opt.state.iteration) == 6
+
+
+def test_replayed_run_names_an_objective_it_cannot_capture(stand_in):
+    def host_bound(pos):
+        if StandInGraph.capturing:
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return tn.zdt1(pos)
+
+    st = tn.nsga2_init(host_bound, 16, 4, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="could not be captured") as err:
+        tn.nsga2_run(st, host_bound, 2)
+    assert "host_bound" in str(err.value)
+    # Handed draws and the eager step never capture.
+    tn.nsga2_run(st, host_bound, 1, draws=[tn.variation_draws(
+        st.pos, torch.Generator().manual_seed(1))])
+    assert len(stand_in) == 1
 
 
 def test_model_needs_a_card_unless_asked_for_the_cpu():
